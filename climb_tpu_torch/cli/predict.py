@@ -1,0 +1,174 @@
+"""Batched inference CLI (counterpart of ``climb_tpu/cli/predict.py``).
+
+Loads a Phase I checkpoint in the reference torch layout, runs a task's eval
+split through the serving forward batch by batch, and writes per-example
+predictions, the task metric and the measured throughput in the JAX CLI's
+output JSON. Runs on the card unless ``--device cpu`` is given.
+
+Usage:
+  python -m climb_tpu_torch.cli.predict --encoder_name vilt \\
+      --ordered_cl_tasks snli-ve --task_key snli-ve --synthetic \\
+      --checkpoint model.pt --output_dir out --output_file preds.json
+"""
+
+import argparse
+import json
+import logging
+import os
+import time
+
+import torch
+
+from climb_tpu_torch.ckpt.convert import load_into, load_reference_checkpoint
+from climb_tpu_torch.cli.common import (
+    add_common_args,
+    add_device_args,
+    reject_unported,
+    setup_logging,
+)
+from climb_tpu_torch.configs.task_configs import task_configs
+from climb_tpu_torch.data.collation import stack_collate
+from climb_tpu_torch.data.loader import EvalLoader
+from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
+from climb_tpu_torch.device import resolve_device
+from climb_tpu_torch.train.eval_step import LOSS_TYPES, make_eval_step
+from climb_tpu_torch.train.model_factory import create_cl_model
+
+logger = logging.getLogger(__name__)
+
+
+def build_parser():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--encoder_name", required=True, type=str)
+    parser.add_argument("--pretrained_model_name", default="scratch", type=str,
+                        help="Base weights; the checkpoint overrides them.")
+    parser.add_argument("--ordered_cl_tasks", required=True, type=str,
+                        help="Task sequence the checkpoint was trained with "
+                             "(determines which heads exist).")
+    parser.add_argument("--task_key", required=True, type=str,
+                        help="Which task head to run.")
+    parser.add_argument("--checkpoint", default=None, type=str,
+                        help="Model checkpoint in the reference torch layout "
+                             "(vilt_encoder.vilt.* + task_layer.*).")
+    parser.add_argument("--cl_algorithm", default=None, type=str,
+                        help="'adapter' checkpoints are not ported yet.")
+    parser.add_argument("--climb_data_dir", type=str, default=".")
+    parser.add_argument("--input_jsonl", type=str, default=None,
+                        help="Raw JSONL inputs: not ported yet.")
+    parser.add_argument("--output_file", type=str, default="predictions.json")
+    parser.add_argument("--export_model", type=str, default=None,
+                        help="jax.export artifacts: not ported.")
+    parser.add_argument("--from_export", type=str, default=None,
+                        help="jax.export artifacts: not ported.")
+    parser.add_argument("--max_predictions", type=int, default=0,
+                        help="Cap the prediction list in the output JSON (0 = write all).")
+    add_common_args(parser)
+    add_device_args(parser)
+    # inference default: bf16 compute, as in the JAX CLI
+    parser.set_defaults(compute_dtype="bfloat16")
+    return parser
+
+
+def _reject_unported_predict(args):
+    reject_unported(args)
+    for flag, later in (("input_jsonl", "the raw-input serving slice"),
+                        ("export_model", "the serve/export slice"),
+                        ("from_export", "the serve/export slice")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported to climb_tpu_torch yet ({later})")
+    if args.cl_algorithm == "adapter":
+        raise NotImplementedError("--cl_algorithm adapter is not ported to climb_tpu_torch "
+                                  "yet (the CL-algorithms slice)")
+    if not args.synthetic:
+        raise NotImplementedError("real datasets are not ported to climb_tpu_torch yet (the "
+                                  "Phase I training slice); pass --synthetic")
+    if args.pretrained_model_name != "scratch" and not args.checkpoint:
+        raise NotImplementedError(
+            f"--pretrained_model_name {args.pretrained_model_name}: HF weights are not ported "
+            "to climb_tpu_torch yet (the Phase I training slice); pass --checkpoint")
+
+
+def _batch_divisor(task_cfg: dict) -> int:
+    """Reference quirk: the loader batch is global/2 for NLVR2 and /4 for VCR."""
+    if task_cfg.get("model_type") == "multi-choice":
+        return task_cfg.get("num_choices", 4)
+    return task_cfg.get("num_images", 1)
+
+
+def build_eval_loader(args) -> EvalLoader:
+    task_cfg = task_configs[args.task_key]
+    size = args.synthetic_train_size
+    dataset = make_synthetic_vl_dataset(
+        args.task_key, task_cfg, "val", max(8, size // 4), args.max_text_len,
+        (args.image_height, args.image_width), args.seed, label_noise=args.synthetic_noise,
+    )
+    bs = args.eval_batch_size or args.batch_size
+    return EvalLoader(dataset, max(1, bs // _batch_divisor(task_cfg)), stack_collate)
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def main(argv=None):
+    setup_logging()
+    args = build_parser().parse_args(argv)
+    args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+    if args.tiny:  # tiny model config implies the tiny image canvas
+        args.image_height, args.image_width = 64, 96
+    if args.task_key not in args.ordered_cl_tasks:
+        raise ValueError(f"--task_key {args.task_key} not in --ordered_cl_tasks")
+    _reject_unported_predict(args)
+    device = resolve_device(args.device)
+
+    model = create_cl_model(args, task_configs, device)
+    if args.checkpoint:
+        if not os.path.isfile(args.checkpoint):
+            raise FileNotFoundError(args.checkpoint)
+        loaded, missing = load_into(model, load_reference_checkpoint(args.checkpoint))
+        logger.info("Checkpoint %s: %d tensors loaded, %d kept from init",
+                    args.checkpoint, len(loaded), len(missing))
+
+    eval_step = make_eval_step(model, args.task_key, LOSS_TYPES[args.task_key],
+                               model.cfg.compute_dtype)
+    return _predict_dataset(args, build_eval_loader(args), eval_step, device)
+
+
+def _predict_dataset(args, loader, eval_step, device):
+    preds, total, count, n, n_timed = [], 0.0, 0.0, 0, 0
+    t_start, t0 = time.perf_counter(), None
+    for batch in loader:
+        logits, s, c = eval_step(to_device(batch, device))
+        # float() waits for the card; the first batch (kernel build and
+        # warm-up) stays out of the throughput when later batches exist
+        total += float(s)
+        count += float(c)
+        valid = batch["valid"].astype(bool)
+        preds.extend(torch.argmax(logits, dim=-1).cpu().numpy()[valid].tolist())
+        n += int(valid.sum())
+        if t0 is None:
+            t0 = time.perf_counter()
+        else:
+            n_timed += int(valid.sum())
+    now = time.perf_counter()
+    ex_s = n_timed / (now - t0) if n_timed else n / max(now - t_start, 1e-9)
+    score = 100.0 * total / max(count, 1.0)
+
+    out = {
+        "task_key": args.task_key,
+        "checkpoint": args.checkpoint,
+        "metric": score,
+        "n_examples": n,
+        "examples_per_sec": round(ex_s, 1),
+        "predictions": preds[: args.max_predictions] if args.max_predictions else preds,
+    }
+    os.makedirs(os.path.dirname(args.output_file) or ".", exist_ok=True)
+    with open(args.output_file, "w") as f:
+        json.dump(out, f)
+    logger.info("task=%s: metric=%.2f over %d examples (%.1f ex/s) -> %s",
+                args.task_key, score, n, ex_s, args.output_file)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,29 @@
+// Shared helpers for the climb_tpu_torch CUDA kernels (sm_90a, plain C ABI).
+//
+// Every entry point is `extern "C"`, launches on the stream it is given,
+// allocates nothing, and returns cudaGetLastError() so the Python wrapper can
+// raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace climb {
+
+// dtype codes shared with climb_tpu_torch/kernels/build.py
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+}  // namespace climb

@@ -1,0 +1,97 @@
+"""Static model configuration (counterpart of ``climb_tpu/models/model_config.py``).
+
+HF ``ViltConfig`` defaults for ``dandelin/vilt-b32-mlm`` plus the fixed image
+canvas, the compute dtype and the kernel switches. Dropout rates (the serving
+forward has none), pipeline fields and adapter specs are not ported yet.
+"""
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ViltConfig:
+    # Transformer
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+
+    # Text side
+    max_text_len: int = 40            # ViLT has only 40 text position slots
+    type_vocab_size: int = 2
+
+    # Image side: a fixed canvas; per-sample validity travels as `patch_hw`
+    patch_size: int = 32
+    pretrain_image_size: int = 384    # pretrained pos-embed grid = 384/32 = 12
+    image_height: int = 384
+    image_width: int = 640
+    num_channels: int = 3
+
+    # 2 normally, 3 after NLVR2's modality-type expansion
+    modality_type_vocab_size: int = 2
+
+    # Execution knobs
+    dtype: str = "float32"            # compute dtype ("float32" | "bfloat16")
+    attn_impl: str = "xla"            # "xla" | "pallas" | "auto": one function
+    mlp_impl: str = "xla"             # "xla" | "pallas": one function
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def pos_grid(self) -> int:
+        return self.pretrain_image_size // self.patch_size
+
+    @property
+    def grid_h(self) -> int:
+        return self.image_height // self.patch_size
+
+    @property
+    def grid_w(self) -> int:
+        return self.image_width // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_h * self.grid_w
+
+    @property
+    def seq_len(self) -> int:
+        """Total token count: text + image-CLS + patches."""
+        return self.max_text_len + 1 + self.num_patches
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _TORCH_DTYPES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSpec:
+    """Static description of a task head (reference vilt.py:179-203)."""
+
+    task_key: str
+    model_type: str                   # "classification" | "multi-choice"
+    num_labels: int
+    num_images: int = 1
+    num_choices: Optional[int] = None
+
+
+def head_specs_from_task_configs(task_keys, task_configs) -> Tuple[HeadSpec, ...]:
+    return tuple(
+        HeadSpec(
+            task_key=key,
+            model_type=task_configs[key]["model_type"],
+            num_labels=task_configs[key]["num_labels"],
+            num_images=task_configs[key].get("num_images", 1),
+            num_choices=task_configs[key].get("num_choices"),
+        )
+        for key in task_keys
+    )

@@ -1,0 +1,91 @@
+"""ViLT continual learner (counterpart of ``climb_tpu/models/vilt.py``).
+
+Encoder + one head per task, with the forward chosen by the task's head spec.
+The image pairs of NLVR2 and the choices of VCR fold into the batch axis: one
+encoder pass over B*2 or B*num_choices sequences gives the logits of the
+reference's sequential passes (``src/modeling/vilt.py:263-350``).
+
+Parameter names follow the JAX tree: ``vilt.*`` for the encoder and
+``head_<task>.*`` per task (``-`` becomes ``_``).
+"""
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from climb_tpu_torch.models.heads import ClassificationHead, MultiChoiceHead
+from climb_tpu_torch.models.model_config import HeadSpec, ViltConfig
+from climb_tpu_torch.models.vilt_core import ViltCore, init_weights_
+
+
+def head_name(task_key: str) -> str:
+    return "head_" + task_key.replace("-", "_")
+
+
+class ViltContinualLearner(nn.Module):
+    def __init__(self, cfg: ViltConfig, head_specs: Tuple[HeadSpec, ...]):
+        super().__init__()
+        self.cfg = cfg
+        self.head_specs = tuple(head_specs)
+        self._spec_by_key = {spec.task_key: spec for spec in self.head_specs}
+        self.vilt = ViltCore(cfg)
+        d, dtype = cfg.hidden_size, cfg.compute_dtype
+        for spec in self.head_specs:
+            if spec.model_type == "multi-choice":
+                head = MultiChoiceHead(d, dtype=dtype)
+            else:
+                head = ClassificationHead(spec.num_labels, d, spec.num_images, dtype=dtype)
+            self.add_module(head_name(spec.task_key), head)
+
+    def reset_parameters(self, generator: torch.Generator):
+        init_weights_(self, generator, self.cfg.initializer_range)
+
+    def head(self, task_key: str) -> nn.Module:
+        return getattr(self, head_name(task_key))
+
+    def forward(self, task_key: str, batch: dict) -> torch.Tensor:
+        spec = self._spec_by_key[task_key]
+        if spec.model_type == "multi-choice":
+            return self.forward_multi_choice(task_key, batch)
+        if spec.num_images == 2:
+            return self.forward_pair(task_key, batch)
+        return self.forward_single(task_key, batch)
+
+    # single image + text (VQA, SNLI-VE)
+    def forward_single(self, task_key: str, batch: dict) -> torch.Tensor:
+        _, pooled, _ = self.vilt(
+            batch["input_ids"], batch["text_mask"], batch["pixel_values"], batch["patch_hw"],
+            token_type_ids=batch.get("token_type_ids"),
+        )
+        return self.head(task_key)(pooled)
+
+    # image pair + text (NLVR2): sample-major fold s0i0, s0i1, ... with
+    # modality-type rows 1 and 2
+    def forward_pair(self, task_key: str, batch: dict) -> torch.Tensor:
+        ids, mask = batch["input_ids"], batch["text_mask"]
+        pv, phw = batch["pixel_values"], batch["patch_hw"]
+        b = ids.shape[0]
+        tt = batch.get("token_type_ids")
+        itti = torch.tensor([1, 2], dtype=torch.int64, device=ids.device).repeat(b)
+        _, pooled, _ = self.vilt(
+            ids.repeat_interleave(2, dim=0), mask.repeat_interleave(2, dim=0),
+            pv.reshape((b * 2,) + tuple(pv.shape[2:])), phw.reshape(b * 2, 2),
+            image_token_type_idx=itti,
+            token_type_ids=None if tt is None else tt.repeat_interleave(2, dim=0),
+        )
+        # (2B, D) -> (B, 2D): [img0-pooled, img1-pooled] per sample
+        return self.head(task_key)(pooled.reshape(b, 2 * pooled.shape[-1]))
+
+    # multiple choice (VCR): the image repeats across the choices
+    def forward_multi_choice(self, task_key: str, batch: dict) -> torch.Tensor:
+        ids, mask = batch["input_ids"], batch["text_mask"]
+        pv, phw = batch["pixel_values"], batch["patch_hw"]
+        b, nc, l = ids.shape
+        tt = batch.get("token_type_ids")
+        _, pooled, _ = self.vilt(
+            ids.reshape(b * nc, l), mask.reshape(b * nc, l),
+            pv.repeat_interleave(nc, dim=0), phw.repeat_interleave(nc, dim=0),
+            token_type_ids=None if tt is None else tt.reshape(b * nc, l),
+        )
+        return self.head(task_key)(pooled).reshape(b, nc)

@@ -1,0 +1,204 @@
+"""The ViLT encoder in PyTorch (counterpart of ``climb_tpu/models/vilt_core.py``).
+
+Same function as the JAX ``ViltCore``: images on a fixed canvas with the valid
+patch grid carried by ``patch_hw``, conv-as-matmul patch embedding, per-sample
+bilinear resampling of the pretrained position grid, pre-norm blocks, final
+LayerNorm and tanh pooler. Attention and the FFN go through
+``ops.attention.multi_head_attention`` and ``ops.mlp.fused_mlp``, which launch
+the CUDA kernels on the card.
+
+Parameters are float32 and are cast to the compute dtype where they are used,
+as flax does with ``dtype=``. The text LayerNorm, the CLS/patch embedding sum
+and the mask bias stay float32 whatever the compute dtype.
+
+Not ported yet: adapters, LoRA, int8 dense layers, fused QKV, remat and the
+pipeline-parallel encoder.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from climb_tpu_torch.models.model_config import ViltConfig
+from climb_tpu_torch.ops import attention, mlp
+from climb_tpu_torch.ops.patch_embed import patch_grid_mask, patchify
+
+
+def _interp_weight_matrix(n_valid: torch.Tensor, src: int, out_total: int) -> torch.Tensor:
+    """Align-corners bilinear weights, batched: (B,) -> (B, out_total, src).
+
+    Row i resamples a length-``src`` signal to length ``n_valid`` at output
+    index i, zero for i >= n_valid.
+    """
+    n = n_valid.to(torch.int64)[:, None]
+    i = torch.arange(out_total, dtype=torch.float32, device=n_valid.device)[None, :]
+    denom = torch.clamp(n - 1, min=1).to(torch.float32)
+    t = torch.where(n > 1, i * (src - 1) / denom, torch.zeros_like(i))
+    lo = torch.clamp(torch.floor(t), 0, src - 1)
+    frac = t - lo
+    lo_i = lo.to(torch.int64)
+    hi_i = torch.clamp(lo_i + 1, max=src - 1)
+    eye = torch.eye(src, dtype=torch.float32, device=n_valid.device)
+    w = eye[lo_i] * (1.0 - frac)[..., None] + eye[hi_i] * frac[..., None]
+    return w * (i < n).to(torch.float32)[..., None]
+
+
+def interpolate_visual_pos_embed(grid: torch.Tensor, patch_hw: torch.Tensor, grid_h: int,
+                                 grid_w: int) -> torch.Tensor:
+    """Per-sample resample of the (src, src, D) pretrained position grid to each
+    sample's valid patch dims. Returns (B, grid_h * grid_w, D), zero outside
+    the valid region."""
+    src = grid.shape[0]
+    wh = _interp_weight_matrix(patch_hw[:, 0], src, grid_h)
+    ww = _interp_weight_matrix(patch_hw[:, 1], src, grid_w)
+    pos = torch.einsum("bhi,ijd,bwj->bhwd", wh, grid, ww)
+    return pos.reshape(patch_hw.shape[0], grid_h * grid_w, grid.shape[-1])
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=...)``: float32 statistics, output in ``dtype``."""
+    y = F.layer_norm(x.to(torch.float32), layer.normalized_shape, layer.weight, layer.bias,
+                     layer.eps)
+    return y.to(dtype)
+
+
+class ViltBlock(nn.Module):
+    """One pre-norm block: x -> LN1 -> MHA -> +x -> LN2 -> FFN(GELU) -> +x."""
+
+    def __init__(self, cfg: ViltConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, f = cfg.hidden_size, cfg.intermediate_size
+        self.ln1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.q = nn.Linear(d, d)
+        self.k = nn.Linear(d, d)
+        self.v = nn.Linear(d, d)
+        self.attn_out = nn.Linear(d, d)
+        self.ln2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.fc1 = nn.Linear(d, f)
+        self.fc2 = nn.Linear(f, d)
+
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        b, s, d = x.shape
+        heads = (b, s, cfg.num_heads, cfg.head_dim)
+        h = layer_norm(self.ln1, x, dtype)
+        q = dense(self.q, h, dtype).view(heads)
+        k = dense(self.k, h, dtype).view(heads)
+        v = dense(self.v, h, dtype).view(heads)
+        ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
+        x = x + dense(self.attn_out, ctx.reshape(b, s, d), dtype)
+        h = layer_norm(self.ln2, x, dtype)
+        h = mlp.fused_mlp(
+            h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),
+            self.fc2.weight.to(dtype), self.fc2.bias.to(dtype),
+        )
+        return x + h
+
+
+class ViltCore(nn.Module):
+    """Text + image embeddings -> blocks -> LN -> pooler.
+
+    forward(input_ids (B, L) int, text_mask (B, L) {0,1}, pixel_values
+    (B, H, W, C) float normalized, patch_hw (B, 2) int, image_token_type_idx
+    (B,) int or None, token_type_ids (B, L) int or None) returns
+    (sequence_output, pooled_output, joint_mask).
+    """
+
+    def __init__(self, cfg: ViltConfig):
+        super().__init__()
+        if cfg.mlp_impl not in mlp.MLP_IMPLS:
+            raise NotImplementedError(
+                f"mlp_impl {cfg.mlp_impl!r} is not ported; choose one of {mlp.MLP_IMPLS}")
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
+        self.text_position_embeddings = nn.Parameter(torch.empty(cfg.max_text_len, d))
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
+        self.text_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.patch_projection = nn.Linear(cfg.patch_size ** 2 * cfg.num_channels, d)
+        self.visual_position_embeddings = nn.Parameter(torch.zeros(cfg.pos_grid ** 2 + 1, d))
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.modality_type_embeddings = nn.Embedding(cfg.modality_type_vocab_size, d)
+        self.encoder = nn.ModuleList(ViltBlock(cfg) for _ in range(cfg.num_layers))
+        self.final_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.pooler = nn.Linear(d, d)
+
+    def forward(self, input_ids, text_mask, pixel_values, patch_hw,
+                image_token_type_idx=None, token_type_ids=None):
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        f32 = torch.float32
+        b, l = input_ids.shape
+        dev = input_ids.device
+
+        # text embeddings, LayerNorm in f32
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        t = (self.word_embeddings(input_ids.long())
+             + self.token_type_embeddings(token_type_ids.long())
+             + self.text_position_embeddings[None, :l, :])
+        t = layer_norm(self.text_layernorm, t, f32)
+
+        # visual embeddings on the fixed grid of this canvas
+        grid_h = pixel_values.shape[1] // cfg.patch_size
+        grid_w = pixel_values.shape[2] // cfg.patch_size
+        proj = dense(self.patch_projection, patchify(pixel_values.to(dtype), cfg.patch_size),
+                     dtype)
+        vis_pos = self.visual_position_embeddings
+        pos_grid = vis_pos[1:].reshape(cfg.pos_grid, cfg.pos_grid, -1)
+        pos = interpolate_visual_pos_embed(pos_grid, patch_hw, grid_h, grid_w)
+        cls = (self.cls_token + vis_pos[0][None, None, :]).expand(b, 1, -1)
+        img = torch.cat([cls.to(f32), proj.to(f32) + pos], dim=1)
+        img_mask = torch.cat(
+            [torch.ones((b, 1), dtype=f32, device=dev), patch_grid_mask(patch_hw, grid_h, grid_w)],
+            dim=1,
+        )
+
+        # modality-type embeddings, added after the text LayerNorm
+        if image_token_type_idx is None:
+            image_token_type_idx = torch.ones((b,), dtype=torch.int64, device=dev)
+        mod = self.modality_type_embeddings.weight
+        t = t + mod[0][None, None, :]
+        img = img + mod[image_token_type_idx.long()][:, None, :]
+
+        x = torch.cat([t, img], dim=1).to(dtype)
+        joint_mask = torch.cat([text_mask.to(f32), img_mask], dim=1)
+        mask_bias = attention.mask_to_bias(joint_mask, dtype=f32)
+        for block in self.encoder:
+            x = block(x, mask_bias)
+
+        x = layer_norm(self.final_layernorm, x, dtype)
+        pooled = torch.tanh(dense(self.pooler, x[:, 0], dtype))
+        return x, pooled, joint_mask
+
+
+def init_weights_(module: nn.Module, generator: torch.Generator, initializer_range: float):
+    """flax's initializers, drawn from ``generator``: lecun-normal Dense
+    kernels, zero biases, N(0, initializer_range) embeddings and text
+    positions, unit LayerNorms, zero visual positions and CLS token."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                # truncated normal at +-2 std, rescaled to unit variance
+                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, 0.0, initializer_range, generator=generator)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+            if isinstance(m, ViltCore):
+                nn.init.normal_(m.text_position_embeddings, 0.0, initializer_range,
+                                generator=generator)
+                nn.init.zeros_(m.visual_position_embeddings)
+                nn.init.zeros_(m.cls_token)

@@ -1,0 +1,73 @@
+"""Transformer FFN (Dense -> bias -> exact GELU -> Dense -> bias).
+
+Counterpart of ``climb_tpu/ops/pallas_mlp.py``. Weights are in
+``torch.nn.Linear``'s (out, in) layout. ``fused_mlp`` launches
+``csrc/mlp.cu`` (two GEMM launches with fused epilogues) for CUDA tensors
+and runs the plain version for CPU tensors.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from climb_tpu_torch.kernels import LAUNCHES
+from climb_tpu_torch.kernels import build
+
+# Both values compute the same function; on the card each runs the kernel.
+MLP_IMPLS = ("xla", "pallas")
+
+_K_MULTIPLE = 32  # the kernel stages the reduction axis 32 at a time
+
+
+def fused_mlp_plain(x, w1, b1, w2, b2):
+    """The kernel's arithmetic in PyTorch: f32 products of x's-dtype operands,
+    h rounded to x's dtype before the second product (pallas_mlp.py:50)."""
+    f32 = torch.float32
+    h = F.gelu(F.linear(x.to(f32), w1.to(f32), b1.to(f32)), approximate="none")
+    h = h.to(x.dtype)
+    return F.linear(h.to(f32), w2.to(f32), b2.to(f32)).to(x.dtype)
+
+
+def _linear(lib, x2, w, b, out, gelu: bool):
+    m, k = x2.shape
+    n = w.shape[0]
+    build.check(
+        lib.climb_linear_bias_act(
+            x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(gelu),
+            build.DTYPES[x2.dtype], build.stream_handle(x2.device),
+        ),
+        "mlp_fwd",
+    )
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+    """x: (..., D); w1: (F, D); b1: (F,); w2: (D, F); b2: (D,). Returns (..., D)."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    d = x.shape[-1]
+    f = w1.shape[0]
+    if w1.shape != (f, d) or b1.shape != (f,) or w2.shape != (d, f) or b2.shape != (d,):
+        raise ValueError(
+            f"fused_mlp: shapes x {tuple(x.shape)} w1 {tuple(w1.shape)} b1 {tuple(b1.shape)} "
+            f"w2 {tuple(w2.shape)} b2 {tuple(b2.shape)} do not form a (D -> F -> D) FFN"
+        )
+    params = (w1, b1, w2, b2)
+    if x.dtype not in build.DTYPES or any(p.dtype != x.dtype for p in params):
+        raise TypeError(f"fused_mlp: x and weights must share a dtype in {list(build.DTYPES)}")
+    if any(p.device != x.device for p in params):
+        raise ValueError("fused_mlp: x and weights must be on one device")
+    if d % _K_MULTIPLE or f % _K_MULTIPLE:
+        raise ValueError(f"fused_mlp: D={d} and F={f} must be multiples of {_K_MULTIPLE}")
+    for t in (x,) + params:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("fused_mlp: tensors must be contiguous and 16-byte aligned")
+    x2 = x.reshape(-1, d)
+    rows = x2.shape[0]
+    lib = build.load_library()
+    h = torch.empty((rows, f), dtype=x.dtype, device=x.device)
+    _linear(lib, x2, w1, b1, h, gelu=True)
+    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    _linear(lib, h, w2, b2, out, gelu=False)
+    LAUNCHES["mlp_fwd"] += 1
+    return out.reshape(x.shape)

@@ -1,0 +1,64 @@
+"""The serving forward: prepare_batch -> model -> batch_metric.
+
+Counterpart of ``climb_tpu/train/train_step.py``'s ``prepare_batch``,
+``batch_metric`` and ``make_eval_step`` (train_step.py:52-121,433-444).
+"""
+
+from typing import Callable
+
+import torch
+
+from climb_tpu_torch.ops.image_ops import normalize_images
+
+# reference trainers' loss per task (climb_tpu/train/trainers.py)
+LOSS_TYPES = {
+    "vqa": "vqa_bce",
+    "nlvr2": "ce",
+    "snli-ve": "ce",
+    "vcr": "mc_ce",
+}
+
+
+def prepare_batch(batch: dict, compute_dtype=torch.float32) -> dict:
+    """Normalize uint8 pixels on the device; pass floats through unchanged."""
+    out = dict(batch)
+    pv = out.get("pixel_values")
+    if pv is not None and pv.dtype == torch.uint8:
+        out["pixel_values"] = normalize_images(pv, dtype=compute_dtype)
+    return out
+
+
+def batch_metric(logits: torch.Tensor, batch: dict, loss_type: str):
+    """(summed correctness over valid rows, valid count), both float32 scalars.
+
+    ce / mc_ce: argmax == label. vqa_bce: the soft score of the argmax answer.
+    bce_multilabel: 0 (micro-F1 is computed on the host from the logits).
+    """
+    valid = batch.get("valid")
+    if valid is None:
+        valid = torch.ones((logits.shape[0],), dtype=torch.float32, device=logits.device)
+    valid = valid.to(torch.float32)
+    if loss_type == "vqa_bce":
+        pred = torch.argmax(logits, dim=-1)
+        score = torch.gather(batch["target_scores"], 1, pred[:, None])[:, 0]
+        return (score * valid).sum(), valid.sum()
+    if loss_type == "bce_multilabel":
+        return torch.zeros((), dtype=torch.float32, device=logits.device), valid.sum()
+    if loss_type not in ("ce", "mc_ce"):
+        raise ValueError(f"unknown loss_type {loss_type}")
+    correct = (torch.argmax(logits, dim=-1) == batch["labels"].long()).to(torch.float32)
+    return (correct * valid).sum(), valid.sum()
+
+
+def make_eval_step(model: torch.nn.Module, task_key: str, loss_type: str,
+                   compute_dtype=torch.float32) -> Callable:
+    """eval_step(batch) -> (logits, metric_sum, metric_count), no autograd."""
+
+    @torch.inference_mode()
+    def eval_step(batch: dict):
+        batch = prepare_batch(batch, compute_dtype)
+        logits = model(task_key, batch)
+        metric_sum, metric_count = batch_metric(logits, batch, loss_type)
+        return logits, metric_sum, metric_count
+
+    return eval_step

@@ -1,0 +1,126 @@
+"""climb_tpu_torch.cli.predict against climb_tpu.cli.predict on the CPU, and
+the port's isolation from JAX.
+
+Both CLIs serve the same synthetic split from one checkpoint that the JAX
+package wrote in the reference torch layout (``save_reference_checkpoint``);
+in float32 they must give identical predictions and metric.
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from climb_tpu.ckpt.torch_import import save_reference_checkpoint
+from climb_tpu.cli.predict import main as jax_predict
+from climb_tpu.configs.task_configs import task_configs as jax_task_configs
+from climb_tpu.models import ViltContinualLearner as JaxLearner
+from climb_tpu.models import head_specs_from_task_configs as jax_head_specs
+from climb_tpu.train.model_factory import dummy_batch, vilt_config_from_args
+from climb_tpu_torch.cli.predict import main as port_predict
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+TASKS = "nlvr2,snli-ve,vcr"
+JAX_MODULES = ("jax", "flax", "optax", "climb_tpu")
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """A tiny learner for TASKS, every leaf from numpy, saved by the JAX package."""
+    cfg = vilt_config_from_args(SimpleNamespace(tiny=True), needs_three_modalities=True)
+    module = JaxLearner(cfg, jax_head_specs(TASKS.split(","), jax_task_configs))
+    init = jax.jit(lambda key: module.init(key, dummy_batch(cfg), method=JaxLearner.init_all))
+    params = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(0))["params"])
+    rng = np.random.RandomState(7)
+    leaves, treedef = jax.tree_util.tree_flatten(params)
+    tree = jax.tree_util.tree_unflatten(treedef, [
+        (rng.randn(*x.shape) * 0.1 + (x == 1.0)).astype(np.float32) for x in leaves])
+    path = tmp_path_factory.mktemp("ckpt") / "model"
+    save_reference_checkpoint(tree, str(path), "model")
+    return str(path)
+
+
+def _argv(task, out_dir, checkpoint):
+    return [
+        "--encoder_name", "vilt", "--ordered_cl_tasks", TASKS, "--task_key", task,
+        "--checkpoint", checkpoint, "--synthetic", "--tiny", "--synthetic_train_size", "48",
+        "--batch_size", "8", "--compute_dtype", "float32", "--seed", "3",
+        "--output_dir", str(out_dir), "--output_file", str(out_dir / f"{task}.json"),
+    ]
+
+
+@pytest.mark.parametrize("task", ["snli-ve", "nlvr2", "vcr"])
+def test_predict_matches_jax_cli(task, checkpoint, tmp_path):
+    ref = jax_predict(_argv(task, tmp_path / "jax", checkpoint))
+    out = port_predict(_argv(task, tmp_path / "port", checkpoint)
+                       + ["--device", "cpu", "--attn_impl", "pallas", "--mlp_impl", "pallas"])
+    assert out["n_examples"] == ref["n_examples"] == 12
+    assert out["predictions"] == ref["predictions"]
+    assert out["metric"] == ref["metric"]
+    saved = json.loads((tmp_path / "port" / f"{task}.json").read_text())
+    assert saved == out
+    assert sorted(saved) == sorted(json.loads((tmp_path / "jax" / f"{task}.json").read_text()))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--input_jsonl", "rows.jsonl"],
+    ["--export_model", "model.bin"],
+    ["--from_export", "model.bin"],
+    ["--dense_impl", "int8"],
+    ["--attn_impl", "fused_block"],
+    ["--cl_algorithm", "adapter"],
+    ["--use_mesh"],
+    ["--aspect_buckets", "384,512"],
+    ["--pretrained_model_name", "dandelin/vilt-b32-mlm"],
+])
+def test_unported_flags_raise(flags, tmp_path):
+    argv = ["--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve", "--task_key", "snli-ve",
+            "--synthetic", "--tiny", "--device", "cpu", "--output_dir", str(tmp_path)]
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_predict(argv + flags)
+
+
+def test_predict_without_card_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve", "--task_key", "snli-ve",
+            "--synthetic", "--tiny", "--output_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        port_predict(argv)  # --device defaults to cuda
+
+
+@pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict", "chip_smoke"])
+def test_import_loads_no_jax(module):
+    code = (
+        f"import sys; import {module}; "
+        f"print(sorted({{m.split('.')[0] for m in sys.modules}} & {set(JAX_MODULES)!r}))"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_no_jax_package():
+    """Exact top-level names: ``climb_tpu_torch`` is not ``climb_tpu``."""
+    files = sorted((ROOT / "climb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
+           if root in JAX_MODULES}
+    assert not bad
