@@ -1,1 +1,1 @@
-"""Weight bridge from climb_tpu and reference checkpoints."""
+"""The weight bridge to climb_tpu and reference checkpoints, and task checkpoints."""

@@ -1,16 +1,20 @@
-"""The weight bridge into the port's ``state_dict``.
+"""The weight bridge between the port's ``state_dict`` and other layouts.
 
 - ``state_dict_from_jax(tree)``: a JAX parameter tree (nested dict of numpy
   arrays, as ``climb_tpu``'s ``create_cl_model`` makes it).
 - ``state_dict_from_reference(sd)``: the reference torch layout that
-  ``climb_tpu``'s ``save_reference_checkpoint(tree, path, "model")`` and the
-  reference CLiMB write: ``vilt_encoder.vilt.*`` (HF ``ViltModel`` names) plus
-  ``task_layer.<task>.{0,1,3}.*`` or ``task_layer.<task>.1.*``.
+  ``climb_tpu``'s ``save_reference_checkpoint`` and the reference CLiMB
+  write: a model file, ``vilt_encoder.vilt.*`` (HF ``ViltModel`` names) plus
+  ``task_layer.<task>.{0,1,3}.*`` or ``task_layer.<task>.1.*``; an encoder
+  file, ``vilt.*``; or a bare HF ``ViltModel`` state dict, ``embeddings.*``.
+- ``reference_from_state_dict(sd, kind)``: the inverse, the port's copy of
+  ``climb_tpu/ckpt/torch_import.py::export_torch_state_dict`` for ViLT
+  (kind 'model', 'encoder' or 'hf').
 
-Both give the same tensors for the same weights. Dense kernels (in, out)
-become ``nn.Linear`` weights (out, in); the patch projection keeps the
-(patch_row, patch_col, channel) flatten order of ``ops.patch_embed.patchify``.
-Native flax msgpack checkpoints are not read: they need flax.
+Dense kernels (in, out) become ``nn.Linear`` weights (out, in); the patch
+projection keeps the (patch_row, patch_col, channel) flatten order of
+``ops.patch_embed.patchify``. Native flax msgpack checkpoints are not read:
+they need flax.
 """
 
 import logging
@@ -20,6 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from climb_tpu_torch.configs.task_configs import task_configs
 from climb_tpu_torch.models.vilt import head_name
 
 logger = logging.getLogger(__name__)
@@ -92,26 +97,30 @@ def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# port encoder name -> HF ViltModel name, for the tensors that only rename
+_HF_NAMES = {
+    "word_embeddings.weight": "embeddings.text_embeddings.word_embeddings.weight",
+    "text_position_embeddings": "embeddings.text_embeddings.position_embeddings.weight",
+    "token_type_embeddings.weight": "embeddings.text_embeddings.token_type_embeddings.weight",
+    "text_layernorm.weight": "embeddings.text_embeddings.LayerNorm.weight",
+    "text_layernorm.bias": "embeddings.text_embeddings.LayerNorm.bias",
+    "cls_token": "embeddings.cls_token",
+    "patch_projection.bias": "embeddings.patch_embeddings.projection.bias",
+    "modality_type_embeddings.weight": "embeddings.token_type_embeddings.weight",
+    "final_layernorm.weight": "layernorm.weight",
+    "final_layernorm.bias": "layernorm.bias",
+    "pooler.weight": "pooler.dense.weight",
+    "pooler.bias": "pooler.dense.bias",
+}
+_CONV = "embeddings.patch_embeddings.projection.weight"  # (D, C, ph, pw)
+_POS = "embeddings.position_embeddings"                   # (1, P + 1, D)
+
+
 def _encoder_from_hf(hf: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    conv = hf["embeddings.patch_embeddings.projection.weight"]  # (D, C, ph, pw)
-    sd = {
-        "word_embeddings.weight": hf["embeddings.text_embeddings.word_embeddings.weight"],
-        "text_position_embeddings":
-            hf["embeddings.text_embeddings.position_embeddings.weight"],
-        "token_type_embeddings.weight":
-            hf["embeddings.text_embeddings.token_type_embeddings.weight"],
-        "text_layernorm.weight": hf["embeddings.text_embeddings.LayerNorm.weight"],
-        "text_layernorm.bias": hf["embeddings.text_embeddings.LayerNorm.bias"],
-        "cls_token": hf["embeddings.cls_token"],
-        "patch_projection.weight": conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1),
-        "patch_projection.bias": hf["embeddings.patch_embeddings.projection.bias"],
-        "visual_position_embeddings": hf["embeddings.position_embeddings"][0],
-        "modality_type_embeddings.weight": hf["embeddings.token_type_embeddings.weight"],
-        "final_layernorm.weight": hf["layernorm.weight"],
-        "final_layernorm.bias": hf["layernorm.bias"],
-        "pooler.weight": hf["pooler.dense.weight"],
-        "pooler.bias": hf["pooler.dense.bias"],
-    }
+    conv = hf[_CONV]
+    sd = {ours: hf[theirs] for ours, theirs in _HF_NAMES.items()}
+    sd["patch_projection.weight"] = conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1)
+    sd["visual_position_embeddings"] = hf[_POS][0]
     layers = {int(m.group(1)) for k in hf for m in [re.match(r"encoder\.layer\.(\d+)\.", k)] if m}
     for i in sorted(layers):
         for ours, theirs in _BLOCK_NAMES.items():
@@ -120,14 +129,62 @@ def _encoder_from_hf(hf: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _encoder_to_hf(enc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    proj = enc["patch_projection.weight"]  # (D, ph * pw * C)
+    d, rows = proj.shape
+    ph = int(round((rows // 3) ** 0.5))
+    hf = {theirs: enc[ours] for ours, theirs in _HF_NAMES.items()}
+    hf[_CONV] = proj.reshape(d, ph, ph, 3).permute(0, 3, 1, 2).contiguous()
+    hf[_POS] = enc["visual_position_embeddings"][None]
+    layers = {int(m.group(1)) for k in enc for m in [re.match(r"encoder\.(\d+)\.", k)] if m}
+    for i in sorted(layers):
+        for ours, theirs in _BLOCK_NAMES.items():
+            for leaf in ("weight", "bias"):
+                hf[f"encoder.layer.{i}.{theirs}.{leaf}"] = enc[f"encoder.{i}.{ours}.{leaf}"]
+    return hf
+
+
+def _task_key(name: str) -> str:
+    """head_snli_ve -> snli-ve, resolved against the task registry."""
+    return next((k for k in task_configs if head_name(k) == name), name[len("head_"):])
+
+
+def reference_from_state_dict(sd: Dict[str, torch.Tensor], kind: str = "model"):
+    """The port's ``state_dict`` -> the reference torch layout (CPU float32
+    contiguous tensors). kind 'model': ``vilt_encoder.vilt.*`` +
+    ``task_layer.*`` (the task checkpoint's ``model`` file); 'encoder':
+    ``vilt.*`` (its ``encoder`` file); 'hf': bare ``ViltModel`` names."""
+    host = {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}
+    hf = _encoder_to_hf({k[len("vilt."):]: v for k, v in host.items() if k.startswith("vilt.")})
+    if kind == "hf":
+        return hf
+    if kind == "encoder":
+        return {f"vilt.{k}": v for k, v in hf.items()}
+    if kind != "model":
+        raise ValueError(f"unknown checkpoint kind {kind!r}")
+    out = {f"vilt_encoder.vilt.{k}": v for k, v in hf.items()}
+    for k, v in host.items():
+        m = re.match(r"(head_[^.]+)\.(fc1|ln|fc2|fc)\.(weight|bias)$", k)
+        if m:
+            idx = {"fc1": 0, "ln": 1, "fc2": 3, "fc": 1}[m.group(2)]
+            out[f"task_layer.{_task_key(m.group(1))}.{idx}.{m.group(3)}"] = v
+    return out
+
+
 def state_dict_from_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Reference ``ViltContinualLearner.state_dict()`` -> the port's ``state_dict``."""
-    prefix = "vilt_encoder.vilt."
-    hf = {k[len(prefix):]: torch.as_tensor(v, dtype=torch.float32)
-          for k, v in sd.items() if k.startswith(prefix)}
-    if not hf:
-        raise ValueError("not a reference ViltContinualLearner checkpoint: no "
-                         "'vilt_encoder.vilt.*' keys (ViLT-BERT is not ported yet)")
+    """A reference-layout state dict (model, encoder or bare HF) -> the port's
+    ``state_dict``."""
+    hf = None
+    for prefix in ("vilt_encoder.vilt.", "vilt."):
+        if any(k.startswith(prefix) for k in sd):
+            hf = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+            break
+    if hf is None and any(k.startswith("embeddings.") for k in sd):
+        hf = sd
+    if hf is None:
+        raise ValueError("not a reference ViLT checkpoint: no 'vilt_encoder.vilt.*', "
+                         "'vilt.*' or 'embeddings.*' keys (ViLT-BERT is not ported yet)")
+    hf = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in hf.items()}
     out = {f"vilt.{k}": v for k, v in _encoder_from_hf(hf).items()}
     heads: Dict[str, Dict[str, torch.Tensor]] = {}
     for k, v in sd.items():
@@ -167,7 +224,7 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return state_dict_from_reference(sd)
 
 
-def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]):
+def partial_load(model: torch.nn.Module, sd: Dict[str, torch.Tensor]):
     """Copy every tensor whose name and shape match; the rest keep their init
     (the reference's partial-state-dict fallback). Returns (loaded, missing)."""
     own = model.state_dict()
@@ -175,6 +232,6 @@ def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]):
     missing = sorted(set(own) - set(matched))
     model.load_state_dict(matched, strict=False)
     if missing:
-        logger.warning("load_into: %d tensors kept from init (e.g. %s)", len(missing),
+        logger.warning("partial_load: %d tensors kept from init (e.g. %s)", len(missing),
                        missing[:5])
     return sorted(matched), missing

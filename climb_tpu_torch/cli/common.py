@@ -1,9 +1,9 @@
 """Shared CLI plumbing (counterpart of ``climb_tpu/cli/common.py``).
 
-The flags the serving path reads keep their JAX names and defaults. Flags of
-later slices are accepted where ``climb_tpu`` accepts them and raise
-``NotImplementedError`` when set (``reject_unported``), so a run never
-silently ignores one.
+The flags the serving and training paths read keep their JAX names and
+defaults. Flags of later slices are accepted where ``climb_tpu`` accepts them
+and raise ``NotImplementedError`` when set (``reject_unported``), so a run
+never silently ignores one.
 """
 
 import argparse
@@ -21,6 +21,8 @@ def setup_logging():
 def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--output_dir", type=str, required=True,
                         help="Directory where experiment results are saved.")
+    parser.add_argument("--do_wandb_logging", action="store_true",
+                        help="Log to W&B: not ported (no network); raises.")
     parser.add_argument("--batch_size", type=int, default=32, help="Batch size.")
     parser.add_argument("--num_workers", type=int, default=2,
                         help="Host loader workers (the port's eval loader is "
@@ -74,6 +76,59 @@ def add_device_args(parser: argparse.ArgumentParser):
                              "learnable signal encodes a wrong class.")
     parser.add_argument("--tiny", action="store_true",
                         help="Tiny model config (fast CI / smoke runs).")
+    parser.add_argument("--synthetic_vqa_labels", type=int, default=0,
+                        help="With --synthetic, shrink the VQA label space to this many "
+                             "answers (0 = keep the real 3,129).")
+    parser.add_argument("--synthetic_vision_labels", type=int, default=0,
+                        help="With --synthetic, shrink a vision task's label space (Phase "
+                             "II; read by no ported driver).")
+    parser.add_argument("--task_config_overrides", type=str, default="",
+                        help="Comma list of task.key=value hyperparameter overrides of the "
+                             "in-memory task configs, e.g. 'snli-ve.num_epochs=2'.")
+    parser.add_argument("--tokenizer", type=str, default="bert-base-uncased",
+                        help="Tokenizer for real data (real datasets are not ported yet).")
+    parser.add_argument("--vocab_path", type=str, default=None,
+                        help="WordPiece vocab for real data (not ported yet).")
+    # training knobs of the JAX package
+    parser.add_argument("--grad_accum_steps", default=1,
+                        type=lambda s: s if s in ("auto", "sweep") else int(s),
+                        help="Split each batch into k microbatches and sum their gradients "
+                             "in one step (the same trajectory); 'auto' and 'sweep' are not "
+                             "ported (their token budget was measured on a TPU).")
+    parser.add_argument("--auto_accum_token_budget", type=int, default=None,
+                        help="Token budget of --grad_accum_steps auto: not ported.")
+    parser.add_argument("--save_state_epochs", type=int, default=1,
+                        help="Every N epochs, save the full train state (parameters, AdamW "
+                             "moments, update count, dropout generator) for an elastic "
+                             "resume at the epoch boundary; 0 disables.")
+    parser.add_argument("--no_sigterm_checkpoint", action="store_true",
+                        help="The port installs no SIGTERM handler yet, so this changes "
+                             "nothing: a killed run resumes from its last epoch's state.")
+    parser.add_argument("--eval_every_epoch", action="store_true",
+                        help="Accepted as in the JAX CLI; both trainers evaluate every epoch.")
+    parser.add_argument("--remat", action="store_true", help="Not ported yet (remat).")
+    parser.add_argument("--remat_policy", type=str, default="full",
+                        choices=["full", "dots", "selective"], help="Not ported yet (remat).")
+    parser.add_argument("--scan_unroll", type=int, default=1,
+                        help="JAX layer-scan unroll; the port runs a Python loop (1 only).")
+    parser.add_argument("--fuse_qkv", action="store_true", help="Not ported yet.")
+    parser.add_argument("--worker_mode", type=str, default="thread",
+                        choices=["thread", "process"],
+                        help="Loader workers; the port's loader is sequential ('thread' only).")
+    parser.add_argument("--pp_microbatches", type=int, default=0, help="Not ported yet (mesh).")
+    parser.add_argument("--pp_virtual", type=int, default=1, help="Not ported yet (mesh).")
+    parser.add_argument("--adam_moments_dtype", type=str, default=None, choices=["bfloat16"],
+                        help="bf16 first moment: not ported yet (CL-algorithm slice).")
+    parser.add_argument("--skip_nonfinite_updates", type=int, default=0,
+                        help="Non-finite update guard: not ported yet (CL-algorithm slice).")
+    parser.add_argument("--sharded_checkpoints", action="store_true",
+                        help="Not ported yet (scale-out slice).")
+    parser.add_argument("--async_checkpoint", action="store_true",
+                        help="Not ported yet (scale-out slice).")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="jax.profiler trace: not ported (chip_smoke.py profiles a step).")
+    parser.add_argument("--memory_profile", type=str, default=None,
+                        help="Device memory profile: not ported.")
 
 
 # (flag, value that is ported, later slice that brings the rest)
@@ -85,6 +140,20 @@ _UNPORTED = (
     ("fsdp", False, "the scale-out slice"),
     ("aspect_buckets", None, "the bucketed-loader slice"),
     ("text_buckets", None, "the bucketed-loader slice"),
+    ("pp_microbatches", 0, "the scale-out slice"),
+    ("pp_virtual", 1, "the scale-out slice"),
+    ("do_wandb_logging", False, "no network: W&B logging is not ported"),
+    ("remat", False, "the remat work of the training-knobs slice"),
+    ("fuse_qkv", False, "the training-knobs slice"),
+    ("scan_unroll", 1, "the port runs the layers in a Python loop"),
+    ("worker_mode", "thread", "the prefetching-loader slice"),
+    ("adam_moments_dtype", None, "the CL-algorithm slice"),
+    ("skip_nonfinite_updates", 0, "the CL-algorithm slice"),
+    ("auto_accum_token_budget", None, "grad-accum auto, once measured on the H100"),
+    ("sharded_checkpoints", False, "the scale-out slice"),
+    ("async_checkpoint", False, "the scale-out slice"),
+    ("profile_dir", None, "chip_smoke.py's torch.profiler phase stands in"),
+    ("memory_profile", None, "a later profiling PR"),
 )
 
 
@@ -98,4 +167,33 @@ def reject_unported(args):
     if args.attn_impl in ("xla_ckpt", "fused_block"):
         raise NotImplementedError(
             f"--attn_impl {args.attn_impl} is not ported to climb_tpu_torch yet "
-            "(the training slice and the fused_block slice)")
+            "(the remat work and the fused_block slice)")
+    if str(getattr(args, "grad_accum_steps", 1)) in ("auto", "sweep"):
+        raise NotImplementedError(
+            f"--grad_accum_steps {args.grad_accum_steps} is not ported to climb_tpu_torch yet "
+            "(its token budget was measured on a TPU v5e; it waits for an H100 measurement)")
+
+
+def apply_task_config_overrides(task_configs: dict, spec: str) -> dict:
+    """Apply a ``--task_config_overrides`` spec ('task.key=value,...') to a
+    copy of the task registry; numeric-looking values parse to int/float.
+    Unknown tasks or keys raise (a typo must not run at default values)."""
+    if not spec:
+        return task_configs
+    out = {k: dict(v) for k, v in task_configs.items()}
+    for item in spec.split(","):
+        path, _, raw = item.partition("=")
+        task, _, key = path.strip().partition(".")
+        if task not in out or not key or not raw:
+            raise ValueError(f"bad --task_config_overrides item {item!r} "
+                             f"(expected task.key=value with a known task)")
+        if key not in out[task]:
+            raise ValueError(f"--task_config_overrides: {task!r} has no hyperparameter "
+                             f"{key!r} (known: {sorted(out[task])})")
+        for cast in (int, float, str):
+            try:
+                out[task][key] = cast(raw)
+                break
+            except ValueError:
+                continue
+    return out

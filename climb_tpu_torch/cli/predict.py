@@ -19,7 +19,7 @@ import time
 
 import torch
 
-from climb_tpu_torch.ckpt.convert import load_into, load_reference_checkpoint
+from climb_tpu_torch.ckpt.convert import load_reference_checkpoint, partial_load
 from climb_tpu_torch.cli.common import (
     add_common_args,
     add_device_args,
@@ -28,11 +28,12 @@ from climb_tpu_torch.cli.common import (
 )
 from climb_tpu_torch.configs.task_configs import task_configs
 from climb_tpu_torch.data.collation import stack_collate
-from climb_tpu_torch.data.loader import EvalLoader
+from climb_tpu_torch.data.loader import DataLoader
 from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
 from climb_tpu_torch.device import resolve_device
 from climb_tpu_torch.train.eval_step import LOSS_TYPES, make_eval_step
 from climb_tpu_torch.train.model_factory import create_cl_model
+from climb_tpu_torch.train.trainers import batch_divisor, to_device
 
 logger = logging.getLogger(__name__)
 
@@ -82,20 +83,15 @@ def _reject_unported_predict(args):
     if not args.synthetic:
         raise NotImplementedError("real datasets are not ported to climb_tpu_torch yet (the "
                                   "Phase I training slice); pass --synthetic")
-    if args.pretrained_model_name != "scratch" and not args.checkpoint:
+    if (args.pretrained_model_name != "scratch" and not args.checkpoint
+            and not os.path.isfile(args.pretrained_model_name)):
         raise NotImplementedError(
-            f"--pretrained_model_name {args.pretrained_model_name}: HF weights are not ported "
-            "to climb_tpu_torch yet (the Phase I training slice); pass --checkpoint")
+            f"--pretrained_model_name {args.pretrained_model_name}: HF hub weights are not "
+            "ported to climb_tpu_torch (they need the network); pass --checkpoint or a "
+            "reference-layout file")
 
 
-def _batch_divisor(task_cfg: dict) -> int:
-    """Reference quirk: the loader batch is global/2 for NLVR2 and /4 for VCR."""
-    if task_cfg.get("model_type") == "multi-choice":
-        return task_cfg.get("num_choices", 4)
-    return task_cfg.get("num_images", 1)
-
-
-def build_eval_loader(args) -> EvalLoader:
+def build_eval_loader(args) -> DataLoader:
     task_cfg = task_configs[args.task_key]
     size = args.synthetic_train_size
     dataset = make_synthetic_vl_dataset(
@@ -103,11 +99,7 @@ def build_eval_loader(args) -> EvalLoader:
         (args.image_height, args.image_width), args.seed, label_noise=args.synthetic_noise,
     )
     bs = args.eval_batch_size or args.batch_size
-    return EvalLoader(dataset, max(1, bs // _batch_divisor(task_cfg)), stack_collate)
-
-
-def to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    return DataLoader(dataset, max(1, bs // batch_divisor(task_cfg)), stack_collate)
 
 
 def main(argv=None):
@@ -125,7 +117,7 @@ def main(argv=None):
     if args.checkpoint:
         if not os.path.isfile(args.checkpoint):
             raise FileNotFoundError(args.checkpoint)
-        loaded, missing = load_into(model, load_reference_checkpoint(args.checkpoint))
+        loaded, missing = partial_load(model, load_reference_checkpoint(args.checkpoint))
         logger.info("Checkpoint %s: %d tensors loaded, %d kept from init",
                     args.checkpoint, len(loaded), len(missing))
 

@@ -1,0 +1,256 @@
+"""Phase I driver: upstream continual learning over a VL task sequence
+(counterpart of ``climb_tpu/cli/train_upstream_continual_learning.py``;
+reference ``src/train/train_upstream_continual_learning.py``).
+
+The same required flags, experiment-directory naming (:110-117),
+algorithm-argument validation (:125-138), per-task train -> checkpoint ->
+results.json loop with resume-and-skip (:216-294), and the transfer and
+forgetting evaluation that writes eval_results.json (:296-327). Runs on the
+card unless ``--device cpu`` is given.
+
+Ported: ``--cl_algorithm singletask_ft`` and ``sequential_ft`` on snli-ve and
+nlvr2 with synthetic data. Every other algorithm raises NotImplementedError
+(the CL-algorithm slice), as do VQA and VCR training. The port installs no
+SIGTERM handler yet: a killed run resumes from its last epoch's train state
+and skips finished tasks.
+
+Usage (synthetic smoke run on the CPU):
+  python -m climb_tpu_torch.cli.train_upstream_continual_learning \\
+    --encoder_name vilt --pretrained_model_name scratch \\
+    --ordered_cl_tasks snli-ve --cl_algorithm singletask_ft \\
+    --climb_data_dir /tmp/x --synthetic --tiny --device cpu \\
+    --output_dir /tmp/out --batch_size 8 --do_train --do_eval
+"""
+
+import argparse
+import json
+import logging
+import os
+
+from climb_tpu_torch.ckpt.checkpoint import (
+    load_task_checkpoint,
+    partial_load,
+    save_task_checkpoint,
+    task_checkpoint_exists,
+    task_dir,
+)
+from climb_tpu_torch.cli.common import (
+    add_common_args,
+    add_device_args,
+    apply_task_config_overrides,
+    reject_unported,
+    setup_logging,
+)
+from climb_tpu_torch.configs.task_configs import SUPPORTED_VL_TASKS, task_configs
+from climb_tpu_torch.device import resolve_device
+from climb_tpu_torch.evaluation.cl_eval import (
+    catastrophic_forgetting_eval,
+    upstream_knowledge_transfer_eval,
+)
+from climb_tpu_torch.train.model_factory import create_cl_model
+from climb_tpu_torch.train.trainers import VLTaskTrainer
+from climb_tpu_torch.utils.seed import set_seed
+
+logger = logging.getLogger(__name__)
+
+ALLOWED_CL_ENCODERS = ["vilt", "viltbert"]
+CL_ALGORITHMS = ["singletask_ft", "sequential_ft", "experience_replay", "ewc", "adapter",
+                 "freeze_encoder", "freeze_bottom_k_layers", "feature_distill"]
+PORTED_CL_ALGORITHMS = ("singletask_ft", "sequential_ft")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Phase I upstream continual learning (PyTorch port). The port installs "
+                    "no SIGTERM handler yet: a killed run resumes from the last epoch's "
+                    "train state (--save_state_epochs) and skips finished tasks.")
+    parser.add_argument("--encoder_name", default=None, type=str, required=True,
+                        choices=ALLOWED_CL_ENCODERS,
+                        help="The base encoder ('viltbert' is not ported yet).")
+    parser.add_argument("--pretrained_model_name", default=None, type=str, required=True,
+                        help="'scratch', or a checkpoint file in the reference torch "
+                             "layout; an HF hub name needs the network and leaves the "
+                             "random initialization, with a warning.")
+    parser.add_argument("--ordered_cl_tasks", type=str, required=True,
+                        help="Ordered list of VL task keys, comma-separated.")
+    parser.add_argument("--cl_algorithm", type=str, required=True, choices=CL_ALGORITHMS,
+                        help="Continual-learning algorithm; the port runs singletask_ft "
+                             "and sequential_ft.")
+    parser.add_argument("--climb_data_dir", type=str, required=True,
+                        help="Directory of the CLiMB data (real data is not ported yet).")
+    parser.add_argument("--do_train", action="store_true")
+    parser.add_argument("--do_eval", action="store_true")
+    parser.add_argument("--visual_input_type", default=None, choices=["pil-image", "raw"],
+                        help="'pil-image' (uint8 canvas normalized on the device); 'raw' "
+                             "is not ported yet.")
+    # flags of the CL algorithms, accepted as in the JAX CLI
+    parser.add_argument("--memory_percentage", type=float, default=0.0)
+    parser.add_argument("--memory_sampling_strategy", type=str,
+                        choices=["random", "random-balanced"])
+    parser.add_argument("--replay_frequency", type=int, default=100)
+    parser.add_argument("--adapter_method", choices=["vanilla"])
+    parser.add_argument("--adapter_config", type=str, default=None)
+    parser.add_argument("--adapter_reduction_factor", type=int, default=0)
+    parser.add_argument("--lora_rank", type=int, default=0)
+    parser.add_argument("--lora_alpha", type=float, default=0.0)
+    parser.add_argument("--lora_targets", type=str, default="")
+    parser.add_argument("--ewc_fisher_sample_percentage", type=float, default=0.0)
+    parser.add_argument("--ewc_loss_weight", type=float, default=0.0)
+    parser.add_argument("--ewc_offload_to_host", action="store_true")
+    parser.add_argument("--distill_loss_weight", type=float, default=1.0)
+    parser.add_argument("--distill_offload_to_host", action="store_true")
+    parser.add_argument("--layers_to_freeze", type=int, default=0)
+    add_common_args(parser)
+    add_device_args(parser)
+    return parser
+
+
+def _dump_json_atomic(obj, path: str):
+    """tmp + os.replace, so an interrupted write never leaves a truncated
+    results JSON for the rerun's resume logic to parse."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def experiment_name_for(args) -> str:
+    name = f"{args.encoder_name}-{args.cl_algorithm}"
+    if args.cl_algorithm == "adapter":
+        name = f"{name}_{args.adapter_method}_{args.adapter_config}config"
+    elif args.cl_algorithm == "freeze_bottom_k_layers":
+        name = name.replace("_k_layers", f"{args.layers_to_freeze}layers")
+    for i, task_key in enumerate(args.ordered_cl_tasks):
+        name = f"{name}-task{i}_{task_key}"
+    return name
+
+
+def validate_algorithm_args(args):
+    if args.cl_algorithm == "singletask_ft":
+        assert len(args.ordered_cl_tasks) == 1
+    else:
+        assert len(args.ordered_cl_tasks) > 1
+    if args.cl_algorithm == "experience_replay":
+        assert args.memory_percentage > 0.0
+        assert args.replay_frequency > 0
+    if args.cl_algorithm == "adapter" and args.adapter_config != "lora":
+        assert args.adapter_reduction_factor > 0
+    if args.cl_algorithm == "ewc":
+        assert args.ewc_fisher_sample_percentage > 0
+        assert args.ewc_loss_weight > 0.0
+    if args.cl_algorithm == "feature_distill":
+        assert args.distill_loss_weight > 0.0
+    if args.cl_algorithm == "freeze_bottom_k_layers":
+        assert args.layers_to_freeze > 0
+    for task_key in args.ordered_cl_tasks:
+        assert task_key in SUPPORTED_VL_TASKS, f"unsupported task {task_key}"
+
+
+def _reject_unported_train(args):
+    reject_unported(args)
+    if args.cl_algorithm not in PORTED_CL_ALGORITHMS:
+        raise NotImplementedError(
+            f"--cl_algorithm {args.cl_algorithm} is not ported to climb_tpu_torch yet (the "
+            f"CL-algorithm slice); ported: {', '.join(PORTED_CL_ALGORITHMS)}")
+    if args.visual_input_type == "raw":
+        raise NotImplementedError("--visual_input_type raw is not ported to climb_tpu_torch "
+                                  "yet (the real-data slice)")
+
+
+def main(argv=None):
+    setup_logging()
+    args = build_parser().parse_args(argv)
+    args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+    if args.tiny:  # tiny model config implies the tiny image canvas
+        args.image_height, args.image_width = 64, 96
+    configs = task_configs
+    if args.synthetic and args.synthetic_vqa_labels:
+        configs = {k: dict(v, num_labels=args.synthetic_vqa_labels) if k == "vqa" else v
+                   for k, v in configs.items()}
+    configs = apply_task_config_overrides(configs, args.task_config_overrides)
+
+    experiment_name = experiment_name_for(args)
+    output_dir = os.path.join(args.output_dir, experiment_name)
+    results_file = os.path.join(output_dir, "results.json")
+    validate_algorithm_args(args)
+    _reject_unported_train(args)
+    device = resolve_device(args.device)
+    os.makedirs(output_dir, exist_ok=True)
+    set_seed(args)
+    args.visual_input_type = args.visual_input_type or "pil-image"
+
+    model = create_cl_model(args, configs, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info("Continual learner: %s | %d task heads (%s) | %.2fM params | algorithm=%s | %s",
+                args.encoder_name, len(args.ordered_cl_tasks), ",".join(args.ordered_cl_tasks),
+                n_params / 1e6, args.cl_algorithm, device)
+    return _run(args, configs, output_dir, results_file, model, device)
+
+
+def _trainer(args, configs, device, task_key):
+    return VLTaskTrainer(args, configs, {"visual_input_type": args.visual_input_type}, device,
+                         task_key)
+
+
+def _run(args, configs, output_dir, results_file, model, device):
+    task_trainers = {}
+    if args.do_train:
+        results = []
+        if os.path.exists(results_file):
+            with open(results_file) as f:
+                results = json.load(f)
+            for i, r in enumerate(results):
+                logger.info("Cached result: task #%d %s, best score %.2f", i + 1, r["task_key"],
+                            r["best_score"])
+
+        for task_num, task_key in enumerate(args.ordered_cl_tasks):
+            task_name = configs[task_key]["task_name"]
+            args.task_ckpt_dir = task_dir(output_dir, task_num, task_key)
+            task_trainer = _trainer(args, configs, device, task_key)
+
+            ckpt = None
+            if task_checkpoint_exists(output_dir, task_num, task_key):
+                try:
+                    ckpt = load_task_checkpoint(output_dir, task_num, task_key)
+                except Exception as e:
+                    logger.warning("Checkpoint for task %s exists but is unreadable (%s); "
+                                   "retraining", task_name, e)
+            if ckpt is not None:
+                # resume: load the checkpoint and move on, with the reference's
+                # partial-load fallback (:222-240)
+                logger.info("Found checkpoint for task %s: loading and skipping", task_name)
+                _, missing = partial_load(model, ckpt)
+                if missing:
+                    save_task_checkpoint(output_dir, task_num, task_key, model.state_dict())
+            else:
+                logger.info("Training on task #%d: %s", task_num + 1, task_name)
+                best_eval_score, model = task_trainer.train(model)
+                logger.info("Best %s score = %.2f (epoch %d)", task_name, best_eval_score,
+                            task_trainer.best_epoch)
+                save_task_checkpoint(output_dir, task_num, task_key, model.state_dict())
+                results.append({"task_num": task_num, "task_key": task_key,
+                                "best_score": best_eval_score,
+                                "best_epoch": task_trainer.best_epoch})
+                _dump_json_atomic(results, results_file)
+            task_trainers[task_key] = task_trainer
+
+    eval_results = None
+    if args.do_eval:
+        logger.info("Evaluating upstream knowledge transfer...")
+        upstream = upstream_knowledge_transfer_eval(args, results_file)
+        gains = [v["relative_gain"] for v in upstream.values() if v["relative_gain"] is not None]
+        if gains:
+            logger.info("Average forward transfer gain = %.2f%%", sum(gains) / len(gains))
+        for task_key in args.ordered_cl_tasks:
+            if task_key not in task_trainers:
+                task_trainers[task_key] = _trainer(args, configs, device, task_key)
+        logger.info("Evaluating catastrophic forgetting...")
+        forgetting = catastrophic_forgetting_eval(args, results_file, model, task_trainers)
+        eval_results = {"upstream_knowledge_transfer": upstream, "forgetting": forgetting}
+        _dump_json_atomic(eval_results, os.path.join(output_dir, "eval_results.json"))
+        logger.info("Wrote %s", os.path.join(output_dir, "eval_results.json"))
+    return eval_results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
-"""Sequential fixed-shape eval loader (counterpart of the eval use of
-``climb_tpu/data/loader.py``: ``shuffle=False``, no bucketing).
+"""Sequential fixed-shape loader (counterpart of ``climb_tpu/data/loader.py``'s
+``DataLoader`` without bucketing or worker threads).
 
 Batches are numpy dicts of static shape; the last partial batch is zero-padded
-and a ``valid`` {0,1} vector marks its real rows (``pad_batch``). Batches are
-built in the calling thread; a prefetching loader comes with the training
-slice.
+and a ``valid`` {0,1} vector marks its real rows (``pad_batch``), so an epoch
+has ``len(loader)`` steps, as the JAX loader gives the schedule. With
+``shuffle`` the order is ``np.random.RandomState(seed + epoch)``'s permutation
+(``set_epoch`` before each epoch), the JAX loader's. Batches are built in the
+calling thread; the prefetching, pinned-memory loader is later work.
 """
 
 from typing import Callable, Iterator
@@ -24,21 +26,32 @@ def pad_batch(batch: dict, target_bs: int) -> dict:
     return out
 
 
-class EvalLoader:
-    """Iterates ``dataset`` in order, ``batch_size`` examples per batch."""
+class DataLoader:
+    """Iterates ``dataset``, ``batch_size`` examples per batch, in order or in
+    the (seed + epoch)-shuffled order."""
 
-    def __init__(self, dataset, batch_size: int, collate_fn: Callable):
+    def __init__(self, dataset, batch_size: int, collate_fn: Callable, shuffle: bool = False,
+                 seed: int = 0, epoch: int = 0):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = epoch
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
 
     def __len__(self):
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[dict]:
         n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         for start in range(0, n, self.batch_size):
-            examples = [self.dataset[i] for i in range(start, min(start + self.batch_size, n))]
+            examples = [self.dataset[int(i)] for i in idx[start:start + self.batch_size]]
             yield pad_batch(self.collate_fn(examples), self.batch_size)

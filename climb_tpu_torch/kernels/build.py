@@ -21,7 +21,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("attention.cu", "mlp.cu", "normalize.cu")
+SOURCES = ("attention.cu", "attention_bwd.cu", "mlp.cu", "normalize.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +41,10 @@ _SIGNATURES = {
     "climb_attention_fwd": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL3, _LL3, _LL3, _LL3, _LL,
         ctypes.c_float, _I, _P,
+    ),
+    "climb_attention_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL, ctypes.c_float, _I, _P,
     ),
     "climb_linear_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

@@ -27,8 +27,9 @@ class ClassificationHead(nn.Module):
 
 
 class MultiChoiceHead(nn.Module):
-    """Dropout(0.1) -> Linear(768 -> 1) scoring each choice; the dropout is an
-    identity in the serving forward, the only forward ported so far."""
+    """Dropout(0.1) -> Linear(768 -> 1) scoring each choice. The dropout is an
+    identity in eval; it belongs to VCR training, which the training driver
+    refuses until that slice (``train/trainers.py``)."""
 
     def __init__(self, encoder_dim: int = 768, dtype: torch.dtype = torch.float32):
         super().__init__()

@@ -1,8 +1,8 @@
 """Static model configuration (counterpart of ``climb_tpu/models/model_config.py``).
 
 HF ``ViltConfig`` defaults for ``dandelin/vilt-b32-mlm`` plus the fixed image
-canvas, the compute dtype and the kernel switches. Dropout rates (the serving
-forward has none), pipeline fields and adapter specs are not ported yet.
+canvas, the compute dtype and the kernel switches. Both dropout rates keep the
+JAX defaults of 0.0; pipeline fields and adapter specs are not ported yet.
 """
 
 import dataclasses
@@ -23,6 +23,8 @@ class ViltConfig:
     intermediate_size: int = 3072
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
+    hidden_dropout: float = 0.0       # embeddings and block outputs, training only
+    attention_dropout: float = 0.0    # carried as in the JAX config, which reads it nowhere
 
     # Text side
     max_text_len: int = 40            # ViLT has only 40 text position slots

@@ -4,12 +4,16 @@ Same function as the JAX ``ViltCore``: images on a fixed canvas with the valid
 patch grid carried by ``patch_hw``, conv-as-matmul patch embedding, per-sample
 bilinear resampling of the pretrained position grid, pre-norm blocks, final
 LayerNorm and tanh pooler. Attention and the FFN go through
-``ops.attention.multi_head_attention`` and ``ops.mlp.fused_mlp``, which launch
-the CUDA kernels on the card.
+``ops.attention.multi_head_attention`` and ``ops.mlp.mlp``, which launch the
+CUDA kernels on the card, through their ``autograd.Function``s when a
+gradient is to flow back.
 
 Parameters are float32 and are cast to the compute dtype where they are used,
-as flax does with ``dtype=``. The text LayerNorm, the CLS/patch embedding sum
-and the mask bias stay float32 whatever the compute dtype.
+as flax does with ``dtype=``; the casts are differentiable, so gradients reach
+the float32 masters. The text LayerNorm, the CLS/patch embedding sum and the
+mask bias stay float32 whatever the compute dtype. ``train()`` turns on the
+hidden dropout (rate 0.0 by default, as in JAX), drawn from
+``dropout_generator``.
 
 Not ported yet: adapters, LoRA, int8 dense layers, fused QKV, remat and the
 pipeline-parallel encoder.
@@ -69,6 +73,15 @@ def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torc
     return y.to(dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool, generator=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: identity unless training with rate > 0, when a
+    keep mask is drawn from ``generator`` (nothing is drawn at rate 0)."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    return x * (keep / (1.0 - rate)).to(x.dtype)
+
+
 class ViltBlock(nn.Module):
     """One pre-norm block: x -> LN1 -> MHA -> +x -> LN2 -> FFN(GELU) -> +x."""
 
@@ -85,7 +98,7 @@ class ViltBlock(nn.Module):
         self.fc1 = nn.Linear(d, f)
         self.fc2 = nn.Linear(f, d)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor, generator=None) -> torch.Tensor:
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b, s, d = x.shape
@@ -95,13 +108,14 @@ class ViltBlock(nn.Module):
         k = dense(self.k, h, dtype).view(heads)
         v = dense(self.v, h, dtype).view(heads)
         ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
-        x = x + dense(self.attn_out, ctx.reshape(b, s, d), dtype)
+        attn_out = dense(self.attn_out, ctx.reshape(b, s, d), dtype)
+        x = x + dropout(attn_out, cfg.hidden_dropout, self.training, generator)
         h = layer_norm(self.ln2, x, dtype)
-        h = mlp.fused_mlp(
+        h = mlp.mlp(
             h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),
             self.fc2.weight.to(dtype), self.fc2.bias.to(dtype),
         )
-        return x + h
+        return x + dropout(h, cfg.hidden_dropout, self.training, generator)
 
 
 class ViltCore(nn.Module):
@@ -131,6 +145,7 @@ class ViltCore(nn.Module):
         self.encoder = nn.ModuleList(ViltBlock(cfg) for _ in range(cfg.num_layers))
         self.final_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.pooler = nn.Linear(d, d)
+        self.dropout_generator = None  # a torch.Generator on the model's device
 
     def forward(self, input_ids, text_mask, pixel_values, patch_hw,
                 image_token_type_idx=None, token_type_ids=None):
@@ -147,6 +162,8 @@ class ViltCore(nn.Module):
              + self.token_type_embeddings(token_type_ids.long())
              + self.text_position_embeddings[None, :l, :])
         t = layer_norm(self.text_layernorm, t, f32)
+        gen = self.dropout_generator
+        t = dropout(t, cfg.hidden_dropout, self.training, gen)
 
         # visual embeddings on the fixed grid of this canvas
         grid_h = pixel_values.shape[1] // cfg.patch_size
@@ -158,6 +175,7 @@ class ViltCore(nn.Module):
         pos = interpolate_visual_pos_embed(pos_grid, patch_hw, grid_h, grid_w)
         cls = (self.cls_token + vis_pos[0][None, None, :]).expand(b, 1, -1)
         img = torch.cat([cls.to(f32), proj.to(f32) + pos], dim=1)
+        img = dropout(img, cfg.hidden_dropout, self.training, gen)
         img_mask = torch.cat(
             [torch.ones((b, 1), dtype=f32, device=dev), patch_grid_mask(patch_hw, grid_h, grid_w)],
             dim=1,
@@ -174,7 +192,7 @@ class ViltCore(nn.Module):
         joint_mask = torch.cat([text_mask.to(f32), img_mask], dim=1)
         mask_bias = attention.mask_to_bias(joint_mask, dtype=f32)
         for block in self.encoder:
-            x = block(x, mask_bias)
+            x = block(x, mask_bias, gen)
 
         x = layer_norm(self.final_layernorm, x, dtype)
         pooled = torch.tanh(dense(self.pooler, x[:, 0], dtype))

@@ -1,9 +1,12 @@
 """Multi-head attention: the plain version and the CUDA kernel's wrapper.
 
 Counterpart of ``climb_tpu/ops/attention.py`` (the XLA numerics, ``_mha_core``)
-and ``climb_tpu/ops/pallas_attention.py`` (the TPU kernel ``_fwd_kernel``).
-Layouts are the JAX package's: q, k, v and the output are (B, S, H, D); the
-mask bias is (B, 1, 1, S) float32.
+and ``climb_tpu/ops/pallas_attention.py`` (the TPU kernels ``_fwd_kernel`` and
+``_bwd_kernel`` under the custom VJP ``flash_attention``). Layouts are the JAX
+package's: q, k, v and the output are (B, S, H, D); the mask bias is
+(B, 1, 1, S) float32. ``FlashAttention`` is the autograd form: its forward
+launches ``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu`` for
+CUDA tensors; for CPU tensors both run the plain versions.
 """
 
 import math
@@ -38,6 +41,51 @@ def mha_plain(q, k, v, bias=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def attention_bwd_plain(q, k, v, bias, do):
+    """``_bwd_kernel``'s arithmetic step by step (pallas_attention.py:69-101):
+    P recomputed in f32; dV = P^T.dO with P rounded to dO's dtype; dP = dO.V^T
+    in f32; delta = rowsum(dP o P); dS = P o (dP - delta) * scale rounded to
+    q's dtype; dQ = dS.K; dK = dS^T.Q. Products of low-precision operands
+    accumulate in f32. Returns (dq, dk, dv) in the inputs' dtypes."""
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
+    s = s + bias.to(f32)
+    p = torch.softmax(s, dim=-1)
+    p_lp = p.to(do.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_lp.to(f32), do.to(f32))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v.to(f32))
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(f32), k.to(f32))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(f32), q.to(f32))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_args(what, q, k, v, bias, *more):
+    """Device, dtype, shape and layout checks shared by the two wrappers;
+    returns the (B, S) key bias with a contiguous S axis."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    b, s, h, d = q.shape
+    if any(t.shape != q.shape for t in (k, v) + more):
+        shapes = [tuple(t.shape) for t in (q, k, v) + more]
+        raise ValueError(f"{what}: q/k/v shapes differ: {shapes}")
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"{what}: the kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
+    if q.dtype not in build.DTYPES or any(t.dtype != q.dtype for t in (k, v) + more):
+        raise TypeError(f"{what}: q/k/v must share a dtype in {list(build.DTYPES)}")
+    if any(t.device != q.device for t in (k, v, bias) + more):
+        raise ValueError(f"{what}: q, k, v and bias must be on one device")
+    if any(t.stride(-1) != 1 for t in (q, k, v) + more):
+        raise ValueError(f"{what}: the head_dim axis must be contiguous")
+    if bias.dtype != torch.float32 or bias.shape != (b, 1, 1, s):
+        raise ValueError(f"{what}: bias must be float32 (B, 1, 1, S), got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+    key_bias = bias.reshape(b, s)
+    return key_bias if key_bias.stride(1) == 1 else key_bias.contiguous()
+
+
 def attention_fwd(q, k, v, bias):
     """Masked attention; ``csrc/attention.cu`` for CUDA tensors.
 
@@ -47,25 +95,8 @@ def attention_fwd(q, k, v, bias):
     """
     if q.device.type == "cpu":
         return mha_plain(q, k, v, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_fwd: unsupported device {q.device}")
+    key_bias = _check_kernel_args("attention_fwd", q, k, v, bias)
     b, s, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"attention_fwd: q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"attention_fwd: the kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
-    if q.dtype not in build.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"attention_fwd: q/k/v must share a dtype in {list(build.DTYPES)}")
-    if any(t.device != q.device for t in (k, v, bias)):
-        raise ValueError("attention_fwd: q, k, v and bias must be on one device")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("attention_fwd: the head_dim axis must be contiguous")
-    if bias.dtype != torch.float32 or bias.shape != (b, 1, 1, s):
-        raise ValueError(f"attention_fwd: bias must be float32 (B, 1, 1, S), got "
-                         f"{bias.dtype} {tuple(bias.shape)}")
-    key_bias = bias.reshape(b, s)
-    if key_bias.stride(1) != 1:
-        key_bias = key_bias.contiguous()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lib = build.load_library()
     build.check(
@@ -81,12 +112,61 @@ def attention_fwd(q, k, v, bias):
     return out
 
 
+def attention_bwd(q, k, v, bias, do):
+    """(dq, dk, dv) of masked attention; ``csrc/attention_bwd.cu`` for CUDA
+    tensors (two launches, counted as one), ``attention_bwd_plain`` for CPU
+    tensors. Shapes and dtypes as ``attention_fwd``; ``do`` is the output
+    gradient. Returns contiguous (B, S, H, D) tensors in q's dtype."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, bias, do)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    key_bias = _check_kernel_args("attention_bwd", q, k, v, bias, do)
+    b, s, h, d = q.shape
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    lse, delta = (torch.empty((b, h, s), dtype=torch.float32, device=q.device) for _ in range(2))
+    lib = build.load_library()
+    build.check(
+        lib.climb_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            b, s, h, d, build.strides3(q), build.strides3(k), build.strides3(v),
+            build.strides3(do), build.strides3(dq), build.strides3(dk), build.strides3(dv),
+            key_bias.stride(0), 1.0 / math.sqrt(d), build.DTYPES[q.dtype],
+            build.stream_handle(q.device),
+        ),
+        "attention_bwd",
+    )
+    LAUNCHES["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Counterpart of the custom VJP ``flash_attention``: ``attention_fwd``
+    forward, ``attention_bwd`` backward, no gradient for the bias (``_fa_bwd``
+    returns None for it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return attention_fwd(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, bias, do)
+        return dq, dk, dv, None
+
+
 def multi_head_attention(q, k, v, bias, impl: str = "auto"):
     """Dispatch by ``impl``. The JAX package's 'xla' and 'pallas' paths compute
-    one function, so every value goes through ``attention_fwd``."""
+    one function, so every value goes through ``attention_fwd``, and through
+    ``FlashAttention`` when a gradient is to flow back."""
     if impl not in ATTN_IMPLS:
         raise NotImplementedError(
-            f"attn_impl {impl!r} is not ported yet (fused_block and xla_ckpt come "
-            f"with the training slice); choose one of {ATTN_IMPLS}"
+            f"attn_impl {impl!r} is not ported yet (xla_ckpt comes with the remat "
+            f"work, fused_block with its own slice); choose one of {ATTN_IMPLS}"
         )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, bias)
     return attention_fwd(q, k, v, bias)

@@ -3,7 +3,11 @@
 Counterpart of ``climb_tpu/ops/pallas_mlp.py``. Weights are in
 ``torch.nn.Linear``'s (out, in) layout. ``fused_mlp`` launches
 ``csrc/mlp.cu`` (two GEMM launches with fused epilogues) for CUDA tensors
-and runs the plain version for CPU tensors.
+and runs the plain version for CPU tensors. ``FusedMLP`` is the autograd form
+(``_fused_mlp_vjp``): the kernel forward, and ``_fused_mlp_bwd``'s math as the
+backward, which recomputes the (rows, F) intermediate instead of storing it.
+That backward is XLA in the JAX package, not a Pallas kernel, so its four
+products stay PyTorch matmuls (cuBLAS on the card).
 """
 
 import torch
@@ -25,6 +29,33 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
     h = F.gelu(F.linear(x.to(f32), w1.to(f32), b1.to(f32)), approximate="none")
     h = h.to(x.dtype)
     return F.linear(h.to(f32), w2.to(f32), b2.to(f32)).to(x.dtype)
+
+
+def _gelu_grad(h):
+    """d/dh of the exact GELU: 0.5 (1 + erf(h / sqrt 2)) + h pdf(h)."""
+    pdf = torch.exp(-0.5 * h * h) * 0.3989422804014327
+    return 0.5 * (1.0 + torch.erf(h * 0.7071067811865476)) + h * pdf
+
+
+def fused_mlp_bwd_plain(x, w1, b1, w2, dy):
+    """``_fused_mlp_bwd`` (pallas_mlp.py:83-102): h1 = x.W1 + b1 and
+    dg = dy.W2 in f32 (f32 operands, as preferred_element_type=f32 keeps the
+    products of bf16 values exact), dh1 rounded to x's dtype; dx, dW1 and dW2
+    are products in x's dtype (f32 accumulation, one rounding). Returns
+    (dx, dw1, db1, dw2, db2) in the dtypes of x and the weights."""
+    f32 = torch.float32
+    d = x.shape[-1]
+    x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
+    h1 = F.linear(x2.to(f32), w1.to(f32), b1.to(f32))
+    g = F.gelu(h1, approximate="none").to(x.dtype)
+    dg = dy2.to(f32) @ w2.to(f32)
+    dh1 = (dg * _gelu_grad(h1)).to(x.dtype)
+    dx = dh1 @ w1
+    dw1 = dh1.t() @ x2
+    db1 = dh1.to(f32).sum(0).to(b1.dtype)
+    dw2 = dy2.t() @ g
+    db2 = dy2.to(f32).sum(0).to(b1.dtype)
+    return dx.reshape(x.shape), dw1, db1, dw2, db2
 
 
 def _linear(lib, x2, w, b, out, gelu: bool):
@@ -71,3 +102,25 @@ def fused_mlp(x, w1, b1, w2, b2):
     _linear(lib, h, w2, b2, out, gelu=False)
     LAUNCHES["mlp_fwd"] += 1
     return out.reshape(x.shape)
+
+
+class FusedMLP(torch.autograd.Function):
+    """Counterpart of ``_fused_mlp_vjp``: saves only (x, w1, b1, w2), as the
+    JAX custom VJP does, so the (rows, F) activation is not kept."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return fused_mlp(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2 = ctx.saved_tensors
+        return fused_mlp_bwd_plain(x, w1, b1, w2, dy)
+
+
+def mlp(x, w1, b1, w2, b2):
+    """The FFN, through ``FusedMLP`` when a gradient is to flow back."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return FusedMLP.apply(x, w1, b1, w2, b2)
+    return fused_mlp(x, w1, b1, w2, b2)

@@ -1,1 +1,2 @@
-"""The serving forward and model construction."""
+"""Training: the train and eval steps, AdamW, the train state, the task trainer and
+model construction."""

@@ -1,7 +1,8 @@
-"""The serving forward: prepare_batch -> model -> batch_metric.
+"""The eval forward: prepare_batch -> model -> batch_metric.
 
 Counterpart of ``climb_tpu/train/train_step.py``'s ``prepare_batch``,
-``batch_metric`` and ``make_eval_step`` (train_step.py:52-121,433-444).
+``batch_metric`` and ``make_eval_step`` (train_step.py:52-121,433-444); the
+train step (``train/train_step.py``) shares the first two.
 """
 
 from typing import Callable
@@ -51,13 +52,19 @@ def batch_metric(logits: torch.Tensor, batch: dict, loss_type: str):
 
 
 def make_eval_step(model: torch.nn.Module, task_key: str, loss_type: str,
-                   compute_dtype=torch.float32) -> Callable:
-    """eval_step(batch) -> (logits, metric_sum, metric_count), no autograd."""
+                   compute_dtype=torch.float32, params: dict = None) -> Callable:
+    """eval_step(batch) -> (logits, metric_sum, metric_count), no autograd,
+    the model in eval mode. ``params`` (a state dict) stands in for the
+    model's own parameters when given."""
 
     @torch.inference_mode()
     def eval_step(batch: dict):
+        model.eval()
         batch = prepare_batch(batch, compute_dtype)
-        logits = model(task_key, batch)
+        if params is None:
+            logits = model(task_key, batch)
+        else:
+            logits = torch.func.functional_call(model, params, (task_key, batch))
         metric_sum, metric_count = batch_metric(logits, batch, loss_type)
         return logits, metric_sum, metric_count
 

@@ -1,14 +1,21 @@
 """CL model construction (counterpart of ``climb_tpu/train/model_factory.py``).
 
 Heads for every task in the sequence, three modality-type rows when NLVR2 is
-in it, weights drawn from ``--seed`` through a ``torch.Generator``. Pretrained
-HF weights are not ported: the port serves checkpoints, which override them.
+in it, weights drawn from ``--seed`` through a ``torch.Generator``.
+``--pretrained_model_name`` may name a checkpoint file in the reference torch
+layout (a model, encoder or bare HF ``ViltModel`` state dict), which is
+loaded over the initialization; a two-row modality table grows a third row,
+a copy of the image row (reference vilt.py:106-108). HF hub names need the
+network: as the JAX package does when it cannot load them, the model keeps
+its random initialization and a warning says so.
 """
 
 import logging
+import os
 
 import torch
 
+from climb_tpu_torch.ckpt.convert import load_reference_checkpoint, partial_load
 from climb_tpu_torch.models.model_config import ViltConfig, head_specs_from_task_configs
 from climb_tpu_torch.models.vilt import ViltContinualLearner
 
@@ -36,8 +43,22 @@ def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
     return ViltConfig(**kw)
 
 
+def load_pretrained(model: ViltContinualLearner, path: str):
+    """Load a reference-layout checkpoint file over the model's weights (a
+    flax msgpack file raises: it needs flax)."""
+    sd = load_reference_checkpoint(path)
+    mod = "vilt.modality_type_embeddings.weight"
+    rows = model.cfg.modality_type_vocab_size
+    if mod in sd and sd[mod].shape[0] == 2 and rows == 3:
+        sd[mod] = torch.cat([sd[mod], sd[mod][1:2]], dim=0)
+    loaded, missing = partial_load(model, sd)
+    logger.info("Pretrained %s: %d tensors loaded, %d kept from init", path, len(loaded),
+                len(missing))
+
+
 def create_cl_model(args, task_configs, device: torch.device) -> ViltContinualLearner:
-    """The learner on ``device`` in eval mode, initialized from ``args.seed``."""
+    """The learner on ``device`` in eval mode (the train step switches it to
+    train mode), initialized from ``args.seed``."""
     task_keys = list(args.ordered_cl_tasks)
     cfg = vilt_config_from_args(args, "nlvr2" in task_keys)
     if args.encoder_name != "vilt":
@@ -49,6 +70,9 @@ def create_cl_model(args, task_configs, device: torch.device) -> ViltContinualLe
     model.reset_parameters(generator)
     pretrained = getattr(args, "pretrained_model_name", "scratch")
     if pretrained not in ("scratch", "", None):
-        logger.warning("pretrained weights %s are not ported; random init (a "
-                       "--checkpoint overrides every weight)", pretrained)
+        if os.path.isfile(pretrained):
+            load_pretrained(model, pretrained)
+        else:
+            logger.warning("Could not load pretrained weights %s (HF hub names need the "
+                           "network); training from scratch", pretrained)
     return model.to(device).eval()

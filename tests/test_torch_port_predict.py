@@ -97,7 +97,9 @@ def test_predict_without_card_raises(monkeypatch, tmp_path):
         port_predict(argv)  # --device defaults to cuda
 
 
-@pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict", "chip_smoke"])
+@pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict",
+                                    "climb_tpu_torch.cli.train_upstream_continual_learning",
+                                    "chip_smoke"])
 def test_import_loads_no_jax(module):
     code = (
         f"import sys; import {module}; "

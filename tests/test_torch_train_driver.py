@@ -1,0 +1,197 @@
+"""climb_tpu_torch.cli.train_upstream_continual_learning against the JAX
+driver on the CPU.
+
+Both drivers run ``--tiny --synthetic`` singletask_ft on snli-ve and
+sequential_ft on snli-ve then nlvr2, for two epochs a task at a learning
+rate raised so that the scores move between epochs. The port starts from
+the JAX initialization of the same seed (set here, in the test, by loading
+the JAX tree into the port's model), and its results.json must then agree
+with the JAX driver's. Also: climb_tpu's ``load_params`` reads the port's
+task checkpoint and scores the same; a rerun skips finished tasks; a run cut
+after an epoch resumes to the same final parameters; unported paths raise.
+"""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from climb_tpu.ckpt.checkpoint import load_params as jax_load_params
+from climb_tpu.cli.train_upstream_continual_learning import main as jax_main
+from climb_tpu.configs.task_configs import task_configs as jax_task_configs
+from climb_tpu.train.model_factory import create_cl_model as jax_create_cl_model
+from climb_tpu.train.train_step import make_eval_step as jax_make_eval_step
+from climb_tpu_torch.ckpt import checkpoint
+from climb_tpu_torch.ckpt.convert import partial_load, state_dict_from_jax
+from climb_tpu_torch.cli import train_upstream_continual_learning as port
+from climb_tpu_torch.train import trainers
+
+torch.set_num_threads(1)
+
+RUNS = {
+    "singletask": ["--cl_algorithm", "singletask_ft", "--ordered_cl_tasks", "snli-ve"],
+    "sequential": ["--cl_algorithm", "sequential_ft", "--ordered_cl_tasks", "snli-ve,nlvr2"],
+}
+EXPERIMENTS = {"singletask": "vilt-singletask_ft-task0_snli-ve",
+               "sequential": "vilt-sequential_ft-task0_snli-ve-task1_nlvr2"}
+SCORE_ATOL = 1e-9  # the same predictions on the same examples: equal scores
+
+
+def _argv(out_dir, run, *extra):
+    return ["--encoder_name", "vilt", "--pretrained_model_name", "scratch",
+            "--climb_data_dir", str(out_dir), "--synthetic", "--tiny",
+            "--synthetic_train_size", "16", "--batch_size", "8", "--seed", "5",
+            "--task_config_overrides",
+            "snli-ve.num_epochs=2,snli-ve.lr=2e-3,nlvr2.num_epochs=2,nlvr2.lr=2e-3",
+            "--output_dir", str(out_dir), "--do_train", *RUNS[run], *extra]
+
+
+def _start_from_jax(monkeypatch):
+    """Port models start from the JAX driver's initialization of the same
+    seed: the JAX driver's initial parameters are kept as it makes them, and
+    the port's next model of the same tasks loads them."""
+    import climb_tpu.train as jax_train
+
+    made = {}
+    jax_create, port_create = jax_train.create_cl_model, port.create_cl_model
+
+    def jax_recording(args, configs, **kw):
+        model = jax_create(args, configs, **kw)
+        made[tuple(args.ordered_cl_tasks)] = jax.tree_util.tree_map(np.asarray, model.params)
+        return model
+
+    def port_from_jax(args, configs, device):
+        model = port_create(args, configs, device)
+        partial_load(model, state_dict_from_jax(made[tuple(args.ordered_cl_tasks)]))
+        return model
+
+    monkeypatch.setattr(jax_train, "create_cl_model", jax_recording)
+    monkeypatch.setattr(port, "create_cl_model", port_from_jax)
+
+
+def _results(out_dir, run):
+    return json.loads((out_dir / EXPERIMENTS[run] / "results.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both drivers' output directories after both runs."""
+    mp = pytest.MonkeyPatch()
+    _start_from_jax(mp)
+    out = {"jax": tmp_path_factory.mktemp("jax"), "port": tmp_path_factory.mktemp("port")}
+    try:
+        for run in RUNS:
+            jax_main(_argv(out["jax"], run, "--do_eval"))
+            port.main(_argv(out["port"], run, "--do_eval", "--device", "cpu"))
+    finally:
+        mp.undo()
+    return out
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_results_match_jax_driver(run, runs):
+    ref, got = _results(runs["jax"], run), _results(runs["port"], run)
+    assert [(r["task_key"], r["best_epoch"]) for r in got] == \
+        [(r["task_key"], r["best_epoch"]) for r in ref]
+    np.testing.assert_allclose([r["best_score"] for r in got], [r["best_score"] for r in ref],
+                               atol=SCORE_ATOL)
+    ev_ref = json.loads((runs["jax"] / EXPERIMENTS[run] / "eval_results.json").read_text())
+    ev = json.loads((runs["port"] / EXPERIMENTS[run] / "eval_results.json").read_text())
+    assert ev.keys() == ev_ref.keys()
+    if run == "sequential":
+        f, f_ref = ev["forgetting"]["nlvr2"]["snli-ve"], ev_ref["forgetting"]["nlvr2"]["snli-ve"]
+        np.testing.assert_allclose(f["absolute_transfer_score"],
+                                   f_ref["absolute_transfer_score"], atol=SCORE_ATOL)
+        # the singletask run in the same output_dir gives the transfer gain
+        assert ev["upstream_knowledge_transfer"]["snli-ve"]["singletask_score"] is not None
+
+
+def test_jax_loads_port_checkpoint_with_the_same_score(runs):
+    """climb_tpu's load_params reads the port's task0 model file, and its eval
+    step scores the snli-ve eval split as the port's results.json says."""
+    from climb_tpu.data.collation import stack_collate as jax_collate
+    from climb_tpu.data.loader import DataLoader as JaxLoader
+
+    exp = runs["port"] / EXPERIMENTS["singletask"]
+    params = jax_load_params(str(exp / "checkpoints" / "task0_snli-ve" / "model"))
+    args = port.build_parser().parse_args(_argv(exp, "singletask"))
+    args.ordered_cl_tasks = ["snli-ve"]
+    args.image_height, args.image_width = 64, 96
+    model = jax_create_cl_model(args, jax_task_configs)
+    step = jax_make_eval_step(model.module, "snli-ve", "ce")
+    trainer = trainers.VLTaskTrainer(args, port.task_configs, {}, torch.device("cpu"), "snli-ve")
+    total = count = 0.0
+    for batch in JaxLoader(trainer.eval_dataset, 8, jax_collate, num_workers=1):
+        _, s, c = step(params, batch)
+        total, count = total + float(s), count + float(c)
+    assert 100.0 * total / count == _results(runs["port"], "singletask")[0]["best_score"]
+
+
+def test_rerun_skips_finished_tasks(runs, monkeypatch):
+    def no_training(self, model):
+        raise AssertionError("a finished task was trained again")
+
+    monkeypatch.setattr(trainers.VLTaskTrainer, "train", no_training)
+    before = _results(runs["port"], "sequential")
+    port.main(_argv(runs["port"], "sequential", "--device", "cpu"))
+    assert _results(runs["port"], "sequential") == before
+
+
+def test_elastic_resume_gives_the_same_parameters(tmp_path, monkeypatch):
+    argv = lambda out: _argv(out, "singletask", "--device", "cpu")
+    port.main(argv(tmp_path / "whole"))
+
+    class Cut(Exception):
+        pass
+
+    save = trainers.save_train_state
+
+    def save_then_cut(*a, **kw):  # the run dies right after epoch 1's state is saved
+        save(*a, **kw)
+        raise Cut()
+
+    monkeypatch.setattr(trainers, "save_train_state", save_then_cut)
+    with pytest.raises(Cut):
+        port.main(argv(tmp_path / "cut"))
+    monkeypatch.setattr(trainers, "save_train_state", save)
+    exp = EXPERIMENTS["singletask"]
+    state_file = tmp_path / "cut" / exp / "checkpoints" / "task0_snli-ve" / "train_state"
+    assert state_file.exists()
+    port.main(argv(tmp_path / "cut"))
+    assert not state_file.exists()  # the task checkpoint supersedes it
+    whole = checkpoint.load_task_checkpoint(str(tmp_path / "whole" / exp), 0, "snli-ve")
+    resumed = checkpoint.load_task_checkpoint(str(tmp_path / "cut" / exp), 0, "snli-ve")
+    assert set(whole) == set(resumed)
+    for k in whole:
+        assert torch.equal(whole[k], resumed[k]), k
+    assert _results(tmp_path / "whole", "singletask") == _results(tmp_path / "cut", "singletask")
+
+
+def test_device_cuda_without_card_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        port.main(_argv(tmp_path, "singletask"))  # --device defaults to cuda
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cl_algorithm", "ewc", "--ewc_fisher_sample_percentage", "0.1",
+     "--ewc_loss_weight", "1.0", "--ordered_cl_tasks", "snli-ve,nlvr2"],
+    ["--ordered_cl_tasks", "vcr"],
+    ["--grad_accum_steps", "auto"],
+    ["--remat"],
+    ["--do_wandb_logging"],
+    ["--sharded_checkpoints"],
+    ["--adam_moments_dtype", "bfloat16"],
+])
+def test_unported_paths_raise(flags, tmp_path):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port.main(_argv(tmp_path, "singletask", "--device", "cpu") + flags)
+
+
+def test_msgpack_checkpoint_raises(tmp_path):
+    path = tmp_path / "model"
+    path.write_bytes(b"\x82\xa4vilt\x80")  # a msgpack map, as flax writes
+    with pytest.raises(NotImplementedError, match="flax"):
+        checkpoint.load_state_dict(str(path))
