@@ -10,23 +10,34 @@ Phases, each printing one JSON line as soon as it ends:
   2. build:   nvcc builds climb_tpu_torch/csrc into one library (sm_90a).
   3. kernels: each kernel against its plain PyTorch version, in float32 and
               bfloat16, with its tolerance and times (kernel, plain version,
-              one PyTorch library call): the forward kernels at the ViLT-B/32
-              serving shapes, the attention backward at the training shapes.
+              one PyTorch library call): the forward kernels and the fused
+              attention sublayer at the ViLT-B/32 serving shapes, the attention
+              backward at the training shapes, and the attention forward and
+              backward at the language driver's long shape (16, 1057, 12, 64),
+              one batch row there with every key masked.
   4. predict: ``climb_tpu_torch.cli.predict.main`` at full ViLT-B/32 width on
               a synthetic snli-ve split, with the launch counts of that run;
               then the logits of one batch, kernel path against plain path
               (held to a tolerance in f32), and a profile of one bf16 step.
+     predict_fused: the same with ``--attn_impl fused_block``.
   5. train:   ``climb_tpu_torch.cli.train_upstream_continual_learning.main``
               at full width, sequential_ft on synthetic snli-ve then nlvr2,
               bf16, one epoch each, with train and eval: the exact launch
               counts of that run, results.json and eval_results.json, and
               the steady-state step time and examples/sec.
+     train_fused: singletask_ft snli-ve with ``--attn_impl fused_block``.
   6. train_paths: three f32 train steps of one snli-ve batch through the
               kernel path and the plain path (losses and every parameter's
               gradient held to tolerances), the bf16 step time of both paths,
-              and a profile of one bf16 train step.
-  7. the kernels line (the ported kernels, and the TPU kernels still to
-     port under "not_ported"), then the card line, then the result line.
+              and a profile of one bf16 train step; once with ``--attn_impl
+              pallas`` and once with ``fused_block``.
+  7. language: ``climb_tpu_torch.cli.train_language.main`` at full width, imdb
+              with ``--max_len_override 1040`` (S = 1057), batch 16, bf16, two
+              epochs: the exact launch counts, the sequence length the
+              attention kernel saw, the results JSON, step time and
+              examples/sec, and a profile of one train step.
+  8. the kernels line (every TPU kernel of climb_tpu with its port), then the
+     card line, then the result line.
 
 Exits non-zero, before printing any result, without a card or when any phase
 fails. Imports nothing of JAX or of climb_tpu.
@@ -55,6 +66,11 @@ CANVAS = (384, 640, 3)
 LAYERS = 12
 TRAIN_BATCH = 32  # the training driver's --batch_size (snli-ve; nlvr2 folds 16 pairs)
 TRAIN_SIZE = 256  # synthetic train examples per task: 8 snli-ve and 16 nlvr2 steps
+FUSED_TRAIN_SIZE = 128  # the fused_block driver run: 4 snli-ve steps
+# the Phase II language driver's long-sequence shape: imdb at --max_len_override
+# 1040 with a 128x128 image, S = 1040 + 1 + 16
+LONG_BATCH, LONG_TEXT, LONG_SEQ = 16, 1040, 1057
+LANGUAGE_TRAIN_SIZE, LANGUAGE_EPOCHS = 64, 2  # 4 steps an epoch
 
 # (atol, rtol, reason) per kernel and dtype, set before the first run
 TOLERANCES = {
@@ -76,6 +92,15 @@ TOLERANCES = {
                                     "1-ulp flips of the bf16 roundings of P and dS, which "
                                     "the products carry, and of dq, dk, dv"),
 }
+# the same tolerances hold at the long shape: "attention_fwd" / "attention_bwd"
+TOLERANCES.update({
+    ("fused_block_fwd", "float32"): (2e-5, 1e-4, "f32 sums over 768 terms and the online "
+                                     "softmax's in another order"),
+    ("fused_block_fwd", "bfloat16"): (3e-2, 2e-2, "1-ulp flips of the bf16 roundings of h, q, "
+                                      "k, v, ctx and out (ulp 2^-5 between 4 and 8), which the "
+                                      "later products carry; the kernel keeps P in f32 where "
+                                      "the plain version rounds it to bf16"),
+})
 LOGITS_TOL = (1e-3, 1e-3, "12 layers of f32 sums in another order, ~1e-5 each")
 # kernel path against plain path over three f32 train steps of one batch
 LOSS_TOL = (1e-5, 1e-4, "12 layers of f32 sums in another order, forward and backward")
@@ -91,10 +116,11 @@ TPU_KERNELS = (
     ("attention_fwd", "climb_tpu/ops/pallas_attention.py:53", "climb_tpu_torch/csrc/attention.cu"),
     ("attention_bwd", "climb_tpu/ops/pallas_attention.py:69",
      "climb_tpu_torch/csrc/attention_bwd.cu"),
-    (None, "climb_tpu/ops/pallas_attention.py:104", None),
+    ("attention_fwd_blocked", "climb_tpu/ops/pallas_attention.py:104",
+     "climb_tpu_torch/csrc/attention.cu"),
     ("mlp_fwd", "climb_tpu/ops/pallas_mlp.py:46", "climb_tpu_torch/csrc/mlp.cu"),
     ("normalize_u8", "climb_tpu/ops/pallas_image.py:21", "climb_tpu_torch/csrc/normalize.cu"),
-    (None, "climb_tpu/ops/pallas_block.py:55", None),
+    ("fused_block_fwd", "climb_tpu/ops/pallas_block.py:55", "climb_tpu_torch/csrc/block.cu"),
 )
 
 
@@ -296,22 +322,184 @@ def check_attention_bwd(torch, results):
     torch.cuda.synchronize()
 
 
-def predict_argv(out_dir, dtype):
+def check_fused_block(torch, results):
+    """The fused attention sublayer against its plain version at the serving
+    shape: all six outputs (out, h, q, k, v, ctx). The library yardstick is
+    F.layer_norm, three F.linear, SDPA, F.linear and the residual add."""
+    import torch.nn.functional as F
+
+    from climb_tpu_torch.kernels import LAUNCHES
+    from climb_tpu_torch.ops import block
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    _, _, _, bias = attention_inputs(torch, g, BATCH, dev)
+    x32 = torch.randn((BATCH, SEQ, HIDDEN), generator=g, device=dev)
+    w32 = [torch.randn((HIDDEN, HIDDEN), generator=g, device=dev) / math.sqrt(HIDDEN)
+           for _ in range(4)]
+    rows = [torch.randn((HIDDEN,), generator=g, device=dev) * 0.02 for _ in range(4)]
+    lns = 1.0 + 0.1 * torch.randn((HIDDEN,), generator=g, device=dev)
+    lnb = 0.1 * torch.randn((HIDDEN,), generator=g, device=dev)
+    n_rows = BATCH * SEQ
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        el = torch.tensor([], dtype=dtype).element_size()
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        x = x32.to(dtype)
+        wq, wk, wv, wo = (w.to(dtype) for w in w32)
+        bq, bk, bv, bo = rows
+        args = (x, lns, lnb, wq, bq, wk, bk, wv, bv, wo, bo, bias)
+        kernel = lambda: block.fused_attention_sublayer(*args, num_heads=HEADS)
+        plain = lambda: block.fused_attention_sublayer_plain(*args, num_heads=HEADS)
+        heads = lambda t: t.view(BATCH, SEQ, HEADS, HEAD_DIM).transpose(1, 2)
+        rows_t = [r.to(dtype) for r in rows]
+        sdpa_mask = bias.to(dtype)
+
+        def library():
+            h = F.layer_norm(x, (HIDDEN,), lns.to(dtype), lnb.to(dtype), 1e-12)
+            q, k, v = (F.linear(h, w, b) for w, b in zip((wq, wk, wv), rows_t))
+            ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                 attn_mask=sdpa_mask)
+            ctx = ctx.transpose(1, 2).reshape(BATCH, SEQ, HIDDEN)
+            return x + F.linear(ctx, wo, rows_t[3])
+
+        launched_before = LAUNCHES["fused_block_fwd"]
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        names = ("out", "h", "q", "k", "v", "ctx")
+        errs = [compare(torch, "fused_block_fwd", dn, o, r) for o, r in zip(out, ref)]
+        del out, ref
+        row = {
+            "phase": "kernel", "name": "fused_block_fwd", "dtype": dn,
+            "shape": f"x ({BATCH},{SEQ},{HIDDEN}) {dn}, four ({HIDDEN},{HIDDEN}) weights, "
+                     f"bias ({BATCH},{SEQ}) f32",
+            "max_abs_err": max(e for e, _ in errs),
+            "max_abs_err_by_output": dict(zip(names, (e for e, _ in errs))),
+            "tolerance": errs[0][1],
+            "kernel_ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, iters=5),
+            "library_ms": time_ms(torch, library),
+            "library": "F.layer_norm, three F.linear, SDPA (float mask), F.linear, add",
+            "launches": LAUNCHES["fused_block_fwd"] - launched_before,
+            "kernel_launches_per_call": 4,
+            "intermediate_bytes_through_device_memory": 2 * n_rows * HIDDEN * el,
+        }
+        # x, out, h, q, k, v once each, the four weights, the f32 rows and the key
+        # bias; ctx, which the backward keeps, counts as an intermediate, not here
+        row["bound_ms"], row["bound_by"] = bound(
+            6 * n_rows * HIDDEN * el + 4 * HIDDEN * HIDDEN * el + 6 * HIDDEN * 4 + n_rows * 4,
+            8 * n_rows * HIDDEN * HIDDEN + 4 * BATCH * HEADS * SEQ * SEQ * HEAD_DIM, peak)
+        emit(row)
+        results[("fused_block_fwd", dn)] = row
+        del x, wq, wk, wv, wo, args
+    torch.cuda.synchronize()
+
+
+def check_attention_long(torch, results):
+    """The attention forward and backward at the language driver's shape
+    (16, 1057, 12, 64), against mha_plain and attention_bwd_plain; ragged text
+    lengths, and one batch row with every key masked (a uniform softmax)."""
+    import torch.nn.functional as F
+
+    from climb_tpu_torch.kernels import LAUNCHES
+    from climb_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (LONG_BATCH, LONG_SEQ, HEADS, HEAD_DIM)
+    q32, k32, v32, do32 = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+    text_len = torch.randint(4, LONG_TEXT + 1, (LONG_BATCH, 1), generator=g, device=dev)
+    mask = (torch.arange(LONG_SEQ, device=dev)[None] < text_len).float()
+    mask[:, LONG_TEXT:] = 1.0  # the image CLS token and the 16 patches
+    mask[3] = 0.0
+    bias = attention.mask_to_bias(mask)
+    n = q32.numel()
+    pairs = LONG_BATCH * HEADS * LONG_SEQ * LONG_SEQ * HEAD_DIM
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        el = torch.tensor([], dtype=dtype).element_size()
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+        shape_s = f"({LONG_BATCH},{LONG_SEQ},{HEADS},{HEAD_DIM}) {dn}"
+        with torch.no_grad():
+            before = dict(LAUNCHES)
+            out = attention.attention_fwd(q, k, v, bias)
+            torch.cuda.synchronize()
+            ref = attention.mha_plain(q, k, v, bias)
+            err, tol = compare(torch, "attention_fwd", dn, out, ref)
+            uniform = (out[3].float() - v[3].float().mean(0, keepdim=True)).abs().max().item()
+            del out, ref
+            fwd = {"phase": "kernel", "name": "attention_fwd", "dtype": dn, "at": "long",
+                   "shape": f"q/k/v {shape_s}, bias ({LONG_BATCH},{LONG_SEQ}) f32",
+                   "max_abs_err": err, "tolerance": tol,
+                   "masked_row_max_abs_err_to_mean_v": uniform,
+                   "kernel_ms": time_ms(torch, lambda: attention.attention_fwd(q, k, v, bias),
+                                        iters=10),
+                   "plain_ms": time_ms(torch, lambda: attention.mha_plain(q, k, v, bias),
+                                       iters=3, warmup=1)}
+            grads = attention.attention_bwd(q, k, v, bias, do)
+            torch.cuda.synchronize()
+            gref = attention.attention_bwd_plain(q, k, v, bias, do)
+            errs = [compare(torch, "attention_bwd", dn, o, r) for o, r in zip(grads, gref)]
+            del grads, gref
+            bwd = {"phase": "kernel", "name": "attention_bwd", "dtype": dn, "at": "long",
+                   "shape": f"q/k/v/dO {shape_s}, bias ({LONG_BATCH},{LONG_SEQ}) f32",
+                   "max_abs_err": max(e for e, _ in errs),
+                   "max_abs_err_dq_dk_dv": [e for e, _ in errs], "tolerance": errs[0][1],
+                   "kernel_ms": time_ms(torch, lambda: attention.attention_bwd(q, k, v, bias, do),
+                                        iters=5, warmup=1),
+                   "plain_ms": time_ms(torch, lambda: attention.attention_bwd_plain(
+                       q, k, v, bias, do), iters=3, warmup=1)}
+            fwd["launches"] = LAUNCHES["attention_fwd"] - before["attention_fwd"]
+            bwd["launches"] = LAUNCHES["attention_bwd"] - before["attention_bwd"]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot, sdpa_mask = do.transpose(1, 2), bias.to(dtype)
+        with torch.no_grad():
+            fwd["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask), iters=10)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
+        bwd["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        bwd["library"] = "SDPA's backward alone (autograd.grad through one retained graph)"
+        fwd["bound_ms"], fwd["bound_by"] = bound(4 * n * el + LONG_BATCH * LONG_SEQ * 4,
+                                                 4 * pairs, peak)
+        bwd["bound_ms"], bwd["bound_by"] = bound(7 * n * el + LONG_BATCH * LONG_SEQ * 4,
+                                                 10 * pairs, peak)
+        emit(fwd)
+        emit(bwd)
+        results[("attention_fwd_blocked", dn)] = fwd
+        results[("attention_bwd_long", dn)] = bwd
+        del q, k, v, do, qt, kt, vt, dot, sdpa_mask, sdpa_out
+    torch.cuda.synchronize()
+
+
+def predict_argv(out_dir, dtype, attn_impl="pallas"):
     return [
         "--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve", "--task_key", "snli-ve",
         "--synthetic", "--synthetic_train_size", "1024", "--batch_size", str(BATCH),
-        "--compute_dtype", dtype, "--attn_impl", "pallas", "--mlp_impl", "pallas",
+        "--compute_dtype", dtype, "--attn_impl", attn_impl, "--mlp_impl", "pallas",
         "--seed", "0", "--output_dir", out_dir,
         "--output_file", os.path.join(out_dir, f"predictions_{dtype}.json"),
     ]
 
 
-def run_predict(torch):
+def expected_launches(fused, n_forward, n_backward, n_batches):
+    """Launch counts of ``n_forward`` encoder forwards, ``n_backward`` of them
+    with a backward, over ``n_batches`` normalized batches: with fused_block the
+    sublayer kernel takes the place of the attention forward."""
+    return {"attention_fwd": 0 if fused else LAYERS * n_forward,
+            "fused_block_fwd": LAYERS * n_forward if fused else 0,
+            "attention_bwd": LAYERS * n_backward, "mlp_fwd": LAYERS * n_forward,
+            "normalize_u8": n_batches}
+
+
+def run_predict(torch, attn_impl="pallas"):
     from climb_tpu_torch.cli import predict
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
 
+    fused = attn_impl == "fused_block"
     with tempfile.TemporaryDirectory() as out_dir:
-        argv = predict_argv(out_dir, "bfloat16")
+        argv = predict_argv(out_dir, "bfloat16", attn_impl)
         reset_launch_counts()
         t0 = time.perf_counter()
         out = predict.main(argv)
@@ -320,8 +508,7 @@ def run_predict(torch):
         with open(os.path.join(out_dir, "predictions_bfloat16.json")) as f:
             saved = json.load(f)
     n_batches = math.ceil(256 / BATCH)
-    expected = {"attention_fwd": LAYERS * n_batches, "attention_bwd": 0,
-                "mlp_fwd": LAYERS * n_batches, "normalize_u8": n_batches}
+    expected = expected_launches(fused, n_batches, 0, n_batches)
     if launches != expected:
         raise AssertionError(f"launches {launches} != expected {expected}")
     preds = out["predictions"]
@@ -330,7 +517,8 @@ def run_predict(torch):
             and math.isfinite(out["examples_per_sec"])):
         summary = {k: v for k, v in out.items() if k != "predictions"}
         raise AssertionError(f"bad predict output: {summary}")
-    emit({"phase": "predict", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, "
+    emit({"phase": "predict_fused" if fused else "predict", "attn_impl": attn_impl,
+          "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, "
           "384x640 canvas, S=281), random weights from seed 0, snli-ve, bf16",
           "n_examples": out["n_examples"], "n_batches": n_batches, "metric": out["metric"],
           "examples_per_sec": out["examples_per_sec"], "seconds": seconds,
@@ -364,24 +552,32 @@ def profile_step(torch, step, batch, what, top=12):
                   for name, (calls, us) in rows]})
 
 
-def compare_paths(torch):
+def plain_path():
+    """Patches that put every kernel wrapper's plain version in its place."""
+    from climb_tpu_torch.ops import attention, block, image_ops, mlp
+    from climb_tpu_torch.train import eval_step as eval_step_mod
+
+    return (mock.patch.object(attention, "attention_fwd", attention.mha_plain),
+            mock.patch.object(attention, "attention_bwd", attention.attention_bwd_plain),
+            mock.patch.object(block, "fused_attention_sublayer",
+                              block.fused_attention_sublayer_plain),
+            mock.patch.object(mlp, "fused_mlp", mlp.fused_mlp_plain),
+            mock.patch.object(eval_step_mod, "normalize_images",
+                              image_ops.normalize_images_plain))
+
+
+def compare_paths(torch, attn_impl="pallas"):
     """One batch through the kernel path and the plain path, on the card."""
     from climb_tpu_torch.cli import predict
     from climb_tpu_torch.configs.task_configs import task_configs
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
-    from climb_tpu_torch.ops import attention, image_ops, mlp
     from climb_tpu_torch.train import eval_step as eval_step_mod
     from climb_tpu_torch.train.model_factory import create_cl_model
 
-    plain = (
-        mock.patch.object(attention, "attention_fwd", attention.mha_plain),
-        mock.patch.object(mlp, "fused_mlp", mlp.fused_mlp_plain),
-        mock.patch.object(eval_step_mod, "normalize_images", image_ops.normalize_images_plain),
-    )
     dev = torch.device("cuda")
-    row = {"phase": "paths"}
+    row = {"phase": "paths", "attn_impl": attn_impl}
     for dtype in ("float32", "bfloat16"):
-        args = predict.build_parser().parse_args(predict_argv("unused", dtype))
+        args = predict.build_parser().parse_args(predict_argv("unused", dtype, attn_impl))
         args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
         model = create_cl_model(args, task_configs, dev)
         step = eval_step_mod.make_eval_step(model, "snli-ve", "ce", model.cfg.compute_dtype)
@@ -390,7 +586,9 @@ def compare_paths(torch):
         kernel_logits = step(batch)[0].float()
         kernel_ms = time_ms(torch, lambda: step(batch), iters=5, warmup=1)
         reset_launch_counts()
-        with plain[0], plain[1], plain[2]:
+        with contextlib.ExitStack() as patches:
+            for patch in plain_path():
+                patches.enter_context(patch)
             plain_logits = step(batch)[0].float()
             plain_ms = time_ms(torch, lambda: step(batch), iters=5, warmup=1)
         if any(LAUNCHES.values()):
@@ -399,8 +597,8 @@ def compare_paths(torch):
         row[dtype] = {"batch_ms_kernel_path": kernel_ms, "batch_ms_plain_path": plain_ms,
                       "logits_max_abs_err": err}
         if dtype == "bfloat16":
-            profile_step(torch, step, batch,
-                         "one bf16 eval step of the kernel path, batch on the card")
+            profile_step(torch, step, batch, f"one bf16 eval step of the kernel path "
+                         f"(--attn_impl {attn_impl}), batch on the card")
         if dtype == "float32":
             atol, rtol, reason = LOGITS_TOL
             row["float32"]["tolerance"] = {"atol": atol, "rtol": rtol, "reason": reason}
@@ -411,33 +609,40 @@ def compare_paths(torch):
     emit(row)
 
 
-def train_argv(out_dir):
+def train_argv(out_dir, fused=False):
+    """sequential_ft snli-ve -> nlvr2 with --attn_impl pallas, or singletask_ft
+    snli-ve with --attn_impl fused_block."""
     return [
         "--encoder_name", "vilt", "--pretrained_model_name", "scratch",
-        "--cl_algorithm", "sequential_ft", "--ordered_cl_tasks", "snli-ve,nlvr2",
+        "--cl_algorithm", "singletask_ft" if fused else "sequential_ft",
+        "--ordered_cl_tasks", "snli-ve" if fused else "snli-ve,nlvr2",
         "--climb_data_dir", out_dir, "--output_dir", out_dir, "--synthetic",
-        "--synthetic_train_size", str(TRAIN_SIZE), "--batch_size", str(TRAIN_BATCH),
+        "--synthetic_train_size", str(FUSED_TRAIN_SIZE if fused else TRAIN_SIZE),
+        "--batch_size", str(TRAIN_BATCH),
         "--task_config_overrides", "snli-ve.num_epochs=1,nlvr2.num_epochs=1",
-        "--compute_dtype", "bfloat16", "--attn_impl", "pallas", "--mlp_impl", "pallas",
-        "--seed", "0", "--do_train", "--do_eval",
+        "--compute_dtype", "bfloat16", "--attn_impl", "fused_block" if fused else "pallas",
+        "--mlp_impl", "pallas", "--seed", "0", "--do_train", "--do_eval",
     ]
 
 
-def run_train(torch):
-    """The Phase I driver at full width, every train step timed."""
-    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
-    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
-    from climb_tpu_torch.train import trainers
-
-    # (task, host start, start event, end event); nothing here waits for the
-    # card, so the loader's next batch overlaps the step as it does untimed
-    steps = []
-    make = trainers.make_train_step
+@contextlib.contextmanager
+def timed_train_steps(torch, module, steps, profile_at=None, profile_what=""):
+    """Replace ``module.make_train_step`` by one whose steps append (task,
+    host start, start event, end event) to ``steps``. Nothing here waits for
+    the card, so the loader's next batch overlaps the step as it does untimed.
+    The step of index ``profile_at`` runs under torch.profiler instead and
+    appends None."""
+    make = module.make_train_step
 
     def timed_make(model, task_key, *a, **kw):
         step = make(model, task_key, *a, **kw)
 
         def timed(state, batch):
+            if len(steps) == profile_at:
+                out = []
+                profile_step(torch, lambda b: out.append(step(state, b)), batch, profile_what)
+                steps.append(None)
+                return out[0]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t = time.perf_counter()
             start.record()
@@ -448,59 +653,81 @@ def run_train(torch):
 
         return timed
 
-    with tempfile.TemporaryDirectory() as out_dir, \
-            mock.patch.object(trainers, "make_train_step", timed_make):
+    with mock.patch.object(module, "make_train_step", timed_make):
+        yield
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def run_train(torch, fused=False):
+    """The Phase I driver at full width, every train step timed."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.train import trainers
+
+    steps = []
+    size = FUSED_TRAIN_SIZE if fused else TRAIN_SIZE
+    tasks = ["snli-ve"] if fused else ["snli-ve", "nlvr2"]
+    with tempfile.TemporaryDirectory() as out_dir, timed_train_steps(torch, trainers, steps):
         reset_launch_counts()
         t0 = time.perf_counter()
-        driver.main(train_argv(out_dir))
+        driver.main(train_argv(out_dir, fused))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(LAUNCHES)
-        exp = os.path.join(out_dir, "vilt-sequential_ft-task0_snli-ve-task1_nlvr2")
+        exp = os.path.join(out_dir, "vilt-singletask_ft-task0_snli-ve" if fused else
+                           "vilt-sequential_ft-task0_snli-ve-task1_nlvr2")
         with open(os.path.join(exp, "results.json")) as f:
             results = json.load(f)
         with open(os.path.join(exp, "eval_results.json")) as f:
             eval_results = json.load(f)
     # per task: train steps, eval batches (one epoch's eval; snli-ve's again
     # for the forgetting eval after nlvr2)
-    n_steps = {"snli-ve": math.ceil(TRAIN_SIZE / TRAIN_BATCH),
-               "nlvr2": math.ceil(TRAIN_SIZE / (TRAIN_BATCH // 2))}
-    eval_size = TRAIN_SIZE // 4
-    n_eval = (math.ceil(eval_size / TRAIN_BATCH) * 2 + math.ceil(eval_size / (TRAIN_BATCH // 2)))
+    n_steps = {"snli-ve": math.ceil(size / TRAIN_BATCH),
+               "nlvr2": math.ceil(size / (TRAIN_BATCH // 2))}
+    n_steps = {task: n_steps[task] for task in tasks}
+    eval_size = size // 4
+    n_eval = math.ceil(eval_size / TRAIN_BATCH)
+    if not fused:
+        n_eval = 2 * n_eval + math.ceil(eval_size / (TRAIN_BATCH // 2))
     n_train = sum(n_steps.values())
-    expected = {"attention_fwd": LAYERS * (n_train + n_eval), "attention_bwd": LAYERS * n_train,
-                "mlp_fwd": LAYERS * (n_train + n_eval), "normalize_u8": n_train + n_eval}
+    expected = expected_launches(fused, n_train + n_eval, n_train, n_train + n_eval)
     if launches != expected:
         raise AssertionError(f"train launches {launches} != expected {expected} "
                              f"({n_train} train steps, {n_eval} eval batches)")
     if len(steps) != n_train:
         raise AssertionError(f"{len(steps)} timed train steps, expected {n_train}")
     scores = [r["best_score"] for r in results]
-    forgetting = eval_results["forgetting"]["nlvr2"]["snli-ve"]
-    if [r["task_key"] for r in results] != ["snli-ve", "nlvr2"] or not all(
-            math.isfinite(x) and 0.0 <= x <= 100.0
-            for x in scores + [forgetting["absolute_transfer_score"]]):
+    forgetting = None if fused else eval_results["forgetting"]["nlvr2"]["snli-ve"]
+    if not fused:
+        scores = scores + [forgetting["absolute_transfer_score"]]
+    if [r["task_key"] for r in results] != tasks or not all(
+            math.isfinite(x) and 0.0 <= x <= 100.0 for x in scores):
         raise AssertionError(f"bad results {results} / {eval_results}")
     # steady state: every step but each task's first (kernel build, warm-up)
     event_ms = {task: [s[2].elapsed_time(s[3]) for s in steps if s[0] == task][1:]
                 for task in n_steps}
     host_ms = {task: [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:])
                       if a[0] == b[0] == task][1:] for task in n_steps}
-    med = lambda xs: sorted(xs)[len(xs) // 2]
-    row = {"phase": "train", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, "
-           "384x640 canvas, S=281), random weights from seed 0, sequential_ft snli-ve -> "
-           "nlvr2, one epoch each, bf16 compute, f32 master weights and AdamW moments",
+    row = {"phase": "train_fused" if fused else "train",
+           "attn_impl": "fused_block" if fused else "pallas",
+           "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, "
+           "384x640 canvas, S=281), random weights from seed 0, "
+           + ("singletask_ft snli-ve" if fused else "sequential_ft snli-ve -> nlvr2")
+           + ", one epoch each, bf16 compute, f32 master weights and AdamW moments",
            "seconds": seconds, "launches": launches, "n_train_steps": n_steps,
            "n_eval_batches": n_eval, "results": results,
            "forgetting_snli_ve_after_nlvr2": forgetting}
     for task in n_steps:
         examples = TRAIN_BATCH // (2 if task == "nlvr2" else 1)
         row[task] = {"examples_per_step": examples,
-                     "step_ms_events_median": med(event_ms[task]),
+                     "step_ms_events_median": median(event_ms[task]),
                      "step_ms_events": event_ms[task],
-                     "step_ms_host_median": med(host_ms[task]),
+                     "step_ms_host_median": median(host_ms[task]),
                      "step_ms_host": host_ms[task],
-                     "train_examples_per_sec": 1e3 * examples / med(host_ms[task])}
+                     "train_examples_per_sec": 1e3 * examples / median(host_ms[task])}
     emit(row)
     return launches
 
@@ -515,32 +742,25 @@ def train_batch_on_card(torch, args, dev):
     return trainer, to_device(next(iter(trainer.train_dataloader)), dev)
 
 
-def compare_train_paths(torch):
+def compare_train_paths(torch, attn_impl="pallas"):
     """Three f32 train steps of one snli-ve batch through the kernel path and
     the plain path from the same weights, then the bf16 step time of both
-    and a profile of one bf16 train step."""
+    and a profile of one bf16 train step. Returns the bf16 step ms of the
+    kernel path."""
     from climb_tpu_torch.cli import train_upstream_continual_learning as driver
     from climb_tpu_torch.configs.task_configs import task_configs
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
-    from climb_tpu_torch.ops import attention, image_ops, mlp
-    from climb_tpu_torch.train import eval_step as eval_step_mod
     from climb_tpu_torch.train.model_factory import create_cl_model
     from climb_tpu_torch.train.train_state import TrainState
     from climb_tpu_torch.train.train_step import make_train_step
 
-    def plain():
-        return (mock.patch.object(attention, "attention_fwd", attention.mha_plain),
-                mock.patch.object(attention, "attention_bwd", attention.attention_bwd_plain),
-                mock.patch.object(mlp, "fused_mlp", mlp.fused_mlp_plain),
-                mock.patch.object(eval_step_mod, "normalize_images",
-                                  image_ops.normalize_images_plain))
-
+    fused = attn_impl == "fused_block"
     dev = torch.device("cuda")
-    row = {"phase": "train_paths"}
+    row = {"phase": "train_paths", "attn_impl": attn_impl}
     for dtype in ("float32", "bfloat16"):
         with tempfile.TemporaryDirectory() as out_dir:
-            argv = train_argv(out_dir)
-            argv[argv.index("snli-ve,nlvr2")] = "snli-ve"
+            argv = train_argv(out_dir, fused)
+            argv[argv.index("--ordered_cl_tasks") + 1] = "snli-ve"
             argv[argv.index("bfloat16")] = dtype
             args = driver.build_parser().parse_args(argv)
             args.ordered_cl_tasks = ["snli-ve"]
@@ -566,10 +786,11 @@ def compare_train_paths(torch):
 
         reset_launch_counts()
         k_losses, k_grads, k_ms, k_step, k_state = run(3, ())
-        if not (LAUNCHES["attention_bwd"] and LAUNCHES["attention_fwd"] and LAUNCHES["mlp_fwd"]):
+        n_run = 3 + 1 + 3  # the compared steps, then time_ms's warm-up and timed steps
+        if dict(LAUNCHES) != expected_launches(fused, n_run, n_run, n_run):
             raise AssertionError(f"kernel path launched {LAUNCHES}")
         reset_launch_counts()
-        p_losses, p_grads, p_ms, _, _ = run(3, plain())
+        p_losses, p_grads, p_ms, _, _ = run(3, plain_path())
         if any(LAUNCHES.values()):
             raise AssertionError(f"plain path launched kernels: {LAUNCHES}")
         out = {"step_ms_kernel_path": k_ms, "step_ms_plain_path": p_ms,
@@ -602,12 +823,85 @@ def compare_train_paths(torch):
                             for r, n, d, f in worst[:4]]})
         else:
             profile_step(torch, lambda b: k_step(k_state, b), batch,
-                         f"one bf16 train step (snli-ve, batch {TRAIN_BATCH}) of the kernel "
-                         "path: forward, backward, AdamW; batch on the card")
+                         f"one bf16 train step (snli-ve, batch {TRAIN_BATCH}, --attn_impl "
+                         f"{attn_impl}) of the kernel path: forward, backward, AdamW; batch "
+                         "on the card")
         row[dtype] = out
         del model, trainer, batch, initial, k_grads, p_grads, k_state
         torch.cuda.synchronize()
     emit(row)
+    return row["bfloat16"]["step_ms_kernel_path"]
+
+
+def run_language(torch):
+    """The Phase II language driver at full width in the long-text regime:
+    imdb at --max_len_override 1040 (S = 1057), batch 16, bf16."""
+    from climb_tpu_torch.cli import train_language
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.ops import attention
+    from climb_tpu_torch.train import downstream
+
+    steps, seen = [], set()
+    attention_fwd = attention.attention_fwd
+
+    def recording_fwd(q, k, v, bias):
+        seen.add(tuple(q.shape))
+        return attention_fwd(q, k, v, bias)
+
+    n_steps = LANGUAGE_EPOCHS * math.ceil(LANGUAGE_TRAIN_SIZE / LONG_BATCH)
+    what = (f"one bf16 train step of the language driver (imdb, batch {LONG_BATCH}, S = "
+            f"{LONG_SEQ}, --attn_impl pallas): forward, backward, AdamW; batch on the card")
+    with tempfile.TemporaryDirectory() as out_dir, \
+            timed_train_steps(torch, downstream, steps, profile_at=n_steps - 1,
+                              profile_what=what), \
+            mock.patch.object(attention, "attention_fwd", recording_fwd):
+        argv = ["--task_name", "imdb", "--encoder_name", "vilt", "--max_len_override",
+                str(LONG_TEXT), "--batch_size", str(LONG_BATCH), "--checkpoint_name", "scratch",
+                "--pretrained_model_name", "scratch", "--synthetic", "--synthetic_train_size",
+                str(LANGUAGE_TRAIN_SIZE), "--attn_impl", "pallas", "--mlp_impl", "pallas",
+                "--compute_dtype", "bfloat16", "--seed", "0", "--output_dir", out_dir,
+                "--task_config_overrides", f"imdb.num_epochs={LANGUAGE_EPOCHS}"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out_fn = train_language.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        with open(out_fn) as f:
+            results = json.load(f)
+    # train_downstream: the last epoch's dev eval and the test eval, one batch of
+    # min(256, 4 * batch) rows each (16 dev and 64 test examples)
+    n_eval = 2
+    expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
+    if launches != expected:
+        raise AssertionError(f"language launches {launches} != expected {expected}")
+    if len(steps) != n_steps:
+        raise AssertionError(f"{len(steps)} timed language steps, expected {n_steps}")
+    tail = (LONG_SEQ, HEADS, HEAD_DIM)
+    if seen != {(LONG_BATCH,) + tail, (4 * LONG_BATCH,) + tail}:
+        raise AssertionError(f"the attention kernel saw shapes {sorted(seen)}, expected S = "
+                             f"{LONG_SEQ} at the train and eval batch sizes")
+    test, dev, best_epoch = results["nshot-None"]["seed-None"]
+    if os.path.basename(out_fn) != "imdb_scratch_results.json" or best_epoch != LANGUAGE_EPOCHS \
+            or not all(math.isfinite(x) and 0.0 <= x <= 100.0 for x in (test, dev)):
+        raise AssertionError(f"bad language results {out_fn}: {results}")
+    # steady state: every step but the first (warm-up) and the profiled one
+    timed = [s for s in steps[1:] if s is not None]
+    event_ms = [s[2].elapsed_time(s[3]) for s in timed]
+    host_ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps[1:], steps[2:])
+               if a is not None and b is not None]
+    emit({"phase": "language", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522), "
+          f"{LONG_TEXT} text positions tiled from 40, 128x128 mean image, S = {LONG_SEQ}; "
+          f"random weights from seed 0, imdb (2 labels), {LANGUAGE_EPOCHS} epochs of "
+          f"{LANGUAGE_TRAIN_SIZE} synthetic examples, batch {LONG_BATCH}, bf16 compute, f32 "
+          "master weights and AdamW moments",
+          "seconds": seconds, "launches": launches, "n_train_steps": n_steps,
+          "n_eval_batches": n_eval, "attention_shapes_seen": sorted(seen),
+          "results": results, "step_ms_events_median": median(event_ms),
+          "step_ms_events": event_ms, "step_ms_host_median": median(host_ms),
+          "step_ms_host": host_ms,
+          "train_examples_per_sec": 1e3 * LONG_BATCH / median(host_ms)})
+    return launches
 
 
 def main() -> int:
@@ -637,30 +931,43 @@ def main() -> int:
     results = {}
     with torch.inference_mode():
         check_kernels(torch, results)
+        check_fused_block(torch, results)
     check_attention_bwd(torch, results)
+    check_attention_long(torch, results)
     launches = {"predict": run_predict(torch)}
     compare_paths(torch)
+    launches["predict_fused"] = run_predict(torch, "fused_block")
+    compare_paths(torch, "fused_block")
     launches["train"] = run_train(torch)
-    compare_train_paths(torch)
+    launches["train_fused"] = run_train(torch, fused=True)
+    step_ms = {impl: compare_train_paths(torch, impl) for impl in ("pallas", "fused_block")}
+    emit({"phase": "fused_vs_per_op", "what": f"one bf16 snli-ve train step at batch "
+          f"{TRAIN_BATCH} by CUDA events, the same batch and weights, in this run",
+          "step_ms": step_ms})
+    launches["language"] = run_language(torch)
 
-    # ported kernels with their numbers from this run; the TPU kernels still to
-    # port stand apart, so that every entry of "kernels" is a kernel that ran
-    kernels, not_ported = [], []
+    # every TPU kernel of climb_tpu with its port's numbers from this run. Each
+    # kernel's launches are those of the path it belongs to (the forward kernels
+    # the serving path, the backward the training path, the fused sublayer the
+    # fused serving path, the long-sequence forward the language path, where
+    # csrc/attention.cu is launched as attention_fwd); every path's counts stand
+    # beside them
+    main_paths = {"attention_bwd": "train", "fused_block_fwd": "predict_fused",
+                  "attention_fwd_blocked": "language"}
+    kernels = []
     for name, replaces, source in TPU_KERNELS:
-        if name is None:
-            not_ported.append({"name": "not_ported", "replaces": replaces, "launches": 0})
-            continue
         r = results[(name, "bfloat16")]  # the main paths' dtype
-        # the forward kernels' launches are the serving path's, the backward's
-        # the training path's; both paths' counts stand beside them
-        main_path = "train" if name == "attention_bwd" else "predict"
+        counter = "attention_fwd" if name == "attention_fwd_blocked" else name
+        count = launches[main_paths.get(name, "predict")][counter]
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on its main path: {launches}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[main_path][name], "max_abs_err": r["max_abs_err"],
+                        "launches": count, "max_abs_err": r["max_abs_err"],
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"],
-                        "launches_by_path": {p: c[name] for p, c in launches.items()}})
-    emit({"kernels": kernels, "not_ported": not_ported})
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        "launches_by_path": {p: c[counter] for p, c in launches.items()}})
+    emit({"kernels": kernels, "not_ported": []})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -83,10 +83,14 @@ def _encoder_from_jax(enc: dict) -> Dict[str, torch.Tensor]:
 
 
 def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``ViltContinualLearner`` params -> the port's ``state_dict``."""
+    """JAX ``ViltContinualLearner`` params (``vilt`` + ``head_<task>``), JAX
+    ``ViltClassifier`` params (``vilt`` + ``head``) or a bare ``ViltCore``
+    tree -> the state dict of the port's module of that kind."""
+    if "word_embeddings" in tree:
+        return _encoder_from_jax(tree)
     sd = {f"vilt.{k}": v for k, v in _encoder_from_jax(tree["vilt"]).items()}
     for name, p in tree.items():
-        if not name.startswith("head_"):
+        if name != "head" and not name.startswith("head_"):
             continue
         if "fc1" in p:
             _linear_from_jax(sd, f"{name}.fc1", p["fc1"])

@@ -43,8 +43,9 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="Attention implementation. 'xla', 'pallas' and "
                              "'auto' compute one function, and on the card "
                              "each runs the CUDA attention kernel "
-                             "(csrc/attention.cu); 'xla_ckpt' and "
-                             "'fused_block' are not ported yet.")
+                             "(csrc/attention.cu); 'fused_block' runs the "
+                             "whole attention sublayer through csrc/block.cu; "
+                             "'xla_ckpt' is not ported yet.")
     parser.add_argument("--mlp_impl", type=str, default="xla", choices=["xla", "pallas"],
                         help="FFN implementation. Both values compute one "
                              "function, and on the card each runs the CUDA "
@@ -164,10 +165,9 @@ def reject_unported(args):
         if value != ported and not (flag == "pp_stages" and value in (0, 1)):
             raise NotImplementedError(
                 f"--{flag} {value!r} is not ported to climb_tpu_torch yet ({later})")
-    if args.attn_impl in ("xla_ckpt", "fused_block"):
+    if args.attn_impl == "xla_ckpt":
         raise NotImplementedError(
-            f"--attn_impl {args.attn_impl} is not ported to climb_tpu_torch yet "
-            "(the remat work and the fused_block slice)")
+            "--attn_impl xla_ckpt is not ported to climb_tpu_torch yet (the remat work)")
     if str(getattr(args, "grad_accum_steps", 1)) in ("auto", "sweep"):
         raise NotImplementedError(
             f"--grad_accum_steps {args.grad_accum_steps} is not ported to climb_tpu_torch yet "

@@ -1,0 +1,151 @@
+"""Phase II driver: language-only low-shot transfer (counterpart of
+``climb_tpu/cli/train_language.py``; reference ``src/train/train_language.py``).
+
+Loads an upstream encoder checkpoint, builds a sequence-classification or
+multiple-choice classifier over it, feeds the mean image as the vacuous visual
+input (one canvas shared by the batch), reallocates the text and image
+sequence budget when max_len > 40 (a 128x128 image), trains, and writes the
+nested ``{task}_{upstream}_results.json``. Runs on the card unless
+``--device cpu`` is given.
+
+Not ported yet (each raises): ViLT-BERT, and real language data with its
+tokenizer (no vocabulary file is in the repository): pass ``--synthetic``.
+
+Usage:
+  python -m climb_tpu_torch.cli.train_language --task_name imdb \\
+      --encoder_name vilt --checkpoint_name scratch \\
+      --pretrained_model_name scratch --synthetic --output_dir out
+"""
+
+import argparse
+import logging
+import os
+
+import numpy as np
+import torch
+
+from climb_tpu_torch.cli.common import (
+    add_common_args,
+    add_device_args,
+    apply_task_config_overrides,
+    reject_unported,
+    setup_logging,
+)
+from climb_tpu_torch.configs.model_configs import model_configs
+from climb_tpu_torch.configs.task_configs import task_configs
+from climb_tpu_torch.data.image_pipeline import process_image
+from climb_tpu_torch.data.mean_image import load_mean_image
+from climb_tpu_torch.data.synthetic import SyntheticTextDataset
+from climb_tpu_torch.device import resolve_device
+from climb_tpu_torch.models.surgery import reallocate_text_image
+from climb_tpu_torch.models.vilt import ViltClassifier
+from climb_tpu_torch.train.downstream import (
+    train_downstream,
+    upstream_name_from_checkpoint,
+    write_downstream_results,
+)
+from climb_tpu_torch.train.model_factory import load_encoder_params, vilt_config_from_args
+from climb_tpu_torch.utils.seed import set_seed
+
+logger = logging.getLogger(__name__)
+
+MC_TASKS = {"commonsenseqa", "hellaswag", "piqa", "cosmosqa"}
+
+
+def build_parser():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--task_name", required=True, type=str,
+                        help="The name of the language-only task.")
+    parser.add_argument("--encoder_name", required=True, type=str,
+                        help="The name of the base pretrained encoder.")
+    parser.add_argument("--model_catog", default=None, type=str,
+                        help="Model-config key (defaults by task type: vilt-l-seq / vilt-l-mc).")
+    parser.add_argument("--checkpoint_name", required=True, type=str,
+                        help="Path of the upstream encoder checkpoint ('none' for base weights).")
+    parser.add_argument("--pretrained_model_name", default="dandelin/vilt-b32-mlm", type=str,
+                        help="'scratch' or a reference-layout file; HF hub names need the "
+                             "network and raise.")
+    parser.add_argument("--num_shot", type=int, help="Training examples (per class for cls tasks).")
+    parser.add_argument("--subsample_seed", type=int, help="Seed for few-shot sampling.")
+    parser.add_argument("--climb_data_dir", type=str, default=".",
+                        help="Root of language task data dirs.")
+    parser.add_argument("--mean_image_path", type=str, default=None,
+                        help="Path to coco_mean_image.png (gray fallback if absent).")
+    parser.add_argument("--max_len_override", type=int, default=0,
+                        help="Override the task config's max_len (tokens). Values > 40 enter "
+                             "the reallocate_text_image long-text regime (reference "
+                             "vilt.py:57-81): a 128x128 image and text positions tiled from "
+                             "the 40 pretrained slots.")
+    add_common_args(parser)
+    add_device_args(parser)
+    return parser
+
+
+def main(argv=None):
+    setup_logging()
+    args = build_parser().parse_args(argv)
+    reject_unported(args)
+    if args.encoder_name != "vilt":
+        raise NotImplementedError(
+            f"--encoder_name {args.encoder_name}: only 'vilt' is ported to climb_tpu_torch "
+            "(ViLT-BERT comes with a later slice)")
+    if not args.synthetic:
+        raise NotImplementedError(
+            "real language datasets are not ported to climb_tpu_torch yet (they need a "
+            "tokenizer vocabulary, which is not in the repository); pass --synthetic")
+    device = resolve_device(args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    set_seed(args)
+
+    task_config = apply_task_config_overrides(task_configs, args.task_config_overrides)[
+        args.task_name]
+    is_mc = args.task_name in MC_TASKS
+    model_catog = args.model_catog or ("vilt-l-mc" if is_mc else "vilt-l-seq")
+    if model_catog not in model_configs:
+        raise ValueError(f"--model_catog {model_catog}: known {sorted(model_configs)}")
+    max_len = args.max_len_override or task_config["max_len"]
+    num_labels = task_config["num_labels"]
+
+    cfg = vilt_config_from_args(args, needs_three_modalities=False)
+    encoder_sd, cfg = load_encoder_params(
+        None if args.checkpoint_name in ("none", "scratch") else args.checkpoint_name,
+        cfg, args.pretrained_model_name, args.seed, encoder_name=args.encoder_name)
+
+    # the mean image; text and image budget reallocated for long-text tasks
+    # (reference train_language.py:67-84)
+    img_size = None
+    if max_len > cfg.max_text_len:
+        img_size = (128, 128)
+        encoder_sd, cfg = reallocate_text_image(encoder_sd, cfg, max_len, img_size)
+    mean_img = load_mean_image(args.mean_image_path, img_size)
+    canvas, patch_hw = process_image(mean_img, (cfg.image_height, cfg.image_width))
+    extra_batch = {
+        "pixel_values": np.asarray(canvas)[None],
+        "patch_hw": np.asarray(patch_hw, np.int32)[None],
+    }
+
+    # the full classifier from the seed, the encoder's weights grafted in
+    model_type = "multi-choice" if is_mc else "classification"
+    model = ViltClassifier(cfg, num_labels=num_labels, model_type=model_type)
+    model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
+    model.vilt.load_state_dict(encoder_sd)
+    model.to(device).eval()
+
+    n_choices = num_labels if is_mc else None
+    sizes = [args.synthetic_train_size, max(8, args.synthetic_train_size // 4)] * 2
+    datasets = tuple(
+        SyntheticTextDataset(size, num_labels, model_type, n_choices, max_len, seed=args.seed + i)
+        for i, size in enumerate(sizes))[:3]
+
+    best, test, best_epoch, _ = train_downstream(
+        args, model, task_config, datasets, "mc_ce" if is_mc else "ce", device,
+        extra_batch=extra_batch)
+    out = write_downstream_results(
+        args.num_shot, args.subsample_seed, best, test, best_epoch, task_config["task_name"],
+        upstream_name_from_checkpoint(args.checkpoint_name), args.output_dir)
+    logger.info("Wrote %s", out)
+    return out
+
+
+if __name__ == "__main__":
+    main()

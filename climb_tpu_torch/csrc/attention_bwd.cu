@@ -10,17 +10,18 @@
 //   1. dq kernel, one block per (batch, head, 64-query tile). Sweep 1 over
 //      64-key tiles keeps the running row max m, row sum l and an unnormalized
 //      delta (sum of exp(s - m) * dP, rescaled like l), so
-//      lse = m + log(l) and delta = rowsum(dP o P) come out of one pass over
+//      m, 1/l and delta = rowsum(dP o P) come out of one pass over
 //      the keys without the forward's output. Sweep 2 recomputes P and dP
-//      per key tile and accumulates dQ = dS.K in registers. It writes lse and
+//      per key tile and accumulates dQ = dS.K in registers. It writes (m, 1/l) and
 //      delta (B, H, S) f32 for launch 2.
 //   2. dkdv kernel, one block per (batch, head, 64-key tile), K and V tiles
 //      staged once; it loops over 64-query tiles, recomputes P and dP from
-//      lse and delta, and accumulates dK and dV in registers.
+//      the row statistics and delta, and accumulates dK and dV in registers.
 // delta is rowsum(dP o P), as _bwd_kernel computes it (not FlashAttention-2's
 // rowsum(dO o O), which needs the saved output and rounds differently in
-// bf16). P is exp(s - lse) rather than exp(s - m) / l: equal in exact
-// arithmetic, a few f32 ulp apart.
+// bf16). P is exp(s - m) * (1 / l) with m and 1/l kept apart, not
+// exp(s - lse): a row whose keys are all masked has m = -1e9, where
+// m + log(l) rounds log(l) away in f32 and P would come out l times too large.
 //
 // Bound on the H100: at the training shape (B=32, S=281, H=12, D=64) the five
 // products of the backward are 10 * B*H*S^2*D = 19.4 GFLOP against 7 * B*S*H*D
@@ -52,7 +53,8 @@ constexpr int kPad = kD + 1;  // row stride of the padded tiles (no bank conflic
 constexpr int kTile = kT * kPad;
 
 constexpr size_t kDqSmemBytes = (5 * kTile + kT) * sizeof(float);      // Q dO K V dS, bias
-constexpr size_t kDkdvSmemBytes = (6 * kTile + 3 * kT) * sizeof(float); // K V Q dO P dS, bias lse delta
+// K V Q dO P dS tiles; bias, row max, 1 / row sum, delta
+constexpr size_t kDkdvSmemBytes = (6 * kTile + 4 * kT) * sizeof(float);
 
 struct Strides {
   long long b, s, h;  // element strides of the B, S and H axes
@@ -112,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ dout,
                             const float* __restrict__ bias, T* __restrict__ dq,
-                            float* __restrict__ lse_out, float* __restrict__ delta_out, int S,
+                            float2* __restrict__ ml_out, float* __restrict__ delta_out, int S,
                             int H, Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
                             long long bias_sb, float scale) {
   extern __shared__ float smem[];
@@ -179,15 +181,15 @@ __global__ void __launch_bounds__(kThreads)
       m[i] = m_new;
     }
   }
-  float lse[4], delta[4];
+  float inv_l[4], delta[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    lse[i] = m[i] + logf(l[i]);
-    delta[i] = dl[i] / l[i];
+    inv_l[i] = 1.f / l[i];
+    delta[i] = dl[i] * inv_l[i];
     const int s = q0 + ty + 16 * i;
     if (tx == 0 && s < S) {
       const long long at = (b * H + h) * S + s;
-      lse_out[at] = lse[i];
+      ml_out[at] = make_float2(m[i], inv_l[i]);
       delta_out[at] = delta[i];
     }
   }
@@ -211,7 +213,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float p = (k0 + c < S) ? expf(sc[i][j] * scale + Bs[c] - lse[i]) : 0.f;
+        const float p = (k0 + c < S) ? expf(sc[i][j] * scale + Bs[c] - m[i]) * inv_l[i] : 0.f;
         dSs[(ty + 16 * i) * kPad + c] = round_to<T>(p * (dp[i][j] - delta[i]) * scale);
       }
     __syncthreads();
@@ -241,7 +243,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
-                              const float* __restrict__ bias, const float* __restrict__ lse_in,
+                              const float* __restrict__ bias, const float2* __restrict__ ml_in,
                               const float* __restrict__ delta_in, T* __restrict__ dk,
                               T* __restrict__ dv, int S, int H, Strides qs, Strides ks,
                               Strides vs, Strides dos, Strides dks, Strides dvs,
@@ -254,8 +256,9 @@ __global__ void __launch_bounds__(kThreads)
   float* Ps = dOs + kTile;
   float* dSs = Ps + kTile;
   float* Bs = dSs + kTile;
-  float* Ls = Bs + kT;
-  float* Dl = Ls + kT;
+  float* Ms = Bs + kT;
+  float* Il = Ms + kT;
+  float* Dl = Il + kT;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -269,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* ob = dout + b * dos.b + h * dos.h;
   T* dkb = dk + b * dks.b + h * dks.h;
   T* dvb = dv + b * dvs.b + h * dvs.h;
-  const float* lseb = lse_in + (b * H + h) * S;
+  const float2* mlb = ml_in + (b * H + h) * S;
   const float* deltab = delta_in + (b * H + h) * S;
 
   load_tile(Ks, kb, ks.s, k0, S, tid);
@@ -292,7 +295,9 @@ __global__ void __launch_bounds__(kThreads)
     load_tile(dOs, ob, dos.s, q0, S, tid);
     if (tid < kT) {
       const bool ok = q0 + tid < S;
-      Ls[tid] = ok ? lseb[q0 + tid] : 0.f;
+      const float2 ml = ok ? mlb[q0 + tid] : make_float2(0.f, 0.f);
+      Ms[tid] = ml.x;
+      Il[tid] = ml.y;
       Dl[tid] = ok ? deltab[q0 + tid] : 0.f;
     }
     __syncthreads();
@@ -307,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float p =
-            (row_ok && k0 + c < S) ? expf(sc[i][j] * scale + Bs[c] - Ls[r]) : 0.f;
+            (row_ok && k0 + c < S) ? expf(sc[i][j] * scale + Bs[c] - Ms[r]) * Il[r] : 0.f;
         Ps[r * kPad + c] = round_to<T>(p);
         dSs[r * kPad + c] = round_to<T>(p * (dp[i][j] - Dl[r]) * scale);
       }
@@ -351,7 +356,7 @@ Strides strides(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* bias,
-           void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int H,
+           void* dq, void* dk, void* dv, float2* ml, float* delta, int B, int S, int H,
            const long long* qs, const long long* ks, const long long* vs, const long long* dos,
            const long long* dqs, const long long* dks, const long long* dvs, long long bias_sb,
            float scale, cudaStream_t stream) {
@@ -369,12 +374,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const T* vt = static_cast<const T*>(v);
   const T* ot = static_cast<const T*>(dout);
   dq_kernel<<<grid, kThreads, kDqSmemBytes, stream>>>(
-      qt, kt, vt, ot, bias, static_cast<T*>(dq), lse, delta, S, H, strides(qs), strides(ks),
+      qt, kt, vt, ot, bias, static_cast<T*>(dq), ml, delta, S, H, strides(qs), strides(ks),
       strides(vs), strides(dos), strides(dqs), bias_sb, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv_kernel<<<grid, kThreads, kDkdvSmemBytes, stream>>>(
-      qt, kt, vt, ot, bias, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
+      qt, kt, vt, ot, bias, ml, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
       strides(qs), strides(ks), strides(vs), strides(dos), strides(dks), strides(dvs), bias_sb,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -384,10 +389,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 // q/k/v/dout/dq/dk/dv: (B, S, H, D) with D == 64 contiguous; *_strides =
 // element strides of the B, S and H axes. bias: (B, S) f32 rows bias_sb apart.
-// lse, delta: (B, H, S) contiguous f32 scratch, written by the first launch
-// and read by the second.
+// ml: (B, H, S, 2) contiguous f32 scratch holding each row's (max, 1 / sum);
+// delta: (B, H, S) f32 scratch; both written by the first launch and read by
+// the second.
 extern "C" int climb_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                   const float* bias, void* dq, void* dk, void* dv, float* lse,
+                                   const float* bias, void* dq, void* dk, void* dv, float* ml,
                                    float* delta, int B, int S, int H, int D,
                                    const long long* q_strides, const long long* k_strides,
                                    const long long* v_strides, const long long* do_strides,
@@ -396,12 +402,13 @@ extern "C" int climb_attention_bwd(const void* q, const void* k, const void* v, 
                                    int dtype, void* stream) {
   if (D != kD || B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* ml2 = reinterpret_cast<float2*>(ml);
   if (dtype == climb::kFloat32)
-    return launch<float>(q, k, v, dout, bias, dq, dk, dv, lse, delta, B, S, H, q_strides,
+    return launch<float>(q, k, v, dout, bias, dq, dk, dv, ml2, delta, B, S, H, q_strides,
                          k_strides, v_strides, do_strides, dq_strides, dk_strides, dv_strides,
                          bias_sb, scale, s);
   if (dtype == climb::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, dout, bias, dq, dk, dv, lse, delta, B, S, H,
+    return launch<__nv_bfloat16>(q, k, v, dout, bias, dq, dk, dv, ml2, delta, B, S, H,
                                  q_strides, k_strides, v_strides, do_strides, dq_strides,
                                  dk_strides, dv_strides, bias_sb, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -127,6 +127,63 @@ class SyntheticVLDataset:
         return ex
 
 
+class SyntheticTextDataset:
+    """Language-only synthetic examples (the port's copy of ``climb_tpu``'s
+    ``SyntheticTextDataset``; equal arrays for equal arguments). No images: the
+    classifier broadcasts a shared mean-image canvas (reference vilt.py:437-441)."""
+
+    def __init__(self, size, num_labels, model_type="classification",
+                 num_choices=None, max_len=40, seed=0):
+        self.size = size
+        self.num_labels = num_labels
+        self.model_type = model_type
+        self.num_choices = num_choices
+        self.max_len = max_len
+        self.seed = seed
+        rng = np.random.RandomState(seed)
+        n_classes = num_choices if model_type == "multi-choice" else num_labels
+        self.labels = rng.randint(0, max(n_classes, 1), size=(size,))
+
+    def __len__(self):
+        return self.size
+
+    def _text(self, rng, marker):
+        L = self.max_len
+        n = rng.randint(4, L)
+        ids = np.zeros((L,), np.int32)
+        ids[0] = 101
+        ids[2 : n - 1] = rng.randint(1010, 2000, size=(max(n - 3, 0),))
+        # the label-dependent token, repeated so that the pooled representation
+        # depends strongly on the label even through randomly initialized layers
+        ids[1 : n - 1 : 2] = marker
+        ids[n - 1] = 102
+        mask = np.zeros((L,), np.float32)
+        mask[:n] = 1.0
+        return ids, mask
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(self.seed * 999983 + i)
+        label = int(self.labels[i])
+        if self.model_type == "multi-choice":
+            # per-choice markers (correct=999, wrong=998): each choice is scored
+            # on its own, so a token shared by every choice would carry no signal
+            ids, masks = zip(*[self._text(rng, 999 if c == label else 998)
+                               for c in range(self.num_choices)])
+            return {
+                "input_ids": np.stack(ids),
+                "text_mask": np.stack(masks),
+                "token_type_ids": np.zeros((self.num_choices, self.max_len), np.int32),
+                "labels": np.int32(label),
+            }
+        ids, mask = self._text(rng, 103 + (label % 895))
+        return {
+            "input_ids": ids,
+            "text_mask": mask,
+            "token_type_ids": np.zeros((self.max_len,), np.int32),
+            "labels": np.int32(label),
+        }
+
+
 def make_synthetic_vl_dataset(task_key: str, task_cfg: dict, split: str, size: int,
                               text_len: int = 40, canvas_hw=(384, 640), seed: int = 0,
                               label_noise: float = 0.0) -> SyntheticVLDataset:

@@ -4,7 +4,8 @@
 card; a CPU tensor takes the plain PyTorch version and counts nothing.
 """
 
-LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "mlp_fwd": 0, "normalize_u8": 0}
+LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "mlp_fwd": 0, "normalize_u8": 0,
+            "fused_block_fwd": 0}
 
 
 def reset_launch_counts():

@@ -21,8 +21,8 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("attention.cu", "attention_bwd.cu", "mlp.cu", "normalize.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("attention.cu", "attention_bwd.cu", "block.cu", "mlp.cu", "normalize.cu")
+HEADERS = ("common.cuh", "gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +47,7 @@ _SIGNATURES = {
         _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL, ctypes.c_float, _I, _P,
     ),
     "climb_linear_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "climb_fused_attention_sublayer": (_P,) * 18 + (_I, _I, _I, _I, ctypes.c_float, _I, _P),
 }
 
 _library = None

@@ -5,7 +5,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from climb_tpu_torch.models.vilt_core import dense, layer_norm
+from climb_tpu_torch.models.vilt_core import dense, dropout, layer_norm
 
 
 class ClassificationHead(nn.Module):
@@ -28,13 +28,15 @@ class ClassificationHead(nn.Module):
 
 class MultiChoiceHead(nn.Module):
     """Dropout(0.1) -> Linear(768 -> 1) scoring each choice. The dropout is an
-    identity in eval; it belongs to VCR training, which the training driver
-    refuses until that slice (``train/trainers.py``)."""
+    identity in eval; in training its keep mask is drawn from ``generator``."""
+
+    dropout_rate = 0.1
 
     def __init__(self, encoder_dim: int = 768, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.fc = nn.Linear(encoder_dim, 1)
 
-    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
-        return dense(self.fc, pooled, self.dtype)
+    def forward(self, pooled: torch.Tensor, generator=None) -> torch.Tensor:
+        h = dropout(pooled, self.dropout_rate, self.training, generator)
+        return dense(self.fc, h, self.dtype)

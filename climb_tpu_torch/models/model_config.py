@@ -42,7 +42,8 @@ class ViltConfig:
 
     # Execution knobs
     dtype: str = "float32"            # compute dtype ("float32" | "bfloat16")
-    attn_impl: str = "xla"            # "xla" | "pallas" | "auto": one function
+    attn_impl: str = "xla"            # "xla" | "pallas" | "auto": one function;
+                                      # "fused_block": the fused sublayer (ops/block.py)
     mlp_impl: str = "xla"             # "xla" | "pallas": one function
 
     @property

@@ -6,7 +6,8 @@ encoder pass over B*2 or B*num_choices sequences gives the logits of the
 reference's sequential passes (``src/modeling/vilt.py:263-350``).
 
 Parameter names follow the JAX tree: ``vilt.*`` for the encoder and
-``head_<task>.*`` per task (``-`` becomes ``_``).
+``head_<task>.*`` per task (``-`` becomes ``_``); ``ViltClassifier``, the
+Phase II single-head model, has ``vilt.*`` and ``head.*``.
 """
 
 from typing import Tuple
@@ -88,4 +89,49 @@ class ViltContinualLearner(nn.Module):
             pv.repeat_interleave(nc, dim=0), phw.repeat_interleave(nc, dim=0),
             token_type_ids=None if tt is None else tt.reshape(b * nc, l),
         )
-        return self.head(task_key)(pooled).reshape(b, nc)
+        return self.head(task_key)(pooled, self.vilt.dropout_generator).reshape(b, nc)
+
+
+class ViltClassifier(nn.Module):
+    """Phase II single-head model (counterpart of ``climb_tpu``'s
+    ``ViltClassifier``, models/vilt.py:186-239).
+
+    - model_type 'classification': (B, L) inputs -> (B, num_labels).
+    - model_type 'multi-choice': input_ids (B, C, L) -> (B, C) choice logits.
+    A ``pixel_values`` of batch 1 is the shared mean image and is broadcast
+    over the batch (reference vilt.py:437-441). ``text_embeds`` is not ported.
+    """
+
+    def __init__(self, cfg: ViltConfig, num_labels: int, model_type: str = "classification"):
+        super().__init__()
+        self.cfg = cfg
+        self.num_labels = num_labels
+        self.model_type = model_type
+        self.vilt = ViltCore(cfg)
+        if model_type == "multi-choice":
+            self.head = MultiChoiceHead(cfg.hidden_size, dtype=cfg.compute_dtype)
+        else:
+            self.head = ClassificationHead(num_labels, cfg.hidden_size, dtype=cfg.compute_dtype)
+
+    def reset_parameters(self, generator: torch.Generator):
+        init_weights_(self, generator, self.cfg.initializer_range)
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        if batch.get("text_embeds") is not None:
+            raise NotImplementedError("text_embeds is not ported to climb_tpu_torch yet")
+        ids, mask = batch["input_ids"], batch["text_mask"]
+        pv, phw = batch["pixel_values"], batch["patch_hw"]
+        tt = batch.get("token_type_ids")
+        multi_choice = self.model_type == "multi-choice"
+        if multi_choice:
+            b, nc, l = ids.shape
+            ids, mask = ids.reshape(b * nc, l), mask.reshape(b * nc, l)
+            tt = None if tt is None else tt.reshape(b * nc, l)
+        total = ids.shape[0]
+        if pv.shape[0] == 1 and total > 1:
+            pv = pv.expand((total,) + tuple(pv.shape[1:]))
+            phw = phw.expand(total, 2)
+        _, pooled, _ = self.vilt(ids, mask, pv, phw, token_type_ids=tt)
+        if multi_choice:
+            return self.head(pooled, self.vilt.dropout_generator).reshape(-1, nc)
+        return self.head(pooled)

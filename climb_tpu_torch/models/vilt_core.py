@@ -6,7 +6,10 @@ bilinear resampling of the pretrained position grid, pre-norm blocks, final
 LayerNorm and tanh pooler. Attention and the FFN go through
 ``ops.attention.multi_head_attention`` and ``ops.mlp.mlp``, which launch the
 CUDA kernels on the card, through their ``autograd.Function``s when a
-gradient is to flow back.
+gradient is to flow back. With ``attn_impl="fused_block"`` and no hidden
+dropout the attention sublayer goes through ``ops.block.attention_sublayer``
+instead (one kernel entry for LN1, the projections, the attention and the
+residual).
 
 Parameters are float32 and are cast to the compute dtype where they are used,
 as flax does with ``dtype=``; the casts are differentiable, so gradients reach
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from climb_tpu_torch.models.model_config import ViltConfig
-from climb_tpu_torch.ops import attention, mlp
+from climb_tpu_torch.ops import attention, block, mlp
 from climb_tpu_torch.ops.patch_embed import patch_grid_mask, patchify
 
 
@@ -102,14 +105,24 @@ class ViltBlock(nn.Module):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b, s, d = x.shape
-        heads = (b, s, cfg.num_heads, cfg.head_dim)
-        h = layer_norm(self.ln1, x, dtype)
-        q = dense(self.q, h, dtype).view(heads)
-        k = dense(self.k, h, dtype).view(heads)
-        v = dense(self.v, h, dtype).view(heads)
-        ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
-        attn_out = dense(self.attn_out, ctx.reshape(b, s, d), dtype)
-        x = x + dropout(attn_out, cfg.hidden_dropout, self.training, generator)
+        if cfg.attn_impl == "fused_block" and cfg.hidden_dropout == 0.0:
+            # the whole sublayer (LN1 -> QKV -> MHA -> out-projection -> +x) as
+            # one kernel entry; the parameters keep their names and layout
+            x = block.attention_sublayer(
+                x.to(dtype), self.ln1.weight, self.ln1.bias,
+                self.q.weight.to(dtype), self.q.bias, self.k.weight.to(dtype), self.k.bias,
+                self.v.weight.to(dtype), self.v.bias,
+                self.attn_out.weight.to(dtype), self.attn_out.bias,
+                mask_bias, num_heads=cfg.num_heads, eps=cfg.layer_norm_eps)
+        else:
+            heads = (b, s, cfg.num_heads, cfg.head_dim)
+            h = layer_norm(self.ln1, x, dtype)
+            q = dense(self.q, h, dtype).view(heads)
+            k = dense(self.k, h, dtype).view(heads)
+            v = dense(self.v, h, dtype).view(heads)
+            ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
+            attn_out = dense(self.attn_out, ctx.reshape(b, s, d), dtype)
+            x = x + dropout(attn_out, cfg.hidden_dropout, self.training, generator)
         h = layer_norm(self.ln2, x, dtype)
         h = mlp.mlp(
             h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),

@@ -19,7 +19,9 @@ from climb_tpu_torch.kernels import build
 NEG_INF = -1e9  # large-negative mask bias; exp() underflows to exactly 0 in f32
 
 # Every value computes the same function; on the card each runs the kernel.
-ATTN_IMPLS = ("xla", "pallas", "auto")
+# 'fused_block' reaches this module only where the fused sublayer
+# (ops/block.py) does not apply (hidden dropout on), as in the JAX package.
+ATTN_IMPLS = ("xla", "pallas", "auto", "fused_block")
 
 KERNEL_HEAD_DIM = 64
 
@@ -124,12 +126,14 @@ def attention_bwd(q, k, v, bias, do):
     key_bias = _check_kernel_args("attention_bwd", q, k, v, bias, do)
     b, s, h, d = q.shape
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    lse, delta = (torch.empty((b, h, s), dtype=torch.float32, device=q.device) for _ in range(2))
+    # scratch of the two launches: each row's (max, 1 / sum), and delta
+    ml = torch.empty((b, h, s, 2), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = build.load_library()
     build.check(
         lib.climb_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), delta.data_ptr(),
             b, s, h, d, build.strides3(q), build.strides3(k), build.strides3(v),
             build.strides3(do), build.strides3(dq), build.strides3(dk), build.strides3(dv),
             key_bias.stride(0), 1.0 / math.sqrt(d), build.DTYPES[q.dtype],
@@ -165,7 +169,7 @@ def multi_head_attention(q, k, v, bias, impl: str = "auto"):
     if impl not in ATTN_IMPLS:
         raise NotImplementedError(
             f"attn_impl {impl!r} is not ported yet (xla_ckpt comes with the remat "
-            f"work, fused_block with its own slice); choose one of {ATTN_IMPLS}"
+            f"work); choose one of {ATTN_IMPLS}"
         )
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, bias)

@@ -1,0 +1,184 @@
+"""The fused pre-norm attention sublayer: ``x + Wo.MHA(LN1(x))``.
+
+Counterpart of ``climb_tpu/ops/pallas_block.py`` (the TPU kernel ``_kernel``
+under the custom VJP ``_fused``). ``fused_attention_sublayer`` launches
+``csrc/block.cu`` for CUDA tensors and runs ``fused_attention_sublayer_plain``
+(``_ref_compose``, cast for cast) for CPU tensors. ``FusedAttentionSublayer``
+is the autograd form: the forward saves x, h = LN1(x), q, k, v and the
+attention context, and the backward is ``_fused_bwd``'s math. That backward is
+XLA in the JAX package, so its linear parts stay PyTorch products here; its
+attention part goes through ``ops.attention.attention_bwd`` (the CUDA kernel on
+the card), so no (B, H, S, S) tensor is written.
+
+One departure from ``_fused_fwd``'s residuals: the context is saved, not
+recomputed in the backward. The kernel writes it to device memory on its way
+to the out-projection anyway, so keeping it costs no extra pass and the
+backward launches no attention forward.
+
+Weights are in ``torch.nn.Linear``'s (out, in) layout, in the compute dtype;
+LayerNorm and bias rows are float32; the key bias is (B, 1, 1, S) float32.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from climb_tpu_torch.kernels import LAUNCHES
+from climb_tpu_torch.kernels import build
+from climb_tpu_torch.ops import attention
+
+_K_MULTIPLE = 32  # the GEMM tiles stage the reduction axis 32 at a time
+
+
+def _ln_stats(x, eps):
+    """(x - mean, rsqrt(var + eps)) in float32, the two-pass form of ``_kernel``."""
+    xf = x.to(torch.float32)
+    xc = xf - xf.mean(-1, keepdim=True)
+    return xc, torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+
+
+def _proj(t, w, b):
+    """f32 product of the operands' values, f32 bias, then the cast to t's dtype."""
+    return F.linear(t.to(torch.float32), w.to(torch.float32), b).to(t.dtype)
+
+
+def fused_attention_sublayer_plain(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                                   mask_bias, *, num_heads, eps=1e-12):
+    """``_ref_compose`` (pallas_block.py:103-126) in PyTorch. Returns
+    (out, h, q, k, v, ctx), each (B, S, D) in x's dtype."""
+    b, s, d = x.shape
+    dh = d // num_heads
+    f32 = torch.float32
+    xc, rstd = _ln_stats(x, eps)
+    h = (xc * rstd * ln_scale + ln_bias).to(x.dtype)
+    q, k, v = _proj(h, wq, bq), _proj(h, wk, bk), _proj(h, wv, bv)
+    heads = (b, s, num_heads, dh)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.view(heads).to(f32), k.view(heads).to(f32))
+    sc = sc * (1.0 / dh ** 0.5) + mask_bias.to(f32)
+    p = torch.softmax(sc, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(f32), v.view(heads).to(f32))
+    ctx = ctx.to(x.dtype).reshape(b, s, d)
+    out = F.linear(ctx.to(f32), wo.to(f32), bo)
+    return (x.to(f32) + out).to(x.dtype), h, q, k, v, ctx
+
+
+def fused_attention_sublayer_bwd_plain(x, h, q, k, v, ctx, ln_scale, wq, wk, wv, wo, mask_bias,
+                                       g, *, num_heads, eps=1e-12):
+    """``_fused_bwd`` (pallas_block.py:192-241) from the saved intermediates.
+
+    Weight gradients are products in the compute dtype (f32 accumulation, one
+    rounding to the weight's dtype); dh is three float32 products; the
+    LayerNorm gradient is float32; bias gradients are float32 row sums; the
+    attention gradients come from ``attention.attention_bwd``. Returns (dx,
+    dln_scale, dln_bias, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)."""
+    b, s, d = x.shape
+    f32 = torch.float32
+    rows = lambda t: t.reshape(b * s, d)
+    gsum = lambda t: rows(t).to(f32).sum(0)
+    g2 = rows(g)
+
+    # out-projection: y = x + ctx . Wo^T + bo
+    dwo = g2.t() @ rows(ctx)
+    dctx = (g2 @ wo).view(b, s, num_heads, d // num_heads)
+    heads = lambda t: t.view(b, s, num_heads, d // num_heads)
+    dq, dk, dv = attention.attention_bwd(heads(q), heads(k), heads(v), mask_bias, dctx)
+
+    # q/k/v projections: q = h . Wq^T + bq (and k, v alike)
+    h2 = rows(h)
+    dw = lambda dt: rows(dt).t() @ h2
+    dh = rows(dq).to(f32) @ wq.to(f32)
+    dh = dh + rows(dk).to(f32) @ wk.to(f32)
+    dh = dh + rows(dv).to(f32) @ wv.to(f32)
+
+    # LayerNorm: h = xhat * scale + bias with xhat = (x - mean) * rstd
+    xc, rstd = _ln_stats(rows(x), eps)
+    xhat = xc * rstd
+    dxhat = dh * ln_scale
+    dx_ln = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                    - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dx = g + dx_ln.to(g.dtype).view(b, s, d)
+    return (dx, (dh * xhat).sum(0), dh.sum(0), dw(dq), gsum(dq), dw(dk), gsum(dk), dw(dv),
+            gsum(dv), dwo, gsum(g))
+
+
+def fused_attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias, *,
+                             num_heads, eps=1e-12):
+    """x: (B, S, D) float32 or bfloat16; wq, wk, wv, wo: (D, D) in x's dtype;
+    ln_scale, ln_bias, bq, bk, bv, bo: (D,) float32; mask_bias: (B, 1, 1, S)
+    float32. Returns (out, h, q, k, v, ctx), each (B, S, D) in x's dtype, with
+    out = x + the attention sublayer's output. ``csrc/block.cu`` (four
+    launches, counted as one) for CUDA tensors, the plain version for CPU
+    tensors."""
+    params = (ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+    if x.device.type == "cpu":
+        return fused_attention_sublayer_plain(x, *params, mask_bias, num_heads=num_heads, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_sublayer: unsupported device {x.device}")
+    b, s, d = x.shape
+    weights, rows_f32 = (wq, wk, wv, wo), (ln_scale, ln_bias, bq, bk, bv, bo)
+    if d != num_heads * attention.KERNEL_HEAD_DIM or d % _K_MULTIPLE:
+        raise ValueError(f"fused_attention_sublayer: the kernel takes head_dim "
+                         f"{attention.KERNEL_HEAD_DIM}, got D={d} with {num_heads} heads")
+    if x.dtype not in build.DTYPES or any(w.dtype != x.dtype for w in weights):
+        raise TypeError(f"fused_attention_sublayer: x and the weights must share a dtype in "
+                        f"{list(build.DTYPES)}")
+    if any(w.shape != (d, d) for w in weights) or any(r.shape != (d,) for r in rows_f32):
+        raise ValueError(f"fused_attention_sublayer: weights must be ({d}, {d}) and rows ({d},)")
+    if any(r.dtype != torch.float32 for r in rows_f32 + (mask_bias,)):
+        raise TypeError("fused_attention_sublayer: LayerNorm rows, biases and mask_bias must be "
+                        "float32")
+    if mask_bias.shape != (b, 1, 1, s):
+        raise ValueError(f"fused_attention_sublayer: mask_bias must be ({b}, 1, 1, {s}), got "
+                         f"{tuple(mask_bias.shape)}")
+    key_bias = mask_bias.reshape(b, s).contiguous()
+    for t in (x, key_bias) + weights + rows_f32:
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("fused_attention_sublayer: tensors must be on one device, "
+                             "contiguous and 16-byte aligned")
+    out, h, q, k, v, ctx = (torch.empty_like(x) for _ in range(6))
+    lib = build.load_library()
+    build.check(
+        lib.climb_fused_attention_sublayer(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+            wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), key_bias.data_ptr(), out.data_ptr(), h.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), ctx.data_ptr(), b, s, d, num_heads, float(eps),
+            build.DTYPES[x.dtype], build.stream_handle(x.device),
+        ),
+        "fused_block_fwd",
+    )
+    LAUNCHES["fused_block_fwd"] += 1
+    return out, h, q, k, v, ctx
+
+
+class FusedAttentionSublayer(torch.autograd.Function):
+    """Counterpart of the custom VJP ``_fused``: ``fused_attention_sublayer``
+    forward, ``fused_attention_sublayer_bwd_plain`` backward, no gradient for
+    the key bias (it comes from the mask)."""
+
+    @staticmethod
+    def forward(ctx_, x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias, num_heads,
+                eps):
+        out, h, q, k, v, ctx = fused_attention_sublayer(
+            x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias,
+            num_heads=num_heads, eps=eps)
+        ctx_.save_for_backward(x, h, q, k, v, ctx, ln_scale, wq, wk, wv, wo, mask_bias)
+        ctx_.num_heads, ctx_.eps = num_heads, eps
+        return out
+
+    @staticmethod
+    def backward(ctx_, g):
+        grads = fused_attention_sublayer_bwd_plain(
+            *ctx_.saved_tensors, g.contiguous(), num_heads=ctx_.num_heads, eps=ctx_.eps)
+        return grads + (None, None, None)
+
+
+def attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias, *,
+                       num_heads, eps=1e-12):
+    """The sublayer's output, through ``FusedAttentionSublayer`` when a
+    gradient is to flow back."""
+    args = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FusedAttentionSublayer.apply(*args, mask_bias, num_heads, eps)
+    return fused_attention_sublayer(*args, mask_bias, num_heads=num_heads, eps=eps)[0]

@@ -5,7 +5,7 @@ Counterpart of ``climb_tpu/train/train_step.py``'s ``prepare_batch``,
 train step (``train/train_step.py``) shares the first two.
 """
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -51,7 +51,13 @@ def batch_metric(logits: torch.Tensor, batch: dict, loss_type: str):
     return (correct * valid).sum(), valid.sum()
 
 
-def make_eval_step(model: torch.nn.Module, task_key: str, loss_type: str,
+def model_inputs(task_key: Optional[str], batch: dict) -> tuple:
+    """The model's positional arguments: a learner takes (task_key, batch), a
+    single-head model (``task_key`` None) the batch alone."""
+    return (batch,) if task_key is None else (task_key, batch)
+
+
+def make_eval_step(model: torch.nn.Module, task_key: Optional[str], loss_type: str,
                    compute_dtype=torch.float32, params: dict = None) -> Callable:
     """eval_step(batch) -> (logits, metric_sum, metric_count), no autograd,
     the model in eval mode. ``params`` (a state dict) stands in for the
@@ -62,9 +68,9 @@ def make_eval_step(model: torch.nn.Module, task_key: str, loss_type: str,
         model.eval()
         batch = prepare_batch(batch, compute_dtype)
         if params is None:
-            logits = model(task_key, batch)
+            logits = model(*model_inputs(task_key, batch))
         else:
-            logits = torch.func.functional_call(model, params, (task_key, batch))
+            logits = torch.func.functional_call(model, params, model_inputs(task_key, batch))
         metric_sum, metric_count = batch_metric(logits, batch, loss_type)
         return logits, metric_sum, metric_count
 

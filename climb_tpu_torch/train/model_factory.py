@@ -10,14 +10,18 @@ network: as the JAX package does when it cannot load them, the model keeps
 its random initialization and a warning says so.
 """
 
+import dataclasses
 import logging
 import os
 
 import torch
 
+from climb_tpu_torch.ckpt.checkpoint import load_state_dict
 from climb_tpu_torch.ckpt.convert import load_reference_checkpoint, partial_load
 from climb_tpu_torch.models.model_config import ViltConfig, head_specs_from_task_configs
+from climb_tpu_torch.models.surgery import expand_modality_type_embeddings
 from climb_tpu_torch.models.vilt import ViltContinualLearner
+from climb_tpu_torch.models.vilt_core import ViltCore, init_weights_
 
 logger = logging.getLogger(__name__)
 
@@ -76,3 +80,54 @@ def create_cl_model(args, task_configs, device: torch.device) -> ViltContinualLe
             logger.warning("Could not load pretrained weights %s (HF hub names need the "
                            "network); training from scratch", pretrained)
     return model.to(device).eval()
+
+
+def _encoder_state_dict(path: str) -> dict:
+    """A checkpoint file as a bare ``ViltCore`` state dict: the reference torch
+    layout (an encoder or a full-model file) or the port's own format (a
+    ``torch.save`` of a model's or an encoder's state dict by its port names)."""
+    sd = load_state_dict(path)
+    if any(k.startswith(("vilt_encoder.vilt.", "vilt.embeddings.", "embeddings.")) for k in sd):
+        sd = load_reference_checkpoint(path)
+    if any(k.startswith("vilt.") for k in sd):
+        return {k[len("vilt."):]: v for k, v in sd.items() if k.startswith("vilt.")}
+    return sd
+
+
+def load_encoder_params(checkpoint_name, cfg: ViltConfig, pretrained: str = "scratch",
+                        seed: int = 0, encoder_name: str = "vilt"):
+    """Encoder-only parameter loading for the Phase II drivers (counterpart of
+    ``climb_tpu``'s ``load_encoder_params``; reference ``load_vilt_encoder``,
+    vilt.py:481-514): start from weights drawn from ``seed`` (or a pretrained
+    file), with three modality rows when the upstream checkpoint came from a
+    run with NLVR2 ('nlvr2' in its path), then load the saved encoder over
+    them. Returns (a bare ``ViltCore`` state dict, the cfg)."""
+    if encoder_name != "vilt":
+        raise NotImplementedError(
+            f"--encoder_name {encoder_name}: only 'vilt' is ported (ViLT-BERT comes with a "
+            "later slice)")
+    needs_three = checkpoint_name is not None and "nlvr2" in str(checkpoint_name)
+    if needs_three:
+        cfg = dataclasses.replace(cfg, modality_type_vocab_size=3)
+    core = ViltCore(cfg)
+    init_weights_(core, torch.Generator().manual_seed(int(seed)), cfg.initializer_range)
+
+    if pretrained not in ("scratch", "", None):
+        if not os.path.isfile(pretrained):
+            raise NotImplementedError(
+                f"--pretrained_model_name {pretrained}: HF hub weights are not ported to "
+                "climb_tpu_torch (they need the network); pass 'scratch' or a "
+                "reference-layout file")
+        enc = _encoder_state_dict(pretrained)
+        if needs_three:
+            enc, _ = expand_modality_type_embeddings(
+                enc, dataclasses.replace(cfg, modality_type_vocab_size=2))
+        partial_load(core, enc)
+
+    if checkpoint_name and os.path.isfile(checkpoint_name):
+        loaded, missing = partial_load(core, _encoder_state_dict(checkpoint_name))
+        logger.info("Encoder checkpoint %s: %d tensors loaded, %d from init", checkpoint_name,
+                    len(loaded), len(missing))
+    elif checkpoint_name not in (None, "", "scratch"):
+        logger.warning("Encoder checkpoint %s not found; using base weights", checkpoint_name)
+    return core.state_dict(), cfg

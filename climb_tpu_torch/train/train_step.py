@@ -13,12 +13,12 @@ rows of an epoch's last batch carry no gradient.
 ``prepare_batch`` and ``batch_metric`` live in ``train/eval_step.py``.
 """
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from climb_tpu_torch.train.eval_step import batch_metric, prepare_batch
+from climb_tpu_torch.train.eval_step import batch_metric, model_inputs, prepare_batch
 from climb_tpu_torch.train.train_state import TrainState
 
 
@@ -62,10 +62,12 @@ def _grads(state: TrainState) -> Dict[str, torch.Tensor]:
             for n, p in state.params.items()}
 
 
-def make_train_step(model: torch.nn.Module, task_key: str, loss_type: str,
+def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: str,
                     compute_dtype=torch.float32, grad_accum_steps=1) -> Callable:
     """``train_step(state, batch) -> metrics`` (device scalars: loss,
     metric_sum, metric_count); updates ``state`` and the model in place.
+    ``task_key`` names the learner's head; None is a single-head model
+    (``ViltClassifier``), called with the batch alone.
 
     ``grad_accum_steps = k > 1`` splits the batch into k microbatches; each
     contributes its masked loss sum divided by the whole batch's valid count,
@@ -94,7 +96,7 @@ def make_train_step(model: torch.nn.Module, task_key: str, loss_type: str,
         loss, logits = 0.0, []
         for i in range(accum):
             mb = {k: v[i * n // accum:(i + 1) * n // accum] for k, v in batch.items()}
-            out = model(task_key, mb)
+            out = model(*model_inputs(task_key, mb))
             lsum, _ = compute_loss_sum(out, mb, loss_type)
             micro_loss = lsum / denom
             micro_loss.backward()

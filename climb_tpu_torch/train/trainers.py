@@ -10,8 +10,8 @@ run resumes at the epoch boundary with the same trajectory (the loader's
 order is a function of (seed, epoch), and the dropout generator's state is
 saved with it).
 
-VQA and VCR training wait for their slice (the VQA label space, VCR's head
-dropout), as do the CL-algorithm hooks (replay, EWC, distillation), the
+VQA and VCR training wait for their slice (the VQA label space, VCR's
+trainer), as do the CL-algorithm hooks (replay, EWC, distillation), the
 low-shot variants, real datasets and mid-epoch SIGTERM checkpoints.
 """
 
@@ -66,7 +66,7 @@ class VLTaskTrainer:
         if task_key not in TRAINED_TASKS:
             raise NotImplementedError(
                 f"training task {task_key!r} is not ported to climb_tpu_torch yet (the VQA/VCR "
-                f"training slice: the VQA label space, VCR's head dropout); ported: "
+                f"training slice: the VQA label space, VCR's trainer); ported: "
                 f"{', '.join(TRAINED_TASKS)}")
         if not getattr(args, "synthetic", False):
             raise NotImplementedError("real datasets are not ported to climb_tpu_torch yet (the "

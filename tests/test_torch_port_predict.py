@@ -76,7 +76,7 @@ def test_predict_matches_jax_cli(task, checkpoint, tmp_path):
     ["--export_model", "model.bin"],
     ["--from_export", "model.bin"],
     ["--dense_impl", "int8"],
-    ["--attn_impl", "fused_block"],
+    ["--attn_impl", "xla_ckpt"],
     ["--cl_algorithm", "adapter"],
     ["--use_mesh"],
     ["--aspect_buckets", "384,512"],
@@ -99,6 +99,7 @@ def test_predict_without_card_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict",
                                     "climb_tpu_torch.cli.train_upstream_continual_learning",
+                                    "climb_tpu_torch.cli.train_language",
                                     "chip_smoke"])
 def test_import_loads_no_jax(module):
     code = (
