@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Time two trees of the PyTorch/CUDA port against each other on one card.
+
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR
+
+Each tree is a checkout of this repository (for example a ``git archive`` of
+a commit, unpacked). The trees run in the order parent, change, change,
+parent, each run a fresh process started in its tree: it builds that tree's
+kernels into the tree's own ``build/`` and calls that tree's ``chip_smoke.py``
+phase functions (``run_train``: the Phase I driver at full ViLT-B/32 width;
+``run_language``: the Phase II language driver at S = 1057). Their JSON lines
+are printed with the tree and run added, then one summary line per phase:
+each run's step ms by CUDA events and on the host, and examples/sec, in run
+order. The card's ``nvidia-smi`` name and power limit come last.
+
+Exits non-zero if a run fails; every number comes from this call, so parent
+and change share the card, its clocks and its power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = """
+import sys, torch
+if not torch.cuda.is_available():
+    sys.exit("chip_ab: torch.cuda.is_available() is False")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+from climb_tpu_torch.kernels import build
+build.load_library()
+chip_smoke.run_train(torch)
+chip_smoke.run_language(torch)
+"""
+
+
+def step_numbers(row):
+    """{what: (events ms, host ms, examples/sec)} of one phase row."""
+    if row["phase"] == "language":
+        return {"language": (row["step_ms_events_median"], row["step_ms_host_median"],
+                             row["train_examples_per_sec"])}
+    return {f"{row['phase']} {task}": (row[task]["step_ms_events_median"],
+                                       row[task]["step_ms_host_median"],
+                                       row[task]["train_examples_per_sec"])
+            for task in row["n_train_steps"]}
+
+
+def run(tree, label, index):
+    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True,
+                          text=True, timeout=1800)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise SystemExit(f"chip_ab: run {index} ({label}, {tree}) failed with "
+                         f"{proc.returncode}")
+    rows = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            row.update(tree=label, run=index)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent")
+    ap.add_argument("change")
+    args = ap.parse_args(argv)
+    trees = {"parent": os.path.abspath(args.parent), "change": os.path.abspath(args.change)}
+    for tree in trees.values():
+        if not os.path.isfile(os.path.join(tree, "chip_smoke.py")):
+            ap.error(f"{tree} holds no chip_smoke.py")
+    summary = {}
+    for index, label in enumerate(("parent", "change", "change", "parent")):
+        for row in run(trees[label], label, index):
+            if row.get("phase") in ("train", "language"):
+                for what, (events, host, rate) in step_numbers(row).items():
+                    summary.setdefault(what, []).append(
+                        {"run": index, "tree": label, "step_ms_events": events,
+                         "step_ms_host": host, "examples_per_sec": rate})
+    for what, runs in summary.items():
+        print(json.dumps({"summary": what, "runs": runs}), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

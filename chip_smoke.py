@@ -7,14 +7,22 @@ Run from the repository root, with one card visible:
 
 Phases, each printing one JSON line as soon as it ends:
   1. device:  the card (nvidia-smi name and power limit), torch and CUDA.
-  2. build:   nvcc builds climb_tpu_torch/csrc into one library (sm_90a).
+  2. build:   nvcc builds climb_tpu_torch/csrc into one library (sm_90a);
+              for each bf16 attention kernel its count of tensor-core
+              instructions (HMMA, from cuobjdump -sass), its registers and
+              its spill bytes (ptxas -v, kept beside a reused library).
+              Fails if one has no HMMA, spills, or has no ptxas report.
   3. kernels: each kernel against its plain PyTorch version, in float32 and
               bfloat16, with its tolerance and times (kernel, plain version,
               one PyTorch library call): the forward kernels and the fused
               attention sublayer at the ViLT-B/32 serving shapes, the attention
               backward at the training shapes, and the attention forward and
               backward at the language driver's long shape (16, 1057, 12, 64),
-              one batch row there with every key masked.
+              one batch row there with every key masked. The bf16 attention
+              forward is also held, at both shapes, to the tile-exact plain
+              version of _fwd_kernel_blocked under a tighter tolerance. Each
+              row carries previous_ms, the time of the kernels before their
+              tensor-core redesign at its shape.
   4. predict: ``climb_tpu_torch.cli.predict.main`` at full ViLT-B/32 width on
               a synthetic snli-ve split, with the launch counts of that run;
               then the logits of one batch, kernel path against plain path
@@ -77,8 +85,15 @@ TOLERANCES = {
     ("attention_fwd", "float32"): (2e-5, 1e-4, "f32 sums in another order; the tolerance "
                                    "of tests/test_pallas_kernels.py"),
     ("attention_fwd", "bfloat16"): (3e-2, 2e-2, "the plain version rounds scores (|q.k| up "
-                                    "to ~35, ulp 0.25) and probabilities to bf16, the kernel "
-                                    "keeps both in f32"),
+                                    "to ~35, ulp 0.25) and the normalized probabilities to "
+                                    "bf16; the kernel keeps scores in f32 and rounds the "
+                                    "unnormalized P to bf16, as _fwd_kernel_blocked does"),
+    # the bf16 kernel against attention_fwd_blocked_plain, its own arithmetic
+    ("attention_fwd_blocked_plain", "bfloat16"): (5e-3, 1e-2, "the same roundings in f32 "
+                                                  "sums of another order: 1-ulp flips of o's "
+                                                  "bf16 rounding (2^-7 relative) and of single "
+                                                  "bf16 probabilities (2^-8 of one p, which no "
+                                                  "key dominates)"),
     ("mlp_fwd", "float32"): (5e-5, 1e-4, "f32 sums over 768 and 3072 terms in another "
                              "order"),
     ("mlp_fwd", "bfloat16"): (1e-2, 1e-2, "same bf16 operands and f32 sums in another "
@@ -98,8 +113,10 @@ TOLERANCES.update({
                                      "softmax's in another order"),
     ("fused_block_fwd", "bfloat16"): (3e-2, 2e-2, "1-ulp flips of the bf16 roundings of h, q, "
                                       "k, v, ctx and out (ulp 2^-5 between 4 and 8), which the "
-                                      "later products carry; the kernel keeps P in f32 where "
-                                      "the plain version rounds it to bf16"),
+                                      "later products carry; the attention kernel rounds the "
+                                      "unnormalized P to bf16 (as _fwd_kernel_blocked does) "
+                                      "where the plain version rounds scores and the "
+                                      "normalized P"),
 })
 LOGITS_TOL = (1e-3, 1e-3, "12 layers of f32 sums in another order, ~1e-5 each")
 # kernel path against plain path over three f32 train steps of one batch
@@ -110,6 +127,20 @@ GRAD_REL_TOL = (1e-3, 1e-5, "per parameter, ||g_kernel - g_plain|| <= 1e-3 ||g_p
                 "softmax cancels a shift shared by all keys), so both paths give rounding "
                 "noise there")
 SHIFT_INVARIANT = ".k.bias"
+
+# each kernel row's time before the attention kernels' tensor-core redesign, at
+# the same shape and dtype (PERF.md's kernel table; NVIDIA H100 80GB HBM3,
+# 700 W); None where that time was not written down
+PREVIOUS_MS = {
+    ("attention_fwd", "bfloat16"): 0.8724, ("attention_fwd_blocked", "bfloat16"): 2.3261,
+    ("attention_bwd", "bfloat16"): 2.0178, ("attention_bwd_long", "bfloat16"): 10.7270,
+    ("mlp_fwd", "bfloat16"): 0.9525, ("normalize_u8", "bfloat16"): 0.0551,
+    ("fused_block_fwd", "bfloat16"): 1.4795, ("fused_block_fwd", "float32"): 4.4188,
+    ("attention_fwd_blocked", "float32"): 2.4124, ("attention_bwd_long", "float32"): 10.8660,
+}
+# the bf16 attention kernels (a piece of each mangled name): tensor cores, no spills
+TENSOR_CORE_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
+                       "attention_bwd_dkdv_bf16_kernel")
 
 # every function of climb_tpu that reaches pl.pallas_call
 TPU_KERNELS = (
@@ -233,21 +264,34 @@ def check_kernels(torch, results):
                 if not same:
                     raise AssertionError(f"normalize_u8 {dn}: not bit-equal to the plain version")
             err, tol = compare(torch, name, dn, out, ref)
+            row = {"phase": "kernel", "name": name, "dtype": dn, "shape": case["shape"],
+                   "max_abs_err": err, "tolerance": tol}
+            if name == "attention_fwd" and dtype == torch.bfloat16:
+                row.update(blocked_plain_check(torch, out, q, k, v, bias))
             del out, ref
-            row = {
-                "phase": "kernel", "name": name, "dtype": dn, "shape": case["shape"],
-                "max_abs_err": err, "tolerance": tol,
+            row.update({
                 "kernel_ms": time_ms(torch, case["kernel"]),
                 "plain_ms": time_ms(torch, case["plain"], iters=5),
                 "library_ms": (time_ms(torch, case["library"])
                                if case["library"] is not None else None),
                 "bound_ms": case["bound"][0], "bound_by": case["bound"][1],
                 "launches": LAUNCHES[name] - launched_before,
-            }
+                "previous_ms": PREVIOUS_MS.get((name, dn)),
+            })
             emit(row)
             results[(name, dn)] = row
         del q, k, v, x, w1, b1, w2, b2, qt, kt, vt, sdpa_mask
     torch.cuda.synchronize()
+
+
+def blocked_plain_check(torch, out, q, k, v, bias):
+    """The bf16 forward kernel's output against attention_fwd_blocked_plain
+    (its own arithmetic) under the tighter tolerance."""
+    from climb_tpu_torch.ops import attention
+
+    ref = attention.attention_fwd_blocked_plain(q, k, v, bias)
+    err, tol = compare(torch, "attention_fwd_blocked_plain", "bfloat16", out, ref)
+    return {"max_abs_err_to_blocked_plain": err, "blocked_plain_tolerance": tol}
 
 
 def attention_inputs(torch, g, batch, dev):
@@ -311,7 +355,7 @@ def check_attention_bwd(torch, results):
             "library_ms": library_ms,
             "library": "SDPA's backward alone: autograd.grad through one retained "
                        "F.scaled_dot_product_attention graph (float mask)",
-            "launches": launches,
+            "launches": launches, "previous_ms": PREVIOUS_MS.get(("attention_bwd", dn)),
         }
         row["bound_ms"], row["bound_by"] = bound(7 * n * el + TRAIN_BATCH * SEQ * 4,
                                                  10 * TRAIN_BATCH * HEADS * SEQ * SEQ * HEAD_DIM,
@@ -381,6 +425,7 @@ def check_fused_block(torch, results):
             "library_ms": time_ms(torch, library),
             "library": "F.layer_norm, three F.linear, SDPA (float mask), F.linear, add",
             "launches": LAUNCHES["fused_block_fwd"] - launched_before,
+            "previous_ms": PREVIOUS_MS.get(("fused_block_fwd", dn)),
             "kernel_launches_per_call": 4,
             "intermediate_bytes_through_device_memory": 2 * n_rows * HIDDEN * el,
         }
@@ -428,15 +473,19 @@ def check_attention_long(torch, results):
             ref = attention.mha_plain(q, k, v, bias)
             err, tol = compare(torch, "attention_fwd", dn, out, ref)
             uniform = (out[3].float() - v[3].float().mean(0, keepdim=True)).abs().max().item()
-            del out, ref
             fwd = {"phase": "kernel", "name": "attention_fwd", "dtype": dn, "at": "long",
                    "shape": f"q/k/v {shape_s}, bias ({LONG_BATCH},{LONG_SEQ}) f32",
                    "max_abs_err": err, "tolerance": tol,
                    "masked_row_max_abs_err_to_mean_v": uniform,
+                   "previous_ms": PREVIOUS_MS.get(("attention_fwd_blocked", dn))}
+            if dtype == torch.bfloat16:
+                fwd.update(blocked_plain_check(torch, out, q, k, v, bias))
+            del out, ref
+            fwd.update({
                    "kernel_ms": time_ms(torch, lambda: attention.attention_fwd(q, k, v, bias),
                                         iters=10),
                    "plain_ms": time_ms(torch, lambda: attention.mha_plain(q, k, v, bias),
-                                       iters=3, warmup=1)}
+                                       iters=3, warmup=1)})
             grads = attention.attention_bwd(q, k, v, bias, do)
             torch.cuda.synchronize()
             gref = attention.attention_bwd_plain(q, k, v, bias, do)
@@ -446,6 +495,7 @@ def check_attention_long(torch, results):
                    "shape": f"q/k/v/dO {shape_s}, bias ({LONG_BATCH},{LONG_SEQ}) f32",
                    "max_abs_err": max(e for e, _ in errs),
                    "max_abs_err_dq_dk_dv": [e for e, _ in errs], "tolerance": errs[0][1],
+                   "previous_ms": PREVIOUS_MS.get(("attention_bwd_long", dn)),
                    "kernel_ms": time_ms(torch, lambda: attention.attention_bwd(q, k, v, bias, do),
                                         iters=5, warmup=1),
                    "plain_ms": time_ms(torch, lambda: attention.attention_bwd_plain(
@@ -904,6 +954,73 @@ def run_language(torch):
     return launches
 
 
+def ptxas_resources(report):
+    """{mangled kernel name: {"registers", "spill_bytes"}} from nvcc -Xptxas -v."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": None, "spill_bytes": None})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma_counts(sass):
+    """{mangled function name: HMMA instructions} from cuobjdump -sass."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = 0
+        elif name is not None and "HMMA" in line:
+            out[name] += 1
+    return out
+
+
+def tensor_core_report(build, ptxas_report):
+    """Per bf16 attention kernel: HMMA count in the built library's SASS,
+    registers per thread and spill bytes from the build's ptxas report (None
+    where the report names no such kernel)."""
+    nvcc = build.find_nvcc()
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                           str(build.build_library())],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    hmma, resources = sass_hmma_counts(sass), ptxas_resources(ptxas_report)
+    rows = []
+    for kernel in TENSOR_CORE_KERNELS:
+        names = [n for n in hmma if kernel in n]
+        if len(names) != 1:
+            raise AssertionError(f"{kernel}: {len(names)} functions of that name in the SASS")
+        res = resources.get(names[0], {"registers": None, "spill_bytes": None})
+        rows.append({"kernel": kernel, "hmma": hmma[names[0]], **res})
+    return rows
+
+
+def tensor_core_faults(rows):
+    """What the build phase fails on: a bf16 attention kernel without HMMA,
+    with spill bytes, or missing from the ptxas report."""
+    faults = []
+    for r in rows:
+        if not r["hmma"]:
+            faults.append(f"{r['kernel']}: no HMMA instruction")
+        if r["spill_bytes"] is None:
+            faults.append(f"{r['kernel']}: not in the ptxas report")
+        elif r["spill_bytes"] > 0:
+            faults.append(f"{r['kernel']}: {r['spill_bytes']} spill bytes")
+    return faults
+
+
 def main() -> int:
     import torch
 
@@ -923,10 +1040,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load_library()
-    ptxas = [ln.strip() for ln in build.last_build.get("ptxas", "").splitlines()
+    seconds = time.perf_counter() - t0
+    built = dict(build.last_build)  # tensor_core_report finds the library again
+    report = built.get("ptxas", "")
+    ptxas = [ln.strip() for ln in report.splitlines()
              if "Used" in ln or "spill" in ln or ln.startswith("==")]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "reused": build.last_build.get("reused"), "ptxas": ptxas})
+    tensor_cores = tensor_core_report(build, report)
+    emit({"phase": "build", "seconds": seconds, "reused": built.get("reused"),
+          "tensor_core_kernels": tensor_cores, "ptxas": ptxas})
+    faults = tensor_core_faults(tensor_cores)
+    if faults:
+        raise AssertionError(f"bf16 attention kernels: {faults}")
 
     results = {}
     with torch.inference_mode():

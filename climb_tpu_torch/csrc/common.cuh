@@ -26,4 +26,17 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// element strides of the B, S and H axes of a (B, S, H, D) tensor
+struct Strides {
+  long long b, s, h;
+};
+inline Strides strides3(const long long* s) { return Strides{s[0], s[1], s[2]}; }
+
+// what 16-byte cp.async of bf16 rows needs: a 16-byte aligned base and B, S, H
+// strides in multiples of 8 elements
+inline bool aligned16(const void* p, const long long* s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % 8 == 0 && s[1] % 8 == 0 &&
+         s[2] % 8 == 0;
+}
+
 }  // namespace climb

@@ -16,7 +16,7 @@
 
 #include <mma.h>
 
-#include "common.cuh"
+#include "tc.cuh"
 
 namespace climb {
 
@@ -25,18 +25,6 @@ namespace climb {
 constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kLds = kBK + 8;  // smem row stride in elements (16-byte multiple)
 constexpr int kWmmaThreads = 256;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned int dst = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // One 128 x 32 tile of a row-major (rows, K) operand into smem; rows past
 // `rows` are zero-filled. 512 16-byte chunks, two per thread.

@@ -4,7 +4,8 @@ The sources have a plain C interface, so each one compiles with ``nvcc`` in
 seconds; all of them compile in parallel (one ``nvcc`` per source, started
 together) and link into one shared library under ``build/climb_tpu_torch/``
 beside the package. The library is named by a hash of the sources and flags,
-so a changed source builds anew and an unchanged one is reused.
+so a changed source builds anew and an unchanged one is reused, with the
+ptxas report (registers and spills per kernel) of the build that made it.
 
 Nothing here runs at import time: the first kernel launch calls
 ``load_library()``. Without ``nvcc`` it raises; there is no fallback.
@@ -22,7 +23,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("attention.cu", "attention_bwd.cu", "block.cu", "mlp.cu", "normalize.cu")
-HEADERS = ("common.cuh", "gemm.cuh")
+HEADERS = ("common.cuh", "gemm.cuh", "tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -85,8 +86,9 @@ def build_library(build_dir=DEFAULT_BUILD_DIR, nvcc=None) -> Path:
     build_dir = Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
     lib = build_dir / f"libclimb_kernels_{_digest()}.so"
-    if lib.exists():
-        last_build.update(seconds=0.0, reused=True, ptxas="")
+    report = lib.with_suffix(".ptxas.txt")
+    if lib.exists() and report.exists():
+        last_build.update(seconds=0.0, reused=True, ptxas=report.read_text())
         return lib
     t0 = time.perf_counter()
     procs = []
@@ -110,9 +112,10 @@ def build_library(build_dir=DEFAULT_BUILD_DIR, nvcc=None) -> Path:
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    ptxas = "\n".join(reports)
+    report.write_text(ptxas)
     os.replace(tmp, lib)
-    last_build.update(seconds=time.perf_counter() - t0, reused=False,
-                      ptxas="\n".join(reports))
+    last_build.update(seconds=time.perf_counter() - t0, reused=False, ptxas=ptxas)
     return lib
 
 

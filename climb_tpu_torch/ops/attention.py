@@ -6,7 +6,8 @@ and ``climb_tpu/ops/pallas_attention.py`` (the TPU kernels ``_fwd_kernel`` and
 package's: q, k, v and the output are (B, S, H, D); the mask bias is
 (B, 1, 1, S) float32. ``FlashAttention`` is the autograd form: its forward
 launches ``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu`` for
-CUDA tensors; for CPU tensors both run the plain versions.
+CUDA tensors; for CPU tensors both run the plain versions. In bf16 both
+kernels run on the tensor cores, in f32 on the CUDA cores.
 """
 
 import math
@@ -64,6 +65,54 @@ def attention_bwd_plain(q, k, v, bias, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_fwd_blocked_plain(q, k, v, bias, block_k=64):
+    """``_fwd_kernel_blocked``'s online softmax step by step over key tiles of
+    ``block_k`` (pallas_attention.py:121-142), the arithmetic of the bf16
+    forward kernel: f32 scores from the inputs' values, the row max and row
+    sum of P in f32, P rounded to v's dtype before P.V, an f32 accumulator
+    divided by max(l, 1e-30) at the end. Keys past S are left out (the last
+    tile is short). The tests and chip_smoke.py hold the kernel to it; no main
+    path runs it."""
+    f32 = torch.float32
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(f32)
+    key_bias = bias.reshape(b, 1, 1, s).to(f32)
+    m = torch.full((b, h, s, 1), -math.inf, dtype=f32, device=q.device)
+    l = torch.zeros((b, h, s, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=f32, device=q.device)
+    for k0 in range(0, s, block_k):
+        kt, vt = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        sc = torch.einsum("bqhd,bkhd->bhqk", qf, kt.to(f32)) * scale
+        sc = sc + key_bias[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).to(f32), vt.to(f32))
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+def _cp_async_ok(t):
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st * size % 16 == 0 for st in t.stride()[:3])
+
+
+def check_cp_async_layout(what, **tensors):
+    """The bf16 kernels stage (B, S, H, D) tiles by 16-byte ``cp.async``: each
+    tensor must start on a 16-byte boundary, and its B, S and H strides must
+    be multiples of 16 bytes. Reads only ``data_ptr()``, ``stride()`` and the
+    element size; raises ValueError naming the first tensor that fails."""
+    for name, t in tensors.items():
+        if not _cp_async_ok(t):
+            size = t.element_size()
+            raise ValueError(
+                f"{what}: {name} must start on a 16-byte boundary with B, S and H strides "
+                f"in multiples of 16 bytes for the bf16 kernel (address % 16 = "
+                f"{t.data_ptr() % 16}, strides {tuple(t.stride())} of {size}-byte elements)")
+
+
 def _check_kernel_args(what, q, k, v, bias, *more):
     """Device, dtype, shape and layout checks shared by the two wrappers;
     returns the (B, S) key bias with a contiguous S axis."""
@@ -84,6 +133,8 @@ def _check_kernel_args(what, q, k, v, bias, *more):
     if bias.dtype != torch.float32 or bias.shape != (b, 1, 1, s):
         raise ValueError(f"{what}: bias must be float32 (B, 1, 1, S), got "
                          f"{bias.dtype} {tuple(bias.shape)}")
+    if q.dtype == torch.bfloat16:
+        check_cp_async_layout(what, **dict(zip(("q", "k", "v", "do"), (q, k, v) + more)))
     key_bias = bias.reshape(b, s)
     return key_bias if key_bias.stride(1) == 1 else key_bias.contiguous()
 
@@ -121,8 +172,8 @@ def attention_bwd(q, k, v, bias, do):
     gradient. Returns contiguous (B, S, H, D) tensors in q's dtype."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, bias, do)
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    if do.stride(-1) != 1 or not _cp_async_ok(do):
+        do = do.contiguous()  # autograd's gradient in the layout the kernels take
     key_bias = _check_kernel_args("attention_bwd", q, k, v, bias, do)
     b, s, h, d = q.shape
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))

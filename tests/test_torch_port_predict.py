@@ -100,7 +100,7 @@ def test_predict_without_card_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict",
                                     "climb_tpu_torch.cli.train_upstream_continual_learning",
                                     "climb_tpu_torch.cli.train_language",
-                                    "chip_smoke"])
+                                    "chip_smoke", "chip_ab"])
 def test_import_loads_no_jax(module):
     code = (
         f"import sys; import {module}; "
@@ -122,7 +122,8 @@ def _imported_roots(path: Path):
 
 def test_port_sources_import_no_jax_package():
     """Exact top-level names: ``climb_tpu_torch`` is not ``climb_tpu``."""
-    files = sorted((ROOT / "climb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "climb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "chip_ab.py"]
     assert len(files) > 20
     bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
            if root in JAX_MODULES}
