@@ -8,10 +8,12 @@ a commit, unpacked). The trees run in the order parent, change, change,
 parent, each run a fresh process started in its tree: it builds that tree's
 kernels into the tree's own ``build/`` and calls that tree's ``chip_smoke.py``
 phase functions (``run_train``: the Phase I driver at full ViLT-B/32 width;
-``run_language``: the Phase II language driver at S = 1057). Their JSON lines
-are printed with the tree and run added, then one summary line per phase:
-each run's step ms by CUDA events and on the host, and examples/sec, in run
-order. The card's ``nvidia-smi`` name and power limit come last.
+``run_language``: the Phase II language driver at S = 1057; ``compare_paths``
+with ``--attn_impl pallas`` and ``fused_block``: the serving eval step of one
+batch of 64). Their JSON lines are printed with the tree and run added, then
+one summary line per step: each run's step ms by CUDA events, and for the
+drivers the step ms on the host and examples/sec, in run order. The card's
+``nvidia-smi`` name and power limit come last.
 
 Exits non-zero if a run fails; every number comes from this call, so parent
 and change share the card, its clocks and its power limit.
@@ -34,11 +36,18 @@ from climb_tpu_torch.kernels import build
 build.load_library()
 chip_smoke.run_train(torch)
 chip_smoke.run_language(torch)
+chip_smoke.compare_paths(torch)
+chip_smoke.compare_paths(torch, "fused_block")
 """
 
 
 def step_numbers(row):
-    """{what: (events ms, host ms, examples/sec)} of one phase row."""
+    """{what: (events ms, host ms, examples/sec)} of one phase row; a serving
+    eval step (phase ``paths``) has its bf16 kernel path's ms by CUDA events
+    and None for the other two."""
+    if row["phase"] == "paths":
+        return {f"eval_step {row['attn_impl']}": (row["bfloat16"]["batch_ms_kernel_path"], None,
+                                                  None)}
     if row["phase"] == "language":
         return {"language": (row["step_ms_events_median"], row["step_ms_host_median"],
                              row["train_examples_per_sec"])}
@@ -77,7 +86,7 @@ def main(argv=None) -> int:
     summary = {}
     for index, label in enumerate(("parent", "change", "change", "parent")):
         for row in run(trees[label], label, index):
-            if row.get("phase") in ("train", "language"):
+            if row.get("phase") in ("train", "language", "paths"):
                 for what, (events, host, rate) in step_numbers(row).items():
                     summary.setdefault(what, []).append(
                         {"run": index, "tree": label, "step_ms_events": events,

@@ -8,10 +8,12 @@ Run from the repository root, with one card visible:
 Phases, each printing one JSON line as soon as it ends:
   1. device:  the card (nvidia-smi name and power limit), torch and CUDA.
   2. build:   nvcc builds climb_tpu_torch/csrc into one library (sm_90a);
-              for each bf16 attention kernel its count of tensor-core
-              instructions (HMMA, from cuobjdump -sass), its registers and
+              for each bf16 tensor-core kernel its count of tensor-core
+              instructions (HMMA for the mma.sync attention kernels, HGMMA
+              for the wgmma GEMMs, from cuobjdump -sass), its registers and
               its spill bytes (ptxas -v, kept beside a reused library).
-              Fails if one has no HMMA, spills, or has no ptxas report.
+              Fails if one lacks its instruction, if a GEMM still has HMMA,
+              if one spills, or if one has no ptxas report.
   3. kernels: each kernel against its plain PyTorch version, in float32 and
               bfloat16, with its tolerance and times (kernel, plain version,
               one PyTorch library call): the forward kernels and the fused
@@ -20,9 +22,11 @@ Phases, each printing one JSON line as soon as it ends:
               backward at the language driver's long shape (16, 1057, 12, 64),
               one batch row there with every key masked. The bf16 attention
               forward is also held, at both shapes, to the tile-exact plain
-              version of _fwd_kernel_blocked under a tighter tolerance. Each
-              row carries previous_ms, the time of the kernels before their
-              tensor-core redesign at its shape.
+              version of _fwd_kernel_blocked under a tighter tolerance, and
+              the FFN at the ragged row counts of the train (8,992) and
+              language (16,912) batches and of one example (281). Each row
+              carries previous_ms, the kernel's time before its last
+              redesign at its shape.
   4. predict: ``climb_tpu_torch.cli.predict.main`` at full ViLT-B/32 width on
               a synthetic snli-ve split, with the launch counts of that run;
               then the logits of one batch, kernel path against plain path
@@ -128,19 +132,29 @@ GRAD_REL_TOL = (1e-3, 1e-5, "per parameter, ||g_kernel - g_plain|| <= 1e-3 ||g_p
                 "noise there")
 SHIFT_INVARIANT = ".k.bias"
 
-# each kernel row's time before the attention kernels' tensor-core redesign, at
-# the same shape and dtype (PERF.md's kernel table; NVIDIA H100 80GB HBM3,
-# 700 W); None where that time was not written down
+# each kernel row's time before the kernel's last redesign (for the attention
+# kernels their move to mma.sync tiles, for the GEMMs of mlp_fwd and
+# fused_block_fwd their move to wgmma), at the same shape and dtype (PERF.md's
+# kernel table; NVIDIA H100 80GB HBM3, 700 W); None where that time was not
+# written down
 PREVIOUS_MS = {
     ("attention_fwd", "bfloat16"): 0.8724, ("attention_fwd_blocked", "bfloat16"): 2.3261,
     ("attention_bwd", "bfloat16"): 2.0178, ("attention_bwd_long", "bfloat16"): 10.7270,
-    ("mlp_fwd", "bfloat16"): 0.9525, ("normalize_u8", "bfloat16"): 0.0551,
-    ("fused_block_fwd", "bfloat16"): 1.4795, ("fused_block_fwd", "float32"): 4.4188,
+    ("mlp_fwd", "bfloat16"): 0.9575, ("normalize_u8", "bfloat16"): 0.0551,
+    ("fused_block_fwd", "bfloat16"): 0.7157, ("fused_block_fwd", "float32"): 4.4188,
     ("attention_fwd_blocked", "float32"): 2.4124, ("attention_bwd_long", "float32"): 10.8660,
 }
-# the bf16 attention kernels (a piece of each mangled name): tensor cores, no spills
-TENSOR_CORE_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
-                       "attention_bwd_dkdv_bf16_kernel")
+# the bf16 tensor-core kernels (a piece of each mangled name) and the SASS
+# instruction each must show: mma.sync (HMMA) in the attention kernels, wgmma
+# (HGMMA, and no HMMA) in the GEMMs; none may spill
+TENSOR_CORE_KERNELS = {
+    "attention_fwd_bf16_kernel": "HMMA", "attention_bwd_dq_bf16_kernel": "HMMA",
+    "attention_bwd_dkdv_bf16_kernel": "HMMA", "linear_bf16_wgmma_kernel": "HGMMA",
+    "qkv_bf16_wgmma_kernel": "HGMMA", "out_bf16_wgmma_kernel": "HGMMA",
+}
+# the FFN's ragged row counts held on the card beside the serving shape: the
+# train batch (32 x 281), the language batch (16 x 1057) and one example
+RAGGED_ROWS = (TRAIN_BATCH * SEQ, LONG_BATCH * LONG_SEQ, SEQ)
 
 # every function of climb_tpu that reaches pl.pallas_call
 TPU_KERNELS = (
@@ -280,8 +294,26 @@ def check_kernels(torch, results):
             })
             emit(row)
             results[(name, dn)] = row
+        check_mlp_ragged(torch, x, w1, b1, w2, b2, dn)
         del q, k, v, x, w1, b1, w2, b2, qt, kt, vt, sdpa_mask
     torch.cuda.synchronize()
+
+
+def check_mlp_ragged(torch, x, w1, b1, w2, b2, dn):
+    """mlp_fwd against fused_mlp_plain on the first RAGGED_ROWS rows of x:
+    row counts that leave the last row tile partly outside the tensor."""
+    from climb_tpu_torch.ops import mlp
+
+    for rows in RAGGED_ROWS:
+        xr = x.reshape(-1, HIDDEN)[:rows]
+        out = mlp.fused_mlp(xr, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        err, tol = compare(torch, "mlp_fwd", dn, out, mlp.fused_mlp_plain(xr, w1, b1, w2, b2))
+        del out
+        emit({"phase": "kernel", "name": "mlp_fwd", "dtype": dn, "at": f"{rows} rows",
+              "shape": f"x ({rows},{HIDDEN}) {dn}, {HIDDEN} -> {FFN} -> {HIDDEN}",
+              "max_abs_err": err, "tolerance": tol,
+              "kernel_ms": time_ms(torch, lambda: mlp.fused_mlp(xr, w1, b1, w2, b2), iters=10)})
 
 
 def blocked_plain_check(torch, out, q, k, v, bias):
@@ -976,44 +1008,56 @@ def ptxas_resources(report):
     return out
 
 
-def sass_hmma_counts(sass):
-    """{mangled function name: HMMA instructions} from cuobjdump -sass."""
+def sass_hmma_counts(sass, instruction="HMMA"):
+    """{mangled function name: count of the opcode ``instruction`` (HMMA:
+    mma.sync; HGMMA: wgmma)} from cuobjdump -sass."""
+    import re
+
+    opcode = re.compile(rf"\b{instruction}\b")
     out, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             out[name] = 0
-        elif name is not None and "HMMA" in line:
+        elif name is not None and opcode.search(line):
             out[name] += 1
     return out
 
 
 def tensor_core_report(build, ptxas_report):
-    """Per bf16 attention kernel: HMMA count in the built library's SASS,
-    registers per thread and spill bytes from the build's ptxas report (None
-    where the report names no such kernel)."""
+    """Per bf16 tensor-core kernel: its HMMA and HGMMA counts in the built
+    library's SASS, the instruction it must show, registers per thread and
+    spill bytes from the build's ptxas report (None where the report names no
+    such kernel)."""
     nvcc = build.find_nvcc()
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                            str(build.build_library())],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    hmma, resources = sass_hmma_counts(sass), ptxas_resources(ptxas_report)
+    hmma, hgmma = sass_hmma_counts(sass), sass_hmma_counts(sass, "HGMMA")
+    resources = ptxas_resources(ptxas_report)
     rows = []
-    for kernel in TENSOR_CORE_KERNELS:
+    for kernel, instruction in TENSOR_CORE_KERNELS.items():
         names = [n for n in hmma if kernel in n]
         if len(names) != 1:
             raise AssertionError(f"{kernel}: {len(names)} functions of that name in the SASS")
         res = resources.get(names[0], {"registers": None, "spill_bytes": None})
-        rows.append({"kernel": kernel, "hmma": hmma[names[0]], **res})
+        rows.append({"kernel": kernel, "instruction": instruction, "hmma": hmma[names[0]],
+                     "hgmma": hgmma[names[0]], **res})
     return rows
 
 
 def tensor_core_faults(rows):
-    """What the build phase fails on: a bf16 attention kernel without HMMA,
-    with spill bytes, or missing from the ptxas report."""
+    """What the build phase fails on: a bf16 kernel without the tensor-core
+    instruction it must show (HMMA where no ``instruction`` is named), a wgmma
+    GEMM that still runs mma.sync (HMMA), spill bytes, or a kernel missing
+    from the ptxas report."""
     faults = []
     for r in rows:
-        if not r["hmma"]:
-            faults.append(f"{r['kernel']}: no HMMA instruction")
+        instruction = r.get("instruction", "HMMA")
+        if not r[instruction.lower()]:
+            faults.append(f"{r['kernel']}: no {instruction} instruction")
+        if instruction == "HGMMA" and r["hmma"]:
+            faults.append(f"{r['kernel']}: {r['hmma']} HMMA instructions beside HGMMA")
         if r["spill_bytes"] is None:
             faults.append(f"{r['kernel']}: not in the ptxas report")
         elif r["spill_bytes"] > 0:
@@ -1044,13 +1088,13 @@ def main() -> int:
     built = dict(build.last_build)  # tensor_core_report finds the library again
     report = built.get("ptxas", "")
     ptxas = [ln.strip() for ln in report.splitlines()
-             if "Used" in ln or "spill" in ln or ln.startswith("==")]
+             if "Used" in ln or "spill" in ln or "Performance Loss" in ln or ln.startswith("==")]
     tensor_cores = tensor_core_report(build, report)
     emit({"phase": "build", "seconds": seconds, "reused": built.get("reused"),
           "tensor_core_kernels": tensor_cores, "ptxas": ptxas})
     faults = tensor_core_faults(tensor_cores)
     if faults:
-        raise AssertionError(f"bf16 attention kernels: {faults}")
+        raise AssertionError(f"bf16 tensor-core kernels: {faults}")
 
     results = {}
     with torch.inference_mode():

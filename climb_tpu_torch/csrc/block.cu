@@ -25,17 +25,22 @@
 //
 // Bound on the H100: operations. At the ViLT-B/32 serving shape (B=64, S=281,
 // D=768, bf16) the four projections are 84.9 GFLOP and the attention 15.5
-// GFLOP, about 0.10 ms at 989 TFLOP/s, against 170 MB of compulsory traffic
+// GFLOP, 0.1015 ms at 989 TFLOP/s, against 170 MB of compulsory traffic
 // (x, out, h, q, k, v, the weights; 0.05 ms). What the design does about it:
-// - the projections run on the tensor cores (WMMA bf16 tiles, f32 accumulation);
-//   f32 inputs (the parity path) use the CUDA-core GEMM;
-// - scores and probabilities never reach device memory (online softmax per
-//   64-key tile); the only intermediate that does is ctx, 27.6 MB written and
-//   read once at the serving shape in bf16, which the backward reads again
+// - the projections (launches 2 and 4) run on gemm.cuh's Hopper tile: wgmma
+//   m64n128k16 with f32 accumulators on 256 x 128 tiles, operands streamed
+//   by TMA through a 4-stage mbarrier ring (one tensor map per operand,
+//   encoded here on every call), the bias, residual and cast applied to the
+//   f32 accumulators and the tile written in 16-byte stores; f32 inputs (the
+//   parity path) use the CUDA-core GEMM;
+// - the attention (launch 3) runs on mma.sync tiles (attention.cu); scores
+//   and probabilities never reach device memory (online softmax per 64-key
+//   tile); the only intermediate that does is ctx, 27.6 MB written and read
+//   once at the serving shape in bf16, which the backward reads again
 //   instead of recomputing it;
-// - the attention products are still f32 FMAs on the CUDA cores. Fusing the
-//   attention with the out-projection per (batch row, 64-query tile) on
-//   mma/wgmma tiles, so that ctx stays in shared memory, is later work.
+// - later work: the LayerNorm as the q/k/v GEMM's prologue, and attention
+//   fused with the out-projection per (batch row, 64-query tile) so that ctx
+//   stays in shared memory.
 #include <math.h>
 
 #include "gemm.cuh"
@@ -122,12 +127,17 @@ struct Qkv {
   }
 };
 
-__global__ void __launch_bounds__(kWmmaThreads)
-    qkv_bf16_kernel(const __nv_bfloat16* __restrict__ h, Qkv<__nv_bfloat16> p, int M, int D,
-                    int tiles) {
+// blockIdx.x / tiles picks the weight's tensor map, bias and output
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    qkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap h,
+                          const __grid_constant__ CUtensorMap wq,
+                          const __grid_constant__ CUtensorMap wk,
+                          const __grid_constant__ CUtensorMap wv, Qkv<__nv_bfloat16> p, int M,
+                          int D, int tiles) {
   const int which = blockIdx.x / tiles;
-  gemm_bf16_wmma_tile(h, p.weight(which), p.output(which), M, D, D, blockIdx.y * kBM,
-                      (blockIdx.x % tiles) * kBN, BiasF32{p.bias(which)});
+  const CUtensorMap* w = which == 0 ? &wq : which == 1 ? &wk : &wv;
+  gemm_bf16_wgmma_tile(&h, w, p.output(which), M, D, D, blockIdx.y * kTileM,
+                       (blockIdx.x % tiles) * kTileN, BiasF32{p.bias(which)});
 }
 
 __global__ void __launch_bounds__(kSimtThreads)
@@ -137,12 +147,13 @@ __global__ void __launch_bounds__(kSimtThreads)
                      (blockIdx.x % tiles) * kSN, BiasF32{p.bias(which)});
 }
 
-__global__ void __launch_bounds__(kWmmaThreads)
-    out_bf16_kernel(const __nv_bfloat16* __restrict__ ctx, const __nv_bfloat16* __restrict__ wo,
-                    const float* __restrict__ bo, const __nv_bfloat16* __restrict__ x,
-                    __nv_bfloat16* __restrict__ out, int M, int D) {
-  gemm_bf16_wmma_tile(ctx, wo, out, M, D, D, blockIdx.y * kBM, blockIdx.x * kBN,
-                      BiasResidual<__nv_bfloat16>{bo, x, D});
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    out_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap ctx,
+                          const __grid_constant__ CUtensorMap wo, const float* __restrict__ bo,
+                          const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                          int M, int D) {
+  gemm_bf16_wgmma_tile(&ctx, &wo, out, M, D, D, blockIdx.y * kTileM, blockIdx.x * kTileN,
+                       BiasResidual<__nv_bfloat16>{bo, x, D});
 }
 
 __global__ void __launch_bounds__(kSimtThreads)
@@ -175,11 +186,19 @@ int launch(const void* x, const float* lns, const float* lnb, const void* wq, co
   p.w[2] = static_cast<const T*>(wv);
   p.b[0] = bq, p.b[1] = bk, p.b[2] = bv;
   p.out[0] = static_cast<T*>(q), p.out[1] = static_cast<T*>(k), p.out[2] = static_cast<T*>(v);
-  const int bm = kBf16 ? kBM : kSM, bn = kBf16 ? kBN : kSN;
+  const int bm = kBf16 ? kTileM : kSM, bn = kBf16 ? kTileN : kSN;
   const int tiles = (D + bn - 1) / bn;
   const dim3 qkv_grid(3 * tiles, (M + bm - 1) / bm), out_grid(tiles, (M + bm - 1) / bm);
   if constexpr (kBf16) {
-    qkv_bf16_kernel<<<qkv_grid, kWmmaThreads, 0, stream>>>(ht, p, M, D, tiles);
+    // the operands' addresses change from call to call: encode their maps here
+    CUtensorMap h_map, w_map[3];
+    err = encode_kmajor_bf16(&h_map, h, M, D, kTileK, kTileM);
+    for (int i = 0; i < 3 && !err; ++i)
+      err = encode_kmajor_bf16(&w_map[i], p.w[i], D, D, kTileK, kTileN);
+    if (!err) err = allow_gemm_smem(qkv_bf16_wgmma_kernel);
+    if (err) return err;
+    qkv_bf16_wgmma_kernel<<<qkv_grid, kGemmThreads, kGemmSmemBytes, stream>>>(
+        h_map, w_map[0], w_map[1], w_map[2], p, M, D, tiles);
   } else {
     qkv_f32_kernel<<<qkv_grid, kSimtThreads, 0, stream>>>(ht, p, M, D, tiles);
   }
@@ -193,8 +212,13 @@ int launch(const void* x, const float* lns, const float* lnb, const void* wq, co
   if (err) return err;
 
   if constexpr (kBf16) {
-    out_bf16_kernel<<<out_grid, kWmmaThreads, 0, stream>>>(
-        static_cast<const T*>(ctx), static_cast<const T*>(wo), bo, xt, static_cast<T*>(out), M, D);
+    CUtensorMap ctx_map, wo_map;
+    err = encode_kmajor_bf16(&ctx_map, ctx, M, D, kTileK, kTileM);
+    if (!err) err = encode_kmajor_bf16(&wo_map, wo, D, D, kTileK, kTileN);
+    if (!err) err = allow_gemm_smem(out_bf16_wgmma_kernel);
+    if (err) return err;
+    out_bf16_wgmma_kernel<<<out_grid, kGemmThreads, kGemmSmemBytes, stream>>>(
+        ctx_map, wo_map, bo, xt, static_cast<T*>(out), M, D);
   } else {
     out_f32_kernel<<<out_grid, kSimtThreads, 0, stream>>>(
         static_cast<const T*>(ctx), static_cast<const T*>(wo), bo, xt, static_cast<T*>(out), M, D);
@@ -206,14 +230,14 @@ int launch(const void* x, const float* lns, const float* lnb, const void* wq, co
 
 // x, out, h, q, k, v, ctx: (B, S, D) contiguous in one dtype; wq, wk, wv, wo:
 // (D, D) in that dtype, torch.nn.Linear's (out, in) layout; lns, lnb, bq, bk,
-// bv, bo: (D) f32; key_bias: (B, S) contiguous f32. D == 64 * H, D % 32 == 0
+// bv, bo: (D) f32; key_bias: (B, S) contiguous f32. D == 64 * H, D % 64 == 0
 // and 16-byte aligned pointers (the wrapper checks these).
 extern "C" int climb_fused_attention_sublayer(
     const void* x, const float* lns, const float* lnb, const void* wq, const float* bq,
     const void* wk, const float* bk, const void* wv, const float* bv, const void* wo,
     const float* bo, const float* key_bias, void* out, void* h, void* q, void* k, void* v,
     void* ctx, int B, int S, int D, int H, float eps, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * kHeadDim || D % kBK != 0)
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * kHeadDim || D % kTileK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)

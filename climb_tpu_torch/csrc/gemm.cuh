@@ -6,122 +6,144 @@
 // functor `float epi(int row, int col, float acc)`, which turns the f32
 // accumulator of C[row][col] into the value that is stored (cast to C's type).
 //
-// - gemm_bf16_wmma_tile: tensor cores through WMMA 16x16x16 tiles with f32
-//   accumulation: a 128x128 block tile, 8 warps of 64x32, K staged 32 at a time
-//   in a two-stage cp.async ring in shared memory. K % 32 == 0 and 16-byte
-//   aligned operands (the wrappers check both).
+// The GEMMs of mlp.cu (pallas_mlp.py::_mlp_kernel) and block.cu
+// (pallas_block.py::_kernel) are bound by operations on the H100: 0.1716 ms
+// for the FFN and 0.1015 ms for the attention sublayer at the ViLT-B/32
+// serving shapes in bf16 (989 TFLOP/s). What the bf16 tile does about it:
+// - gemm_bf16_wgmma_tile: a 256 x 128 block tile on wgmma m64n128k16 (bf16
+//   operands from shared memory, f32 accumulators in registers), four
+//   consumer warpgroups of 64 rows each and one producer warp, one block an
+//   SM. The producer streams 64-deep K slices of A and W by TMA (hopper.cuh;
+//   128-byte swizzle, rows past M or N zero-filled) into a 4-stage ring in
+//   dynamic shared memory, with a full and an empty mbarrier per stage; no
+//   thread computes a copy address. The 256-row tile reads 48 KB from L2 for
+//   each 4.2 MFLOP slice, where a 128 x 128 tile reads 32 KB for 2.1. Each
+//   consumer keeps one wgmma group in flight and releases a stage once the
+//   group that read it has completed. The epilogue stages the f32
+//   accumulators in the (then idle) ring, from the wgmma fragment layout;
+//   each thread then applies the functor to 8 neighbouring accumulators of a
+//   row, rounds each once to bf16 and writes them in one 16-byte store. (The
+//   functor applied in the fragment layout kept the residual's loads live
+//   beside the accumulators and spilled at the 120 registers a thread that
+//   this block size leaves.) K % 64 == 0 and 16-byte aligned operands with
+//   N % 8 == 0 (the wrappers check them); the kernel's block has
+//   kGemmThreads threads and kGemmSmemBytes of dynamic shared memory.
 // - gemm_f32_simt_tile: a plain CUDA-core tiled GEMM (64x64 tile, K 16 at a
 //   time), so f32 results match a full-precision f32 matmul, not TF32.
 #pragma once
 
-#include <mma.h>
-
+#include "hopper.cuh"
 #include "tc.cuh"
 
 namespace climb {
 
-// ---- bf16: tensor cores through WMMA -------------------------------------
+// ---- bf16: wgmma fed by TMA through an mbarrier ring -------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kLds = kBK + 8;  // smem row stride in elements (16-byte multiple)
-constexpr int kWmmaThreads = 256;
+constexpr int kConsumerWarpgroups = 4;  // 64 rows of the tile each
+constexpr int kTileM = 64 * kConsumerWarpgroups, kTileN = 128;
+constexpr int kTileK = 64;  // bf16: one 128-byte swizzle row
+constexpr int kGemmStages = 4;  // 192 KB: one block an SM
+constexpr int kGemmThreads = 128 * kConsumerWarpgroups + 32;  // + the producer warp
+constexpr int kStageBytes = (kTileM + kTileN) * kTileK * 2;   // A then W, 48 KB
+constexpr int kGemmSmemBytes = kGemmStages * kStageBytes + 2 * kGemmStages * 8 + 1024;
+constexpr int kOutLd = kTileN + 8;  // f32 staging row stride: conflict-free float2 stores
+static_assert(kConsumerWarpgroups * 64 * kOutLd * 4 <= kGemmStages * kStageBytes,
+              "the epilogue stages the f32 tile in the ring");
 
-// One 128 x 32 tile of a row-major (rows, K) operand into smem; rows past
-// `rows` are zero-filled. 512 16-byte chunks, two per thread.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
-                                          int rows, int K, int k0, int tid) {
+// The block's kTileM x kTileN tile of C at (m0, n0), from the tensor maps of A
+// (M, K) and W (N, K) (encode_kmajor_bf16 with boxes kTileK x kTileM and
+// kTileK x kTileN); call from all kGemmThreads threads of the block.
+template <typename Epilogue>
+__device__ __forceinline__ void gemm_bf16_wgmma_tile(const CUtensorMap* a_map,
+                                                     const CUtensorMap* w_map,
+                                                     __nv_bfloat16* __restrict__ C, int M, int N,
+                                                     int K, int m0, int n0, Epilogue epi) {
+  extern __shared__ unsigned char gemm_smem[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
+  const unsigned raw = smem_u32(gemm_smem);
+  const unsigned ring = (raw + 1023u) & ~1023u;
+  const unsigned full = ring + kGemmStages * kStageBytes, empty = full + kGemmStages * 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nk = K / kTileK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(full + 8 * s, 1);                         // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4 * kConsumerWarpgroups);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumerWarpgroups) {  // the producer warp: one thread issues the copies
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kGemmStages;
+        mbar_wait(empty + 8 * s, ((i / kGemmStages) & 1) ^ 1);  // round 0 passes at once
+        const unsigned a = ring + s * kStageBytes;
+        mbar_arrive_expect_tx(full + 8 * s, kStageBytes);
+        tma_load_2d(a, a_map, full + 8 * s, i * kTileK, m0);
+        tma_load_2d(a + kTileM * kTileK * 2, w_map, full + 8 * s, i * kTileK, n0);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  float acc[64];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int chunk = tid + e * kWmmaThreads;
-    const int r = chunk >> 2, c = (chunk & 3) * 8;
-    const bool ok = row0 + r < rows;
-    const __nv_bfloat16* g = ok ? src + static_cast<size_t>(row0 + r) * K + k0 + c : src;
-    cp_async16(dst + r * kLds + c, g, ok);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kGemmStages;
+    mbar_wait(full + 8 * s, (i / kGemmStages) & 1);
+    const unsigned a = ring + s * kStageBytes + wg * 64 * kTileK * 2;
+    const unsigned w = ring + s * kStageBytes + kTileM * kTileK * 2;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk)
+      wgmma_m64n128k16(acc, sw128_desc(a + 32 * kk), sw128_desc(w + 32 * kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of step i - 1 is done: its stage may be refilled
+    if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % kGemmStages));
+  }
+  wgmma_wait<0>();
+
+  // every warpgroup is done reading the ring before it holds the output
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumerWarpgroups) : "memory");
+  float* out = reinterpret_cast<float*>(gemm_smem + (ring - raw)) + wg * 64 * kOutLd;
+  const int r0 = (warp & 3) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(out + (r0 + 8 * h) * kOutLd + 8 * j + c0) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");  // this warpgroup's rows
+  // each thread: the functor on 8 neighbouring accumulators of a row, one
+  // rounding each, one 16-byte store
+  const int t = tid & 127;
+#pragma unroll 2
+  for (int e = 0; e < 64 * kTileN / 8 / 128; ++e) {
+    const int chunk = t + 128 * e, r = chunk / (kTileN / 8), col = chunk % (kTileN / 8) * 8;
+    const int gm = m0 + wg * 64 + r, gn = n0 + col;
+    if (gm >= M || gn >= N) continue;
+    const float4 lo = *reinterpret_cast<const float4*>(out + r * kOutLd + col);
+    const float4 hi = *reinterpret_cast<const float4*>(out + r * kOutLd + col + 4);
+    const float a[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __float2bfloat16_rn(epi(gm, gn + i, a[i]));
+    *reinterpret_cast<uint4*>(C + static_cast<size_t>(gm) * N + gn) =
+        *reinterpret_cast<const uint4*>(v);
   }
 }
 
-// The block's 128 x 128 tile of C at (m0, n0); call from all kWmmaThreads
-// threads of the block.
-template <typename Epilogue>
-__device__ __forceinline__ void gemm_bf16_wmma_tile(const __nv_bfloat16* __restrict__ A,
-                                                    const __nv_bfloat16* __restrict__ W,
-                                                    __nv_bfloat16* __restrict__ C, int M, int N,
-                                                    int K, int m0, int n0, Epilogue epi) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[2][kBM * kLds];
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][kBN * kLds];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 64 x 32 each
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = K / kBK;
-  load_tile(As[0], A, m0, M, K, 0, tid);
-  load_tile(Bs[0], W, n0, N, K, 0, tid);
-  cp_async_commit();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(As[buf ^ 1], A, m0, M, K, (kt + 1) * kBK, tid);
-      load_tile(Bs[buf ^ 1], W, n0, N, K, (kt + 1) * kBK, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], &As[buf][(wm * 64 + i * 16) * kLds + kk], kLds);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[buf][(wn * 32 + j * 16) * kLds + kk], kLds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // epilogue through a per-warp 16x16 f32 scratch carved from As
-  float* scratch = reinterpret_cast<float*>(&As[0][0]) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * 64 + i * 16 + r;
-      const int gn = n0 + wn * 32 + j * 16 + c0;
-      if (gm < M) {
-        const float* acc_row = scratch + r * 16 + c0;
-        __nv_bfloat16* dst = C + static_cast<size_t>(gm) * N + gn;
-        if (gn + 8 <= N) {  // the whole 16-byte group is inside the row
-          __align__(16) __nv_bfloat16 vals[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            vals[e] = __float2bfloat16_rn(epi(gm, gn + e, acc_row[e]));
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(vals);
-        } else {
-          for (int e = 0; e < 8 && gn + e < N; ++e)
-            dst[e] = __float2bfloat16_rn(epi(gm, gn + e, acc_row[e]));
-        }
-      }
-      __syncwarp();
-    }
-  }
+// the dynamic shared memory a kernel on gemm_bf16_wgmma_tile needs, above the
+// 48 KB default; returns a cudaError_t
+template <typename Kernel>
+inline int allow_gemm_smem(Kernel* kernel) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes));
 }
 
 // ---- f32: CUDA-core tiled GEMM ---------------------------------------------

@@ -9,18 +9,19 @@
 // polynomial.
 //
 // Bound on the H100: operations. At the ViLT-B/32 serving shape (17,984 rows,
-// 768 -> 3072 -> 768, bf16) one FFN is 169.7 GFLOP, about 172 us at 989
+// 768 -> 3072 -> 768, bf16) one FFN is 169.7 GFLOP, 0.1716 ms at 989
 // TFLOP/s, against 64.7 MB of compulsory traffic (19 us). What the design
 // does about it:
-// - bf16 products run on the tensor cores through WMMA 16x16x16 tiles with
-//   f32 accumulation: a 128x128 block tile, 8 warps of 64x32, K staged 32 at
-//   a time in a two-stage cp.async ring in shared memory (gemm.cuh, shared
-//   with block.cu).
-// - Bias, GELU and the cast happen in the epilogue, on the accumulators.
-// - h goes through device memory: a 64x3072 h tile does not fit the 227 KB
-//   of shared memory beside the operand tiles. That is 110 MB per FFN in bf16
-//   written and 110 MB read back, still under the compute bound. Fusing the
-//   two products is later work, as are wgmma, TMA and warp specialisation.
+// - bf16 products run on gemm.cuh's Hopper tile: wgmma m64n128k16 with f32
+//   accumulators, 256 x 128 block tiles, 64-deep K slices of both operands
+//   streamed by TMA through a 4-stage mbarrier ring by one producer warp
+//   while four consumer warpgroups multiply (shared with block.cu).
+// - Bias, GELU and the cast happen in the epilogue, on the f32 accumulators
+//   staged in shared memory; the bf16 tile leaves in 16-byte stores.
+// - h goes through device memory: a 256x3072 h tile does not fit the 227 KB
+//   of shared memory beside the operand ring. That is 110 MB per FFN in bf16
+//   written and 110 MB read back (66 us at 3.35 TB/s), spread under the
+//   products. Fusing the two products is later work.
 // - f32 products (the parity path) use a plain CUDA-core tiled GEMM, so f32
 //   results match PyTorch's full-precision f32 matmul, not TF32.
 // Weights are in torch.nn.Linear's (out, in) layout, so both operands of
@@ -48,15 +49,15 @@ struct BiasAct {
   }
 };
 
-// The mainloops are gemm.cuh's: WMMA tensor-core tiles for bf16, a CUDA-core
-// tiled GEMM for f32.
-__global__ void __launch_bounds__(kWmmaThreads)
-    linear_bf16_wmma_kernel(const __nv_bfloat16* __restrict__ A,
-                            const __nv_bfloat16* __restrict__ W,
-                            const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ C,
-                            int M, int N, int K, int gelu) {
-  gemm_bf16_wmma_tile(A, W, C, M, N, K, blockIdx.y * kBM, blockIdx.x * kBN,
-                      BiasAct<__nv_bfloat16>{bias, gelu});
+// The mainloops are gemm.cuh's: wgmma fed by TMA for bf16, a CUDA-core tiled
+// GEMM for f32.
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    linear_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap a,
+                             const __grid_constant__ CUtensorMap w,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ C, int M, int N, int K, int gelu) {
+  gemm_bf16_wgmma_tile(&a, &w, C, M, N, K, blockIdx.y * kTileM, blockIdx.x * kTileN,
+                       BiasAct<__nv_bfloat16>{bias, gelu});
 }
 
 __global__ void __launch_bounds__(kSimtThreads)
@@ -70,17 +71,24 @@ __global__ void __launch_bounds__(kSimtThreads)
 }  // namespace
 
 // out (M, N) = act(x (M, K) . w (N, K)^T + bias (N)); act = exact GELU when
-// gelu != 0. All row-major and contiguous, one dtype; K % 32 == 0 and 16-byte
-// aligned pointers (the wrapper checks both).
+// gelu != 0. All row-major and contiguous, one dtype; K % 64 == 0, N % 8 == 0
+// and 16-byte aligned pointers (the wrapper checks them).
 extern "C" int climb_linear_bias_act(const void* x, const void* w, const void* bias, void* out,
                                      int M, int N, int K, int gelu, int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0 || K <= 0 || K % kTileK != 0 || N % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == climb::kBFloat16) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    linear_bf16_wmma_kernel<<<grid, kWmmaThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), M, N, K, gelu);
+    // the operands' addresses change from call to call: encode their maps here
+    CUtensorMap a_map, w_map;
+    int err = encode_kmajor_bf16(&a_map, x, M, K, kTileK, kTileM);
+    if (!err) err = encode_kmajor_bf16(&w_map, w, N, K, kTileK, kTileN);
+    if (!err) err = allow_gemm_smem(linear_bf16_wgmma_kernel);
+    if (err) return err;
+    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+    linear_bf16_wgmma_kernel<<<grid, kGemmThreads, kGemmSmemBytes, s>>>(
+        a_map, w_map, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
+        M, N, K, gelu);
   } else if (dtype == climb::kFloat32) {
     const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM);
     linear_f32_simt_kernel<<<grid, kSimtThreads, 0, s>>>(

@@ -23,7 +23,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("attention.cu", "attention_bwd.cu", "block.cu", "mlp.cu", "normalize.cu")
-HEADERS = ("common.cuh", "gemm.cuh", "tc.cuh")
+HEADERS = ("common.cuh", "gemm.cuh", "hopper.cuh", "tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -27,8 +27,7 @@ import torch.nn.functional as F
 from climb_tpu_torch.kernels import LAUNCHES
 from climb_tpu_torch.kernels import build
 from climb_tpu_torch.ops import attention
-
-_K_MULTIPLE = 32  # the GEMM tiles stage the reduction axis 32 at a time
+from climb_tpu_torch.ops.mlp import check_gemm_operands
 
 
 def _ln_stats(x, eps):
@@ -117,7 +116,7 @@ def fused_attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, b
         raise ValueError(f"fused_attention_sublayer: unsupported device {x.device}")
     b, s, d = x.shape
     weights, rows_f32 = (wq, wk, wv, wo), (ln_scale, ln_bias, bq, bk, bv, bo)
-    if d != num_heads * attention.KERNEL_HEAD_DIM or d % _K_MULTIPLE:
+    if d != num_heads * attention.KERNEL_HEAD_DIM:
         raise ValueError(f"fused_attention_sublayer: the kernel takes head_dim "
                          f"{attention.KERNEL_HEAD_DIM}, got D={d} with {num_heads} heads")
     if x.dtype not in build.DTYPES or any(w.dtype != x.dtype for w in weights):
@@ -132,10 +131,12 @@ def fused_attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, b
         raise ValueError(f"fused_attention_sublayer: mask_bias must be ({b}, 1, 1, {s}), got "
                          f"{tuple(mask_bias.shape)}")
     key_bias = mask_bias.reshape(b, s).contiguous()
-    for t in (x, key_bias) + weights + rows_f32:
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("fused_attention_sublayer: tensors must be on one device, "
-                             "contiguous and 16-byte aligned")
+    tensors = (x, key_bias) + weights + rows_f32
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("fused_attention_sublayer: tensors must be on one device")
+    names = ("x", "key_bias", "wq", "wk", "wv", "wo", "ln_scale", "ln_bias", "bq", "bk", "bv",
+             "bo")
+    check_gemm_operands("fused_attention_sublayer", {"D": d}, dict(zip(names, tensors)))
     out, h, q, k, v, ctx = (torch.empty_like(x) for _ in range(6))
     lib = build.load_library()
     build.check(

@@ -19,7 +19,26 @@ from climb_tpu_torch.kernels import build
 # Both values compute the same function; on the card each runs the kernel.
 MLP_IMPLS = ("xla", "pallas")
 
-_K_MULTIPLE = 32  # the kernel stages the reduction axis 32 at a time
+_K_MULTIPLE = 64  # the bf16 GEMM's TMA box is 64 deep along the reduction axis
+
+
+def check_gemm_operands(what, widths, tensors):
+    """What ``csrc/gemm.cuh``'s bf16 tile needs of a GEMM's operands: each
+    width in ``widths`` (name -> int) a multiple of 64, the depth of its TMA
+    box along the reduction axis (D and F are output widths too, which its
+    16-byte stores need in multiples of 8); each tensor in ``tensors`` (name
+    -> tensor) contiguous and starting on a 16-byte boundary, as TMA and
+    those stores need. Reads only the widths, ``is_contiguous()`` and
+    ``data_ptr()``; raises ValueError naming the first that fails."""
+    for name, n in widths.items():
+        if n % _K_MULTIPLE:
+            raise ValueError(f"{what}: {name}={n} must be a multiple of {_K_MULTIPLE} (the GEMM "
+                             f"loads {_K_MULTIPLE}-deep slices of the reduction axis by TMA)")
+    for name, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and start on a 16-byte boundary "
+                             f"(contiguous {t.is_contiguous()}, address % 16 = "
+                             f"{t.data_ptr() % 16})")
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2):
@@ -88,11 +107,8 @@ def fused_mlp(x, w1, b1, w2, b2):
         raise TypeError(f"fused_mlp: x and weights must share a dtype in {list(build.DTYPES)}")
     if any(p.device != x.device for p in params):
         raise ValueError("fused_mlp: x and weights must be on one device")
-    if d % _K_MULTIPLE or f % _K_MULTIPLE:
-        raise ValueError(f"fused_mlp: D={d} and F={f} must be multiples of {_K_MULTIPLE}")
-    for t in (x,) + params:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("fused_mlp: tensors must be contiguous and 16-byte aligned")
+    check_gemm_operands("fused_mlp", {"D": d, "F": f},
+                        dict(zip(("x", "w1", "b1", "w2", "b2"), (x,) + params)))
     x2 = x.reshape(-1, d)
     rows = x2.shape[0]
     lib = build.load_library()
