@@ -24,7 +24,9 @@ Phases, each printing one JSON line as soon as it ends:
               forward is also held, at both shapes, to the tile-exact plain
               version of _fwd_kernel_blocked under a tighter tolerance, and
               the FFN at the ragged row counts of the train (8,992) and
-              language (16,912) batches and of one example (281). Each row
+              language (16,912) batches and of one example (281), and the bf16
+              GEMM's column tail (N % 128 != 0): the FFN at D 64 / F 128 and
+              D 192 / F 768 and the fused sublayer at D 192, 3 heads. Each row
               carries previous_ms, the kernel's time before its last
               redesign at its shape.
   4. predict: ``climb_tpu_torch.cli.predict.main`` at full ViLT-B/32 width on
@@ -43,6 +45,19 @@ Phases, each printing one JSON line as soon as it ends:
               gradient held to tolerances), the bf16 step time of both paths,
               and a profile of one bf16 train step; once with ``--attn_impl
               pallas`` and once with ``fused_block``.
+     train_paths_cl: the same in f32 for the CL train steps: EWC-penalised,
+              feature distillation, houlsby adapters and LoRA (three steps
+              each; losses, penalties and every gradient).
+     cl:      the Phase I driver's CL algorithms at full width, bf16, 128
+              synthetic examples a task, one epoch, with eval: EWC over vqa,
+              nlvr2, snli-ve, vcr; experience replay, pfeiffer adapters (with
+              fused_block), houlsby adapters and LoRA on q, v, fc1 (both with
+              fused_block, which JAX's rule turns off for them), freezing the
+              bottom 6 layers and feature distillation over snli-ve, nlvr2.
+              Each run: exact launch counts, step ms by CUDA events, ex/s,
+              peak memory, replay steps, Fisher seconds, and its invariants
+              (frozen weights bit-equal, other tasks' adapters bit-equal,
+              replay steps move weights, EWC penalty > 0 after the first task).
   7. language: ``climb_tpu_torch.cli.train_language.main`` at full width, imdb
               with ``--max_len_override 1040`` (S = 1057), batch 16, bf16, two
               epochs: the exact launch counts, the sequence length the
@@ -79,6 +94,13 @@ LAYERS = 12
 TRAIN_BATCH = 32  # the training driver's --batch_size (snli-ve; nlvr2 folds 16 pairs)
 TRAIN_SIZE = 256  # synthetic train examples per task: 8 snli-ve and 16 nlvr2 steps
 FUSED_TRAIN_SIZE = 128  # the fused_block driver run: 4 snli-ve steps
+# phase cl: synthetic examples a task (4 vqa / snli-ve steps, 8 nlvr2, 16 vcr),
+# EWC's Fisher over a quarter of them, a replay step every second step, and
+# the bottom half of the encoder frozen
+CL_TRAIN_SIZE, CL_FISHER_SHARE, CL_REPLAY_FREQUENCY, CL_FROZEN_LAYERS = 128, 0.25, 2, 6
+# the bf16 GEMM's column tail: (D, F) of two FFNs and (D, heads) of one sublayer
+GEMM_TAIL_WIDTHS = ((64, 128), (192, 768))
+FUSED_TAIL_WIDTH = (192, 3)
 # the Phase II language driver's long-sequence shape: imdb at --max_len_override
 # 1040 with a 128x128 image, S = 1040 + 1 + 16
 LONG_BATCH, LONG_TEXT, LONG_SEQ = 16, 1040, 1057
@@ -719,16 +741,17 @@ def timed_train_steps(torch, module, steps, profile_at=None, profile_what=""):
     def timed_make(model, task_key, *a, **kw):
         step = make(model, task_key, *a, **kw)
 
-        def timed(state, batch):
+        def timed(state, batch, *refs):
             if len(steps) == profile_at:
                 out = []
-                profile_step(torch, lambda b: out.append(step(state, b)), batch, profile_what)
+                profile_step(torch, lambda b: out.append(step(state, b, *refs)), batch,
+                             profile_what)
                 steps.append(None)
                 return out[0]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t = time.perf_counter()
             start.record()
-            out = step(state, batch)
+            out = step(state, batch, *refs)
             end.record()
             steps.append((task_key, t, start, end))
             return out
@@ -824,6 +847,36 @@ def train_batch_on_card(torch, args, dev):
     return trainer, to_device(next(iter(trainer.train_dataloader)), dev)
 
 
+def check_f32_paths(torch, k_losses, p_losses, k_grads, p_grads):
+    """The kernel path's f32 losses and first-step gradients against the plain
+    path's, at LOSS_TOL and GRAD_REL_TOL; every parameter must get a gradient."""
+    missing = [n for n, g in k_grads.items() if g is None or (
+        not g.abs().max().item() and not n.endswith(SHIFT_INVARIANT))]
+    if missing:
+        raise AssertionError(f"no gradient through the kernel path for {missing}")
+    atol, rtol, reason = LOSS_TOL
+    if not all(math.isfinite(x) for x in k_losses) or any(
+            abs(a - b) > atol + rtol * abs(b) for a, b in zip(k_losses, p_losses)):
+        raise AssertionError(f"f32 losses: kernel {k_losses} vs plain {p_losses}")
+    rel, floor, greason = GRAD_REL_TOL
+    total = math.sqrt(sum(g.double().pow(2).sum().item() for g in p_grads.values()))
+    worst = []
+    for n, g in k_grads.items():
+        diff = (g.double() - p_grads[n].double()).norm().item()
+        ref = p_grads[n].double().norm().item()
+        worst.append((diff / (rel * ref + floor * total), n, diff, ref))
+    worst.sort(reverse=True)
+    if worst[0][0] > 1.0:
+        raise AssertionError(f"f32 gradients: kernel vs plain path beyond tolerance: "
+                             f"{worst[:5]}")
+    return {"loss_tolerance": {"atol": atol, "rtol": rtol, "reason": reason},
+            "grad_tolerance": {"rel": rel, "floor": floor, "reason": greason},
+            "n_params_with_grad": len(k_grads), "grad_norm_total": total,
+            "grad_worst_ratio_to_tolerance": [
+                {"name": n, "ratio": r, "diff_norm": d, "ref_norm": f}
+                for r, n, d, f in worst[:4]]}
+
+
 def compare_train_paths(torch, attn_impl="pallas"):
     """Three f32 train steps of one snli-ve batch through the kernel path and
     the plain path from the same weights, then the bf16 step time of both
@@ -878,31 +931,7 @@ def compare_train_paths(torch, attn_impl="pallas"):
         out = {"step_ms_kernel_path": k_ms, "step_ms_plain_path": p_ms,
                "losses_kernel_path": k_losses, "losses_plain_path": p_losses}
         if dtype == "float32":
-            missing = [n for n, g in k_grads.items() if g is None or (
-                not g.abs().max().item() and not n.endswith(SHIFT_INVARIANT))]
-            if missing:
-                raise AssertionError(f"no gradient through the kernel path for {missing}")
-            atol, rtol, reason = LOSS_TOL
-            if not all(math.isfinite(x) for x in k_losses) or any(
-                    abs(a - b) > atol + rtol * abs(b) for a, b in zip(k_losses, p_losses)):
-                raise AssertionError(f"f32 losses: kernel {k_losses} vs plain {p_losses}")
-            rel, floor, greason = GRAD_REL_TOL
-            total = math.sqrt(sum(g.double().pow(2).sum().item() for g in p_grads.values()))
-            worst = []
-            for n, g in k_grads.items():
-                diff = (g.double() - p_grads[n].double()).norm().item()
-                ref = p_grads[n].double().norm().item()
-                worst.append((diff / (rel * ref + floor * total), n, diff, ref))
-            worst.sort(reverse=True)
-            if worst[0][0] > 1.0:
-                raise AssertionError(f"f32 gradients: kernel vs plain path beyond tolerance: "
-                                     f"{worst[:5]}")
-            out.update({"loss_tolerance": {"atol": atol, "rtol": rtol, "reason": reason},
-                        "grad_tolerance": {"rel": rel, "floor": floor, "reason": greason},
-                        "n_params_with_grad": len(k_grads), "grad_norm_total": total,
-                        "grad_worst_ratio_to_tolerance": [
-                            {"name": n, "ratio": r, "diff_norm": d, "ref_norm": f}
-                            for r, n, d, f in worst[:4]]})
+            out.update(check_f32_paths(torch, k_losses, p_losses, k_grads, p_grads))
         else:
             profile_step(torch, lambda b: k_step(k_state, b), batch,
                          f"one bf16 train step (snli-ve, batch {TRAIN_BATCH}, --attn_impl "
@@ -913,6 +942,400 @@ def compare_train_paths(torch, attn_impl="pallas"):
         torch.cuda.synchronize()
     emit(row)
     return row["bfloat16"]["step_ms_kernel_path"]
+
+
+def check_gemm_tails(torch):
+    """The bf16 wgmma GEMM's column tail (N % 128 != 0, which the serving
+    widths never reach): mlp_fwd at D 64 / F 128 and D 192 / F 768 (its second
+    GEMM is 64 and 192 wide) and fused_block_fwd at D 192, 3 heads (every GEMM
+    192 wide), in f32 and bf16, against the plain versions at their
+    tolerances, over the rows of one train batch."""
+    from climb_tpu_torch.kernels import LAUNCHES
+    from climb_tpu_torch.ops import block, mlp
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = TRAIN_BATCH * SEQ
+    for d, f in GEMM_TAIL_WIDTHS:
+        x32 = torch.randn((rows, d), generator=g, device=dev)
+        w1 = torch.randn((f, d), generator=g, device=dev) / math.sqrt(d)
+        b1 = torch.randn((f,), generator=g, device=dev) * 0.02
+        w2 = torch.randn((d, f), generator=g, device=dev) / math.sqrt(f)
+        b2 = torch.randn((d,), generator=g, device=dev) * 0.02
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            args = [t.to(dtype) for t in (x32, w1, b1, w2, b2)]
+            before = LAUNCHES["mlp_fwd"]
+            out = mlp.fused_mlp(*args)
+            torch.cuda.synchronize()
+            err, tol = compare(torch, "mlp_fwd", dn, out, mlp.fused_mlp_plain(*args))
+            emit({"phase": "kernel", "name": "mlp_fwd", "dtype": dn,
+                  "at": f"column tail: second GEMM N = {d}",
+                  "shape": f"x ({rows},{d}) {dn}, {d} -> {f} -> {d}", "max_abs_err": err,
+                  "tolerance": tol, "launches": LAUNCHES["mlp_fwd"] - before,
+                  "kernel_ms": time_ms(torch, lambda: mlp.fused_mlp(*args), iters=10)})
+    d, heads = FUSED_TAIL_WIDTH
+    _, _, _, bias = attention_inputs(torch, g, TRAIN_BATCH, dev)
+    x32 = torch.randn((TRAIN_BATCH, SEQ, d), generator=g, device=dev)
+    w32 = [torch.randn((d, d), generator=g, device=dev) / math.sqrt(d) for _ in range(4)]
+    vecs = [torch.randn((d,), generator=g, device=dev) * 0.02 for _ in range(4)]
+    lns = 1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+    lnb = 0.1 * torch.randn((d,), generator=g, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        wq, wk, wv, wo = (w.to(dtype) for w in w32)
+        bq, bk, bv, bo = vecs
+        args = (x32.to(dtype), lns, lnb, wq, bq, wk, bk, wv, bv, wo, bo, bias)
+        before = LAUNCHES["fused_block_fwd"]
+        out = block.fused_attention_sublayer(*args, num_heads=heads)
+        torch.cuda.synchronize()
+        ref = block.fused_attention_sublayer_plain(*args, num_heads=heads)
+        errs = [compare(torch, "fused_block_fwd", dn, o, r) for o, r in zip(out, ref)]
+        emit({"phase": "kernel", "name": "fused_block_fwd", "dtype": dn,
+              "at": f"column tail: every GEMM N = {d}",
+              "shape": f"x ({TRAIN_BATCH},{SEQ},{d}) {dn}, {heads} heads, four ({d},{d}) "
+                       "weights, bias f32",
+              "max_abs_err": max(e for e, _ in errs), "tolerance": errs[0][1],
+              "launches": LAUNCHES["fused_block_fwd"] - before,
+              "kernel_ms": time_ms(torch, lambda: block.fused_attention_sublayer(
+                  *args, num_heads=heads), iters=10)})
+        del out, ref
+    torch.cuda.synchronize()
+
+
+def cl_train_model(torch, variant, dev):
+    """A full-width f32 snli-ve learner for phase train_paths' CL steps, its
+    trainer and one batch: with houlsby adapters or LoRA (its b drawn non-zero,
+    so that a gets a gradient) for those variants."""
+    from climb_tpu_torch.cl.adapters import AdapterHandler
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.train.model_factory import create_cl_model
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = train_argv(out_dir)
+        argv[argv.index("--ordered_cl_tasks") + 1] = "snli-ve"
+        argv[argv.index("bfloat16")] = "float32"
+        if variant in ("houlsby", "lora"):
+            argv += ["--cl_algorithm", "adapter", "--adapter_method", "vanilla",
+                     "--adapter_config", variant, "--adapter_reduction_factor", "16"]
+        args = driver.build_parser().parse_args(argv)
+        args.ordered_cl_tasks = ["snli-ve"]
+        handler = AdapterHandler("vanilla", args) if variant in ("houlsby", "lora") else None
+        model = create_cl_model(args, task_configs, dev, adapter_handler=handler)
+        if handler is not None:
+            handler.activate_adapter_for_training("snli-ve", model)
+        g = torch.Generator(device=dev).manual_seed(4)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith("lora_b"):
+                    p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+        trainer, batch = train_batch_on_card(torch, args, dev)
+    return model, trainer, batch
+
+
+def compare_cl_train_paths(torch):
+    """Three f32 train steps of one snli-ve batch through the kernel path and
+    the plain path from the same weights for each CL train step: EWC-penalised
+    (a random Fisher and an anchor near the weights), feature distillation (a
+    teacher near the weights), houlsby adapters and LoRA (adapter-only masks);
+    losses and every parameter's first-step gradient at the tolerances of
+    compare_train_paths."""
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.train.train_state import TrainState
+    from climb_tpu_torch.train.train_step import EwcRef, FdRef, make_train_step
+
+    dev = torch.device("cuda")
+    row = {"phase": "train_paths_cl", "attn_impl": "pallas", "dtype": "float32"}
+    t0 = time.perf_counter()
+    for variant in ("ewc", "distill", "houlsby", "lora"):
+        model, trainer, batch = cl_train_model(torch, variant, dev)
+        g = torch.Generator(device=dev).manual_seed(5)
+        ewc_ref = fd_ref = None
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        if variant == "ewc":
+            enc = {n: p for n, p in params.items() if n.startswith("vilt.")}
+            ewc_ref = EwcRef(
+                fisher={n: torch.rand(p.shape, generator=g, device=dev) for n, p in enc.items()},
+                anchor={n: p + 1e-3 * torch.randn(p.shape, generator=g, device=dev)
+                        for n, p in enc.items()},
+                weight=1.0)
+        if variant == "distill":
+            fd_ref = FdRef(teacher={n: p + 0.01 * torch.randn(p.shape, generator=g, device=dev)
+                                    for n, p in params.items()}, weight=1.0)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def run(paths):
+            model.load_state_dict(initial)
+            state = TrainState.create(model, trainer.make_tx(model))
+            step = make_train_step(model, "snli-ve", "ce", model.cfg.compute_dtype)
+            losses, extra, grads = [], [], None
+            with contextlib.ExitStack() as patches:
+                for p in paths:
+                    patches.enter_context(p)
+                for i in range(3):
+                    m = step(state, batch, ewc_ref, fd_ref)
+                    losses.append(float(m["loss"]))
+                    extra.extend(float(m[k]) for k in ("ewc_loss", "distill_loss") if k in m)
+                    if i == 0:
+                        grads = {n: None if p.grad is None else p.grad.clone()
+                                 for n, p in model.named_parameters()}
+            return losses, extra, grads
+
+        reset_launch_counts()
+        k_losses, k_extra, k_grads = run(())
+        n_fwd = 6 if variant == "distill" else 3  # the teacher's forward besides the student's
+        expected = expected_launches(False, n_fwd, 3, 3)
+        if dict(LAUNCHES) != expected:
+            raise AssertionError(f"{variant}: kernel path launched {LAUNCHES}, expected {expected}")
+        reset_launch_counts()
+        p_losses, p_extra, p_grads = run(plain_path())
+        if any(LAUNCHES.values()):
+            raise AssertionError(f"{variant}: plain path launched kernels: {LAUNCHES}")
+        if (variant in ("ewc", "distill") and not (k_extra and min(k_extra) > 0)):
+            raise AssertionError(f"{variant}: penalty {k_extra} not positive")
+        out = {"losses_kernel_path": k_losses, "losses_plain_path": p_losses,
+               "penalty_kernel_path": k_extra, "penalty_plain_path": p_extra,
+               "launches": expected}
+        out.update(check_f32_paths(torch, k_losses + k_extra, p_losses + p_extra,
+                                   k_grads, p_grads))
+        row[variant] = out
+        del model, trainer, batch, initial, k_grads, p_grads, ewc_ref, fd_ref, params
+        torch.cuda.synchronize()
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+
+
+# phase cl: the Phase I driver's CL algorithms at full width (name -> flags)
+CL_RUNS = {
+    "ewc": ["--cl_algorithm", "ewc", "--ordered_cl_tasks", "vqa,nlvr2,snli-ve,vcr",
+            "--ewc_fisher_sample_percentage", str(CL_FISHER_SHARE), "--ewc_loss_weight",
+            "100"],
+    "experience_replay": ["--cl_algorithm", "experience_replay", "--ordered_cl_tasks",
+                          "snli-ve,nlvr2", "--memory_percentage", "0.5",
+                          "--memory_sampling_strategy", "random", "--replay_frequency",
+                          str(CL_REPLAY_FREQUENCY)],
+    "adapter_pfeiffer": ["--cl_algorithm", "adapter", "--adapter_method", "vanilla",
+                         "--adapter_config", "pfeiffer", "--adapter_reduction_factor", "16",
+                         "--ordered_cl_tasks", "snli-ve,nlvr2", "--attn_impl", "fused_block"],
+    "adapter_houlsby": ["--cl_algorithm", "adapter", "--adapter_method", "vanilla",
+                        "--adapter_config", "houlsby", "--adapter_reduction_factor", "16",
+                        "--ordered_cl_tasks", "snli-ve,nlvr2", "--attn_impl", "fused_block"],
+    "adapter_lora": ["--cl_algorithm", "adapter", "--adapter_method", "vanilla",
+                     "--adapter_config", "lora", "--lora_targets", "q,v,fc1",
+                     "--ordered_cl_tasks", "snli-ve,nlvr2", "--attn_impl", "fused_block"],
+    "freeze_bottom_k_layers": ["--cl_algorithm", "freeze_bottom_k_layers",
+                               "--layers_to_freeze", str(CL_FROZEN_LAYERS),
+                               "--ordered_cl_tasks", "snli-ve,nlvr2"],
+    "feature_distill": ["--cl_algorithm", "feature_distill", "--distill_loss_weight", "1",
+                        "--ordered_cl_tasks", "snli-ve,nlvr2"],
+}
+# examples a train or eval step holds, by task (the global batch over the fold)
+CL_STEP_EXAMPLES = {"vqa": TRAIN_BATCH, "snli-ve": TRAIN_BATCH, "nlvr2": TRAIN_BATCH // 2,
+                    "vcr": TRAIN_BATCH // 4}
+
+
+def cl_argv(out_dir, flags):
+    overrides = ",".join(f"{t}.num_epochs=1" for t in CL_STEP_EXAMPLES)
+    argv = [
+        "--encoder_name", "vilt", "--pretrained_model_name", "scratch",
+        "--climb_data_dir", out_dir, "--output_dir", out_dir, "--synthetic",
+        "--synthetic_train_size", str(CL_TRAIN_SIZE), "--batch_size", str(TRAIN_BATCH),
+        "--task_config_overrides", overrides, "--compute_dtype", "bfloat16",
+        "--attn_impl", "pallas", "--mlp_impl", "pallas", "--seed", "0",
+        "--do_train", "--do_eval", *flags]
+    return argv
+
+
+def cl_expected(name, flags):
+    """(launch counts, per-task counts of train steps, replay steps, Fisher
+    batches) of one phase-cl run, from the driver's rules: each train, replay
+    and Fisher batch one encoder forward and backward; each eval batch (every
+    task once after its epoch, every earlier task again in the forgetting
+    eval) one forward; distillation one more forward a step from the second
+    task on."""
+    tasks = flags[flags.index("--ordered_cl_tasks") + 1].split(",")
+    fused = "fused_block" in flags and "pfeiffer" in flags  # JAX's fused_block rule
+    lora_targets = flags[flags.index("--lora_targets") + 1] if "--lora_targets" in flags else ""
+    ffn_kernel = not {"fc1", "fc2"} & set(lora_targets.split(","))  # else the FFN runs per op
+    steps = {t: math.ceil(CL_TRAIN_SIZE / CL_STEP_EXAMPLES[t]) for t in tasks}
+    evals = {t: math.ceil(max(8, CL_TRAIN_SIZE // 4) / CL_STEP_EXAMPLES[t]) for t in tasks}
+    fisher_size = int(CL_FISHER_SHARE * CL_TRAIN_SIZE)
+    fwd = bwd = batches = 0
+    replays, fisher = {}, {}
+    for i, t in enumerate(tasks):
+        replays[t] = steps[t] // CL_REPLAY_FREQUENCY if name == "experience_replay" and i else 0
+        fisher[t] = (min(steps[t], math.ceil(fisher_size / CL_STEP_EXAMPLES[t]))
+                     if name == "ewc" and i < len(tasks) - 1 else 0)
+        teacher = steps[t] if name == "feature_distill" and i else 0
+        fwd += steps[t] + teacher + replays[t] + fisher[t] + evals[t]
+        bwd += steps[t] + replays[t] + fisher[t]
+        batches += steps[t] + replays[t] + fisher[t] + evals[t]
+    forgetting = sum(evals[tasks[i]] for j in range(1, len(tasks)) for i in range(j))
+    fwd, batches = fwd + forgetting, batches + forgetting
+    launches = {"attention_fwd": 0 if fused else LAYERS * fwd,
+                "fused_block_fwd": LAYERS * fwd if fused else 0,
+                "attention_bwd": LAYERS * bwd, "mlp_fwd": LAYERS * fwd if ffn_kernel else 0,
+                "normalize_u8": batches}
+    return launches, steps, replays, fisher
+
+
+def _host_params(model, keep):
+    return {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters() if keep(n)}
+
+
+def run_cl(torch, name):
+    """One phase-cl run of the Phase I driver, with its invariants checked."""
+    from climb_tpu_torch.cl.ewc import EWC
+    from climb_tpu_torch.cl.experience_replay import ExperienceReplayMemory
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.models.adapters import is_adapter_param
+    from climb_tpu_torch.train import trainers
+
+    flags = CL_RUNS[name]
+    tasks = flags[flags.index("--ordered_cl_tasks") + 1].split(",")
+    expected, n_steps, n_replays, n_fisher = cl_expected(name, flags)
+    steps, seen = [], {"models": [], "ewc_loss": {}, "replay_moved": [], "fisher_s": [],
+                       "adapters_kept": []}
+    create, train, replay = (driver.create_cl_model, trainers.VLTaskTrainer.train,
+                             ExperienceReplayMemory.run_replay_step)
+    fisher, make_step = EWC.save_task_parameters, trainers.make_train_step
+
+    def recording_create(*a, **kw):
+        model = create(*a, **kw)
+        seen["models"].append(model)
+        seen["initial"] = _host_params(model, lambda n: True)
+        return model
+
+    def checked_train(self, model, **cl):  # other tasks' adapters are kept bit-equal
+        own = f"_{self.task_key.replace('-', '_')}."
+        others = lambda n: is_adapter_param(n) and own not in n
+        before = _host_params(model, others)
+        out = train(self, model, **cl)
+        after = _host_params(model, others)
+        seen["adapters_kept"].append(bool(before) and all(
+            torch.equal(before[n], after[n]) for n in before))
+        return out
+
+    def checked_replay(self, model):  # a replay step moves the weights
+        probe = model.vilt.pooler.weight.detach().clone()
+        loss = replay(self, model)
+        seen["replay_moved"].append(not torch.equal(probe, model.vilt.pooler.weight))
+        return loss
+
+    def timed_fisher(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fisher(self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["fisher_s"].append(time.perf_counter() - t)
+
+    def recording_make(model, task_key, *a, **kw):
+        step = make_step(model, task_key, *a, **kw)
+
+        def recorded(state, batch, ewc_ref=None, fd_ref=None):
+            m = step(state, batch, ewc_ref, fd_ref)
+            if "ewc_loss" in m:
+                seen["ewc_loss"].setdefault(task_key, []).append(m["ewc_loss"])
+            return m
+
+        return recorded
+
+    patches = [mock.patch.object(driver, "create_cl_model", recording_create),
+               mock.patch.object(trainers.VLTaskTrainer, "train", checked_train),
+               mock.patch.object(ExperienceReplayMemory, "run_replay_step", checked_replay),
+               mock.patch.object(EWC, "save_task_parameters", timed_fisher),
+               mock.patch.object(trainers, "make_train_step", recording_make)]
+    with tempfile.TemporaryDirectory() as out_dir, contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        what = (f"the last bf16 train step of phase cl's {name} run ({tasks[-1]}, "
+                f"{CL_STEP_EXAMPLES[tasks[-1]]} examples): forward, backward, AdamW")
+        stack.enter_context(timed_train_steps(torch, trainers, steps,
+                                              profile_at=sum(n_steps.values()) - 1,
+                                              profile_what=what))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        driver.main(cl_argv(out_dir, flags))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        args = driver.build_parser().parse_args(cl_argv(out_dir, flags))
+        args.ordered_cl_tasks = tasks
+        exp = os.path.join(out_dir, driver.experiment_name_for(args))
+        with open(os.path.join(exp, "results.json")) as f:
+            results = json.load(f)
+        with open(os.path.join(exp, "eval_results.json")) as f:
+            eval_results = json.load(f)
+    model = seen["models"][-1]
+    if launches != expected:
+        raise AssertionError(f"cl {name}: launches {launches} != expected {expected}")
+    if len(steps) != sum(n_steps.values()):
+        raise AssertionError(f"cl {name}: {len(steps)} timed steps, expected {n_steps}")
+    scores = [r["best_score"] for r in results] + [
+        f["absolute_transfer_score"] for by_prev in eval_results["forgetting"].values()
+        for f in by_prev.values()]
+    if [r["task_key"] for r in results] != tasks or not all(
+            math.isfinite(x) and 0.0 <= x <= 100.0 for x in scores):
+        raise AssertionError(f"cl {name}: bad results {results} / {eval_results}")
+    invariants = {}
+    if name == "freeze_bottom_k_layers":  # embeddings and the bottom blocks never move
+        frozen = lambda n: n.startswith("vilt.") and not n.startswith(
+            tuple(f"vilt.encoder.{i}." for i in range(CL_FROZEN_LAYERS, LAYERS))
+            + ("vilt.pooler.", "vilt.final_layernorm."))
+        final = _host_params(model, frozen)
+        invariants["frozen_bit_equal"] = all(torch.equal(seen["initial"][n], v)
+                                             for n, v in final.items())
+        invariants["frozen_tensors"] = len(final)
+        top = f"vilt.encoder.{LAYERS - 1}.fc1.weight"
+        invariants["top_block_moved"] = not torch.equal(
+            seen["initial"][top], model.vilt.encoder[LAYERS - 1].fc1.weight.cpu())
+        if not (invariants["frozen_bit_equal"] and invariants["top_block_moved"]):
+            raise AssertionError(f"cl {name}: {invariants}")
+    if name.startswith("adapter"):
+        invariants["other_adapters_bit_equal"] = seen["adapters_kept"]
+        if not (seen["adapters_kept"] and all(seen["adapters_kept"])):
+            raise AssertionError(f"cl {name}: another task's adapters moved {seen}")
+    if name == "experience_replay":
+        invariants["replay_moved_weights"] = seen["replay_moved"]
+        if len(seen["replay_moved"]) != sum(n_replays.values()) or not all(seen["replay_moved"]):
+            raise AssertionError(f"cl {name}: replay steps {seen['replay_moved']}, expected "
+                                 f"{n_replays}")
+    if name == "ewc":
+        penalty = {t: min(float(x) for x in v) for t, v in seen["ewc_loss"].items()}
+        invariants["ewc_penalty_min_by_task"] = penalty
+        if set(penalty) != set(tasks[1:]) or not all(v > 0 for v in penalty.values()):
+            raise AssertionError(f"cl {name}: EWC penalty {penalty}")
+    # steady state: each task's steps but its first; the last step of the run
+    # ran under the profiler (None)
+    event_ms = {t: [s[2].elapsed_time(s[3]) for s in steps if s and s[0] == t][1:]
+                for t in tasks}
+    host_ms = {t: [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:])
+                   if a and b and a[0] == b[0] == t][1:] for t in tasks}
+    row = {"phase": "cl", "run": name, "flags": flags,
+           "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, 384x640 canvas, "
+                     f"S=281), random weights from seed 0, {CL_TRAIN_SIZE} synthetic examples "
+                     "a task, one epoch each, bf16 compute, f32 master weights and AdamW moments",
+           "seconds": seconds, "peak_memory_bytes": peak, "card": nvidia_smi(),
+           "launches": launches, "n_train_steps": n_steps, "replay_steps": n_replays,
+           "fisher_batches": n_fisher, "fisher_seconds": seen["fisher_s"],
+           "results": results, "forgetting": eval_results["forgetting"],
+           "invariants": invariants}
+    for t in tasks:
+        if event_ms[t]:
+            row[t] = {"examples_per_step": CL_STEP_EXAMPLES[t],
+                      "step_ms_events_median": median(event_ms[t]),
+                      "step_ms_host_median": median(host_ms[t]) if host_ms[t] else None,
+                      "train_examples_per_sec": (1e3 * CL_STEP_EXAMPLES[t] / median(host_ms[t])
+                                                 if host_ms[t] else None)}
+    emit(row)
+    del model, seen
+    torch.cuda.synchronize()
+    return launches
 
 
 def run_language(torch):
@@ -1100,6 +1523,7 @@ def main() -> int:
     with torch.inference_mode():
         check_kernels(torch, results)
         check_fused_block(torch, results)
+        check_gemm_tails(torch)
     check_attention_bwd(torch, results)
     check_attention_long(torch, results)
     launches = {"predict": run_predict(torch)}
@@ -1112,6 +1536,9 @@ def main() -> int:
     emit({"phase": "fused_vs_per_op", "what": f"one bf16 snli-ve train step at batch "
           f"{TRAIN_BATCH} by CUDA events, the same batch and weights, in this run",
           "step_ms": step_ms})
+    compare_cl_train_paths(torch)
+    for name in CL_RUNS:
+        launches[f"cl_{name}"] = run_cl(torch, name)
     launches["language"] = run_language(torch)
 
     # every TPU kernel of climb_tpu with its port's numbers from this run. Each

@@ -4,8 +4,12 @@ After each task the driver saves the whole model to
 ``checkpoints/task{n}_{key}/model`` and the encoder alone to ``.../encoder``
 with ``torch.save`` in the reference torch layout (``vilt_encoder.vilt.*`` +
 ``task_layer.*``, and ``vilt.*``), which the reference CLiMB and
-``climb_tpu``'s ``load_params`` read unchanged. A rerun skips a task whose
-``model`` file exists, loading it with ``partial_load``.
+``climb_tpu``'s ``load_params`` read unchanged. That layout has no adapters,
+so an adapter run also writes ``.../adapters``, the ``adapter_*`` parameters
+by their port names (the JAX package's msgpack ``model`` file holds them in
+its tree); ``load_model_file`` reads a ``model`` file together with the
+``adapters`` file beside it. A rerun skips a task whose ``model`` file
+exists, loading it with ``partial_load``.
 
 The elastic per-epoch train state (``train_state``) and the best parameters
 so far (``best_model``) in the task's directory are the port's own
@@ -28,11 +32,13 @@ from climb_tpu_torch.ckpt.convert import (
     partial_load,
     reference_from_state_dict,
 )
+from climb_tpu_torch.models.adapters import is_adapter_param
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
     "task_dir", "task_checkpoint_exists", "save_task_checkpoint", "load_task_checkpoint",
+    "load_model_file",
     "partial_load", "save_state_dict", "load_state_dict", "save_train_state",
     "load_train_state",
 ]
@@ -64,17 +70,30 @@ def task_checkpoint_exists(output_dir: str, task_num: int, task_key: str) -> boo
 
 def save_task_checkpoint(output_dir: str, task_num: int, task_key: str,
                          state_dict: Dict[str, torch.Tensor]):
-    """The full model and the encoder alone, in the reference torch layout."""
+    """The full model and the encoder alone, in the reference torch layout,
+    and the adapters, if the model has any, in the port's ``adapters`` file."""
     d = task_dir(output_dir, task_num, task_key)
     _save_atomic(reference_from_state_dict(state_dict, "model"), os.path.join(d, "model"))
     _save_atomic(reference_from_state_dict(state_dict, "encoder"), os.path.join(d, "encoder"))
+    adapters = {k: v for k, v in state_dict.items() if is_adapter_param(k)}
+    if adapters:
+        save_state_dict(adapters, os.path.join(d, "adapters"))
     logger.info("Saved checkpoint to %s", d)
 
 
+def load_model_file(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-layout ``model`` file as a port ``state_dict`` (CPU
+    tensors), with the parameters of the ``adapters`` file beside it, if any."""
+    sd = load_reference_checkpoint(path)
+    adapters = os.path.join(os.path.dirname(path), "adapters")
+    if os.path.isfile(adapters):
+        sd.update(load_state_dict(adapters))
+    return sd
+
+
 def load_task_checkpoint(output_dir: str, task_num: int, task_key: str) -> Dict[str, torch.Tensor]:
-    """The task's ``model`` file as a port ``state_dict`` (CPU tensors)."""
-    return load_reference_checkpoint(
-        os.path.join(task_dir(output_dir, task_num, task_key), "model"))
+    """The task's ``model`` (and ``adapters``) file as a port ``state_dict``."""
+    return load_model_file(os.path.join(task_dir(output_dir, task_num, task_key), "model"))
 
 
 def save_state_dict(state_dict: Dict[str, torch.Tensor], path: str):

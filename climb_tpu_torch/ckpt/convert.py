@@ -13,7 +13,11 @@
 
 Dense kernels (in, out) become ``nn.Linear`` weights (out, in); the patch
 projection keeps the (patch_row, patch_col, channel) flatten order of
-``ops.patch_embed.patchify``. Native flax msgpack checkpoints are not read:
+``ops.patch_embed.patchify``. ``state_dict_from_jax`` carries the adapter
+and LoRA leaves (``adapter_*`` under the stacked encoder) across, one slice
+of the layer axis per block; the reference layout has no adapters, so
+``reference_from_state_dict`` leaves them out, as ``climb_tpu``'s
+``torch_import.py`` does. Native flax msgpack checkpoints are not read:
 they need flax.
 """
 
@@ -77,9 +81,25 @@ def _encoder_from_jax(enc: dict) -> Dict[str, torch.Tensor]:
             leaf = {k: np.asarray(v)[i] for k, v in stacked[name].items()}
             fn = _layernorm_from_jax if name in _LAYER_NORMS else _linear_from_jax
             fn(sd, f"encoder.{i}.{name}", leaf)
+        for name, sub in stacked.items():
+            if name.startswith("adapter_"):
+                _adapter_from_jax(sd, f"encoder.{i}.{name}", sub, i)
     _layernorm_from_jax(sd, "final_layernorm", enc["final_layernorm"])
     _linear_from_jax(sd, "pooler", enc["pooler"])
     return sd
+
+
+def _adapter_from_jax(out, prefix, tree, layer):
+    """Layer ``layer`` of a stacked adapter subtree: Dense kernels transposed
+    to (out, in), every other leaf (biases, PHM rule and kernel, LoRA a and
+    b) under its own name."""
+    for name, p in tree.items():
+        if isinstance(p, dict):
+            _adapter_from_jax(out, f"{prefix}.{name}", p, layer)
+        elif name == "kernel":
+            out[f"{prefix}.weight"] = _tensor(np.asarray(p)[layer].T)
+        else:
+            out[f"{prefix}.{name}"] = _tensor(np.asarray(p)[layer])
 
 
 def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:

@@ -119,9 +119,12 @@ def add_device_args(parser: argparse.ArgumentParser):
     parser.add_argument("--pp_microbatches", type=int, default=0, help="Not ported yet (mesh).")
     parser.add_argument("--pp_virtual", type=int, default=1, help="Not ported yet (mesh).")
     parser.add_argument("--adam_moments_dtype", type=str, default=None, choices=["bfloat16"],
-                        help="bf16 first moment: not ported yet (CL-algorithm slice).")
+                        help="Store AdamW's first moment in bf16 (optax's mu_dtype); the "
+                             "second moment stays f32.")
     parser.add_argument("--skip_nonfinite_updates", type=int, default=0,
-                        help="Non-finite update guard: not ported yet (CL-algorithm slice).")
+                        help="Skip a step whose gradients hold a NaN or inf (parameters, "
+                             "moments and schedule untouched), up to N in a row; the "
+                             "(N+1)-th is applied (optax.apply_if_finite). 0 disables.")
     parser.add_argument("--sharded_checkpoints", action="store_true",
                         help="Not ported yet (scale-out slice).")
     parser.add_argument("--async_checkpoint", action="store_true",
@@ -148,8 +151,6 @@ _UNPORTED = (
     ("fuse_qkv", False, "the training-knobs slice"),
     ("scan_unroll", 1, "the port runs the layers in a Python loop"),
     ("worker_mode", "thread", "the prefetching-loader slice"),
-    ("adam_moments_dtype", None, "the CL-algorithm slice"),
-    ("skip_nonfinite_updates", 0, "the CL-algorithm slice"),
     ("auto_accum_token_budget", None, "grad-accum auto, once measured on the H100"),
     ("sharded_checkpoints", False, "the scale-out slice"),
     ("async_checkpoint", False, "the scale-out slice"),

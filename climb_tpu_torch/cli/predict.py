@@ -1,6 +1,7 @@
 """Batched inference CLI (counterpart of ``climb_tpu/cli/predict.py``).
 
-Loads a Phase I checkpoint in the reference torch layout, runs a task's eval
+Loads a Phase I checkpoint in the reference torch layout (with its adapters
+and the task's adapter active for ``--cl_algorithm adapter``), runs a task's eval
 split through the serving forward batch by batch, and writes per-example
 predictions, the task metric and the measured throughput in the JAX CLI's
 output JSON. Runs on the card unless ``--device cpu`` is given.
@@ -19,7 +20,9 @@ import time
 
 import torch
 
-from climb_tpu_torch.ckpt.convert import load_reference_checkpoint, partial_load
+from climb_tpu_torch.ckpt.checkpoint import load_model_file
+from climb_tpu_torch.ckpt.convert import partial_load
+from climb_tpu_torch.cl.adapters import AdapterHandler
 from climb_tpu_torch.cli.common import (
     add_common_args,
     add_device_args,
@@ -50,9 +53,20 @@ def build_parser():
                         help="Which task head to run.")
     parser.add_argument("--checkpoint", default=None, type=str,
                         help="Model checkpoint in the reference torch layout "
-                             "(vilt_encoder.vilt.* + task_layer.*).")
+                             "(vilt_encoder.vilt.* + task_layer.*), with the "
+                             "'adapters' file beside it for an adapter run.")
+    # adapter-trained checkpoints need the adapter modules rebuilt and the
+    # task's adapter activated (reference evaluate_cl_algorithm.py:118-119)
     parser.add_argument("--cl_algorithm", default=None, type=str,
-                        help="'adapter' checkpoints are not ported yet.")
+                        help="Set to 'adapter' for adapter-trained checkpoints.")
+    parser.add_argument("--adapter_method", default="vanilla", choices=["vanilla"])
+    parser.add_argument("--adapter_config", default="houlsby", type=str)
+    parser.add_argument("--adapter_reduction_factor", type=int, default=0)
+    parser.add_argument("--lora_rank", type=int, default=0,
+                        help="LoRA rank override (adapter_config=lora; must match the "
+                             "trained checkpoint).")
+    parser.add_argument("--lora_alpha", type=float, default=0.0)
+    parser.add_argument("--lora_targets", type=str, default="")
     parser.add_argument("--climb_data_dir", type=str, default=".")
     parser.add_argument("--input_jsonl", type=str, default=None,
                         help="Raw JSONL inputs: not ported yet.")
@@ -77,9 +91,6 @@ def _reject_unported_predict(args):
                         ("from_export", "the serve/export slice")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported to climb_tpu_torch yet ({later})")
-    if args.cl_algorithm == "adapter":
-        raise NotImplementedError("--cl_algorithm adapter is not ported to climb_tpu_torch "
-                                  "yet (the CL-algorithms slice)")
     if not args.synthetic:
         raise NotImplementedError("real datasets are not ported to climb_tpu_torch yet (the "
                                   "Phase I training slice); pass --synthetic")
@@ -113,13 +124,18 @@ def main(argv=None):
     _reject_unported_predict(args)
     device = resolve_device(args.device)
 
-    model = create_cl_model(args, task_configs, device)
+    adapter_handler = None
+    if args.cl_algorithm == "adapter":
+        adapter_handler = AdapterHandler(adapter_method=args.adapter_method, args=args)
+    model = create_cl_model(args, task_configs, device, adapter_handler=adapter_handler)
     if args.checkpoint:
         if not os.path.isfile(args.checkpoint):
             raise FileNotFoundError(args.checkpoint)
-        loaded, missing = partial_load(model, load_reference_checkpoint(args.checkpoint))
+        loaded, missing = partial_load(model, load_model_file(args.checkpoint))
         logger.info("Checkpoint %s: %d tensors loaded, %d kept from init",
                     args.checkpoint, len(loaded), len(missing))
+    if adapter_handler is not None:
+        model = adapter_handler.activate_adapter_for_eval(args.task_key, model)
 
     eval_step = make_eval_step(model, args.task_key, LOSS_TYPES[args.task_key],
                                model.cfg.compute_dtype)

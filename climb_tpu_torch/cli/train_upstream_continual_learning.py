@@ -8,9 +8,13 @@ results.json loop with resume-and-skip (:216-294), and the transfer and
 forgetting evaluation that writes eval_results.json (:296-327). Runs on the
 card unless ``--device cpu`` is given.
 
-Ported: ``--cl_algorithm singletask_ft`` and ``sequential_ft`` on snli-ve and
-nlvr2 with synthetic data. Every other algorithm raises NotImplementedError
-(the CL-algorithm slice), as do VQA and VCR training. The port installs no
+Every ``--cl_algorithm`` runs, on vqa, nlvr2, snli-ve and vcr, with
+synthetic data: the per-algorithm set-up (JAX driver :207-229: trainability
+masks for the freeze algorithms, the adapter handler before the weights are
+drawn), adapter activation before each trained task (:323-325), and the
+post-task hooks (:345-361), also for a finished task that a rerun skips: an
+experience-replay buffer after each task; EWC's Fisher, and the
+distillation teacher, after each task but the last. The port installs no
 SIGTERM handler yet: a killed run resumes from its last epoch's train state
 and skips finished tasks.
 
@@ -27,6 +31,13 @@ import json
 import logging
 import os
 
+import torch
+
+from climb_tpu_torch.cl.adapters import AdapterHandler
+from climb_tpu_torch.cl.distill import FeatureDistill
+from climb_tpu_torch.cl.ewc import EWC
+from climb_tpu_torch.cl.experience_replay import ExperienceReplayMemory
+from climb_tpu_torch.cl.freeze import freeze_bottom_k_layers_mask, freeze_encoder_mask
 from climb_tpu_torch.ckpt.checkpoint import (
     load_task_checkpoint,
     partial_load,
@@ -48,7 +59,7 @@ from climb_tpu_torch.evaluation.cl_eval import (
     upstream_knowledge_transfer_eval,
 )
 from climb_tpu_torch.train.model_factory import create_cl_model
-from climb_tpu_torch.train.trainers import VLTaskTrainer
+from climb_tpu_torch.train.trainers import get_task_trainer_class
 from climb_tpu_torch.utils.seed import set_seed
 
 logger = logging.getLogger(__name__)
@@ -56,7 +67,6 @@ logger = logging.getLogger(__name__)
 ALLOWED_CL_ENCODERS = ["vilt", "viltbert"]
 CL_ALGORITHMS = ["singletask_ft", "sequential_ft", "experience_replay", "ewc", "adapter",
                  "freeze_encoder", "freeze_bottom_k_layers", "feature_distill"]
-PORTED_CL_ALGORITHMS = ("singletask_ft", "sequential_ft")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,8 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ordered_cl_tasks", type=str, required=True,
                         help="Ordered list of VL task keys, comma-separated.")
     parser.add_argument("--cl_algorithm", type=str, required=True, choices=CL_ALGORITHMS,
-                        help="Continual-learning algorithm; the port runs singletask_ft "
-                             "and sequential_ft.")
+                        help="Continual-learning algorithm.")
     parser.add_argument("--climb_data_dir", type=str, required=True,
                         help="Directory of the CLiMB data (real data is not ported yet).")
     parser.add_argument("--do_train", action="store_true")
@@ -148,10 +157,6 @@ def validate_algorithm_args(args):
 
 def _reject_unported_train(args):
     reject_unported(args)
-    if args.cl_algorithm not in PORTED_CL_ALGORITHMS:
-        raise NotImplementedError(
-            f"--cl_algorithm {args.cl_algorithm} is not ported to climb_tpu_torch yet (the "
-            f"CL-algorithm slice); ported: {', '.join(PORTED_CL_ALGORITHMS)}")
     if args.visual_input_type == "raw":
         raise NotImplementedError("--visual_input_type raw is not ported to climb_tpu_torch "
                                   "yet (the real-data slice)")
@@ -179,20 +184,37 @@ def main(argv=None):
     set_seed(args)
     args.visual_input_type = args.visual_input_type or "pil-image"
 
-    model = create_cl_model(args, configs, device)
+    cl = {"replay_memory": None, "ewc": None, "distill": None}
+    adapter_handler = None
+    if args.cl_algorithm == "experience_replay":
+        cl["replay_memory"] = ExperienceReplayMemory()
+    elif args.cl_algorithm == "adapter":
+        adapter_handler = AdapterHandler(adapter_method=args.adapter_method, args=args)
+    elif args.cl_algorithm == "ewc":
+        cl["ewc"] = EWC(args)
+    elif args.cl_algorithm == "feature_distill":
+        cl["distill"] = FeatureDistill(args)
+
+    model = create_cl_model(args, configs, device, adapter_handler=adapter_handler)
+    if args.cl_algorithm == "freeze_encoder":
+        model.trainable_mask = freeze_encoder_mask(model)
+    elif args.cl_algorithm == "freeze_bottom_k_layers":
+        model.trainable_mask = freeze_bottom_k_layers_mask(
+            model, k=args.layers_to_freeze, num_layers=model.cfg.num_layers)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Continual learner: %s | %d task heads (%s) | %.2fM params | algorithm=%s | %s",
                 args.encoder_name, len(args.ordered_cl_tasks), ",".join(args.ordered_cl_tasks),
                 n_params / 1e6, args.cl_algorithm, device)
-    return _run(args, configs, output_dir, results_file, model, device)
+    return _run(args, configs, output_dir, results_file, model, device, cl, adapter_handler)
 
 
 def _trainer(args, configs, device, task_key):
-    return VLTaskTrainer(args, configs, {"visual_input_type": args.visual_input_type}, device,
-                         task_key)
+    cls = get_task_trainer_class(configs[task_key]["trainer"])
+    return cls(args, configs, {"visual_input_type": args.visual_input_type}, device, task_key)
 
 
-def _run(args, configs, output_dir, results_file, model, device):
+def _run(args, configs, output_dir, results_file, model, device, cl=None, adapter_handler=None):
+    cl = cl or {"replay_memory": None, "ewc": None, "distill": None}
     task_trainers = {}
     if args.do_train:
         results = []
@@ -223,8 +245,11 @@ def _run(args, configs, output_dir, results_file, model, device):
                 if missing:
                     save_task_checkpoint(output_dir, task_num, task_key, model.state_dict())
             else:
+                if adapter_handler is not None:
+                    logger.info("Activating adapters for task %s", task_name)
+                    model = adapter_handler.activate_adapter_for_training(task_key, model)
                 logger.info("Training on task #%d: %s", task_num + 1, task_name)
-                best_eval_score, model = task_trainer.train(model)
+                best_eval_score, model = task_trainer.train(model, **cl)
                 logger.info("Best %s score = %.2f (epoch %d)", task_name, best_eval_score,
                             task_trainer.best_epoch)
                 save_task_checkpoint(output_dir, task_num, task_key, model.state_dict())
@@ -233,6 +258,7 @@ def _run(args, configs, output_dir, results_file, model, device):
                                 "best_epoch": task_trainer.best_epoch})
                 _dump_json_atomic(results, results_file)
             task_trainers[task_key] = task_trainer
+            _after_task(args, configs, cl, model, task_num, task_key, task_trainer)
 
     eval_results = None
     if args.do_eval:
@@ -245,11 +271,29 @@ def _run(args, configs, output_dir, results_file, model, device):
             if task_key not in task_trainers:
                 task_trainers[task_key] = _trainer(args, configs, device, task_key)
         logger.info("Evaluating catastrophic forgetting...")
-        forgetting = catastrophic_forgetting_eval(args, results_file, model, task_trainers)
+        forgetting = catastrophic_forgetting_eval(args, results_file, model, task_trainers,
+                                                  adapter_handler)
         eval_results = {"upstream_knowledge_transfer": upstream, "forgetting": forgetting}
         _dump_json_atomic(eval_results, os.path.join(output_dir, "eval_results.json"))
         logger.info("Wrote %s", os.path.join(output_dir, "eval_results.json"))
     return eval_results
+
+
+def _after_task(args, configs, cl, model, task_num, task_key, task_trainer):
+    """The CL algorithm's post-task hook (JAX driver :345-361)."""
+    is_last = task_num == len(args.ordered_cl_tasks) - 1
+    if cl["replay_memory"] is not None:
+        cl["replay_memory"].add_task_memory_buffer(
+            args=args, task_key=task_key, task_config=configs[task_key],
+            task_trainer=task_trainer, memory_percentage=args.memory_percentage,
+            sampling_strategy=args.memory_sampling_strategy)
+    elif cl["ewc"] is not None and not is_last:
+        device = next(model.parameters()).device
+        cl["ewc"].save_task_parameters(
+            task_key=task_key, model=model, task_trainer=task_trainer,
+            generator=torch.Generator(device=device).manual_seed(int(args.seed) + task_num))
+    elif cl["distill"] is not None and not is_last:
+        cl["distill"].save_teacher(task_key, model)
 
 
 if __name__ == "__main__":

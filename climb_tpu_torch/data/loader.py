@@ -9,7 +9,7 @@ has ``len(loader)`` steps, as the JAX loader gives the schedule. With
 calling thread; the prefetching, pinned-memory loader is later work.
 """
 
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -55,3 +55,11 @@ class DataLoader:
         for start in range(0, n, self.batch_size):
             examples = [self.dataset[int(i)] for i in idx[start:start + self.batch_size]]
             yield pad_batch(self.collate_fn(examples), self.batch_size)
+
+
+def collate_from_indices(dataset, indices: Sequence[int], collate_fn: Callable,
+                         batch_size: Optional[int] = None) -> dict:
+    """One fixed-shape batch of the examples at ``indices`` (the experience
+    replay buffer's batches, reference experience_replay.py:53-67)."""
+    examples = [dataset[int(i)] for i in indices]
+    return pad_batch(collate_fn(examples), batch_size or len(examples))

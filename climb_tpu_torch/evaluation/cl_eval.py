@@ -3,7 +3,8 @@
 ``src/cl_evaluation/evaluate_cl_algorithm.py``):
 - relative gain = 100 * (cl - single) / (single - random)     (:63-65)
 - forgetting %  = 100 * (baseline - eval) / (baseline - random) (:130)
-with the same results.json layout and per-checkpoint traversal.
+with the same results.json layout and per-checkpoint traversal (adapter runs
+activate the earlier task's adapter before its eval, JAX cl_eval.py:99-100).
 """
 
 import json
@@ -69,7 +70,8 @@ def upstream_knowledge_transfer_eval(args, results_file: str) -> Dict:
     return out
 
 
-def catastrophic_forgetting_eval(args, results_file: str, model, task_trainers: Dict) -> Dict:
+def catastrophic_forgetting_eval(args, results_file: str, model, task_trainers: Dict,
+                                 adapter_handler=None) -> Dict:
     """For each later task's checkpoint, evaluate every earlier task."""
     with open(results_file) as f:
         cl_results = json.load(f)
@@ -84,6 +86,8 @@ def catastrophic_forgetting_eval(args, results_file: str, model, task_trainers: 
                                   "model")
         for prev_task_num in range(task_num):
             prev_task_key = args.ordered_cl_tasks[prev_task_num]
+            if adapter_handler is not None:
+                model = adapter_handler.activate_adapter_for_eval(prev_task_key, model)
             eval_score = task_trainers[prev_task_key].eval_forgetting(model, model_path)
 
             prev_task_results = cl_results[prev_task_num]

@@ -2,7 +2,8 @@
 
 HF ``ViltConfig`` defaults for ``dandelin/vilt-b32-mlm`` plus the fixed image
 canvas, the compute dtype and the kernel switches. Both dropout rates keep the
-JAX defaults of 0.0; pipeline fields and adapter specs are not ported yet.
+JAX defaults of 0.0; pipeline fields are not ported yet. ``AdapterSpec``
+describes the per-task adapters or LoRA deltas of the adapter algorithm.
 """
 
 import dataclasses
@@ -74,6 +75,36 @@ class ViltConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return _TORCH_DTYPES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterSpec:
+    """Static description of per-task bottleneck adapters (cf. ``ADAPTER_MAP``).
+
+    With ``lora=True`` the spec describes per-task low-rank deltas (LoRA) on
+    the named projections instead; the bottleneck placements
+    (``mh_adapter``/``output_adapter``) are unused in that mode.
+    """
+
+    mh_adapter: bool = True
+    output_adapter: bool = True
+    reduction_factor: int = 16
+    non_linearity: str = "swish"
+    is_parallel: bool = False
+    phm: bool = False
+    phm_dim: int = 4
+    lora: bool = False
+    lora_rank: int = 8
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ("q", "v")
+
+    @staticmethod
+    def from_dict(d: dict) -> "AdapterSpec":
+        names = {f.name for f in dataclasses.fields(AdapterSpec)}
+        kw = {k: v for k, v in d.items() if k in names}
+        if "lora_targets" in kw:
+            kw["lora_targets"] = tuple(kw["lora_targets"])
+        return AdapterSpec(**kw)
 
 
 @dataclasses.dataclass(frozen=True)

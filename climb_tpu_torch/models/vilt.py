@@ -8,15 +8,21 @@ reference's sequential passes (``src/modeling/vilt.py:263-350``).
 Parameter names follow the JAX tree: ``vilt.*`` for the encoder and
 ``head_<task>.*`` per task (``-`` becomes ``_``); ``ViltClassifier``, the
 Phase II single-head model, has ``vilt.*`` and ``head.*``.
+
+The continual learner also carries what the CL algorithms set on it: the
+per-task adapters of an ``AdapterSpec`` (``vilt.encoder.{i}.adapter_*``) with
+``active_adapter``, the task whose adapters apply, and ``trainable_mask``,
+parameter name -> 0/1 tensor multiplied into the optimizer's final updates
+(None trains everything).
 """
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from climb_tpu_torch.models.heads import ClassificationHead, MultiChoiceHead
-from climb_tpu_torch.models.model_config import HeadSpec, ViltConfig
+from climb_tpu_torch.models.model_config import AdapterSpec, HeadSpec, ViltConfig
 from climb_tpu_torch.models.vilt_core import ViltCore, init_weights_
 
 
@@ -25,12 +31,16 @@ def head_name(task_key: str) -> str:
 
 
 class ViltContinualLearner(nn.Module):
-    def __init__(self, cfg: ViltConfig, head_specs: Tuple[HeadSpec, ...]):
+    def __init__(self, cfg: ViltConfig, head_specs: Tuple[HeadSpec, ...],
+                 adapter_spec: Optional[AdapterSpec] = None, adapter_tasks: Tuple[str, ...] = ()):
         super().__init__()
         self.cfg = cfg
         self.head_specs = tuple(head_specs)
         self._spec_by_key = {spec.task_key: spec for spec in self.head_specs}
-        self.vilt = ViltCore(cfg)
+        self.adapter_spec = adapter_spec
+        self.adapter_tasks = tuple(adapter_tasks)
+        self.trainable_mask: Optional[Dict[str, "torch.Tensor"]] = None
+        self.vilt = ViltCore(cfg, adapter_spec, self.adapter_tasks)
         d, dtype = cfg.hidden_size, cfg.compute_dtype
         for spec in self.head_specs:
             if spec.model_type == "multi-choice":
@@ -42,28 +52,45 @@ class ViltContinualLearner(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         init_weights_(self, generator, self.cfg.initializer_range)
 
+    @property
+    def active_adapter(self) -> Optional[str]:
+        return self.vilt.active_adapter
+
+    @active_adapter.setter
+    def active_adapter(self, task_key: Optional[str]):
+        self.vilt.active_adapter = task_key
+
     def head(self, task_key: str) -> nn.Module:
         return getattr(self, head_name(task_key))
 
-    def forward(self, task_key: str, batch: dict) -> torch.Tensor:
+    def forward(self, task_key: str, batch: dict, return_features: bool = False):
+        """The task's logits; with ``return_features`` also the head input,
+        flattened per example ((B, K): the pooled output, the two pooled
+        outputs of a pair, or the choices' pooled outputs side by side)."""
         spec = self._spec_by_key[task_key]
         if spec.model_type == "multi-choice":
-            return self.forward_multi_choice(task_key, batch)
+            return self.forward_multi_choice(task_key, batch, return_features)
         if spec.num_images == 2:
-            return self.forward_pair(task_key, batch)
-        return self.forward_single(task_key, batch)
+            return self.forward_pair(task_key, batch, return_features)
+        return self.forward_single(task_key, batch, return_features)
+
+    def forward_with_features(self, task_key: str, batch: dict):
+        """(logits, per-example features): one forward serves the task loss and
+        the distillation penalty (``cl/distill.py``)."""
+        return self.forward(task_key, batch, return_features=True)
 
     # single image + text (VQA, SNLI-VE)
-    def forward_single(self, task_key: str, batch: dict) -> torch.Tensor:
+    def forward_single(self, task_key: str, batch: dict, return_features: bool = False):
         _, pooled, _ = self.vilt(
             batch["input_ids"], batch["text_mask"], batch["pixel_values"], batch["patch_hw"],
             token_type_ids=batch.get("token_type_ids"),
         )
-        return self.head(task_key)(pooled)
+        logits = self.head(task_key)(pooled)
+        return (logits, pooled) if return_features else logits
 
     # image pair + text (NLVR2): sample-major fold s0i0, s0i1, ... with
     # modality-type rows 1 and 2
-    def forward_pair(self, task_key: str, batch: dict) -> torch.Tensor:
+    def forward_pair(self, task_key: str, batch: dict, return_features: bool = False):
         ids, mask = batch["input_ids"], batch["text_mask"]
         pv, phw = batch["pixel_values"], batch["patch_hw"]
         b = ids.shape[0]
@@ -76,10 +103,12 @@ class ViltContinualLearner(nn.Module):
             token_type_ids=None if tt is None else tt.repeat_interleave(2, dim=0),
         )
         # (2B, D) -> (B, 2D): [img0-pooled, img1-pooled] per sample
-        return self.head(task_key)(pooled.reshape(b, 2 * pooled.shape[-1]))
+        pair = pooled.reshape(b, 2 * pooled.shape[-1])
+        logits = self.head(task_key)(pair)
+        return (logits, pair) if return_features else logits
 
     # multiple choice (VCR): the image repeats across the choices
-    def forward_multi_choice(self, task_key: str, batch: dict) -> torch.Tensor:
+    def forward_multi_choice(self, task_key: str, batch: dict, return_features: bool = False):
         ids, mask = batch["input_ids"], batch["text_mask"]
         pv, phw = batch["pixel_values"], batch["patch_hw"]
         b, nc, l = ids.shape
@@ -89,7 +118,10 @@ class ViltContinualLearner(nn.Module):
             pv.repeat_interleave(nc, dim=0), phw.repeat_interleave(nc, dim=0),
             token_type_ids=None if tt is None else tt.reshape(b * nc, l),
         )
-        return self.head(task_key)(pooled, self.vilt.dropout_generator).reshape(b, nc)
+        logits = self.head(task_key)(pooled, self.vilt.dropout_generator).reshape(b, nc)
+        if return_features:
+            return logits, pooled.reshape(b, nc * pooled.shape[-1])
+        return logits
 
 
 class ViltClassifier(nn.Module):

@@ -18,17 +18,27 @@ mask bias stay float32 whatever the compute dtype. ``train()`` turns on the
 hidden dropout (rate 0.0 by default, as in JAX), drawn from
 ``dropout_generator``.
 
-Not ported yet: adapters, LoRA, int8 dense layers, fused QKV, remat and the
+With an ``AdapterSpec`` every block holds one adapter (or LoRA pair) per
+task at JAX's placements (``models/adapters.py``), and ``active_adapter``
+names the task whose adapter is applied. The routing is JAX's
+(``climb_tpu/models/vilt_core.py:183-188, 294``): ``fused_block`` only when
+the spec has neither an attention adapter nor LoRA, and the FFN kernel
+unless LoRA targets fc1 or fc2, when the FFN runs per op with the exact-erf
+GELU.
+
+Not ported yet: int8 dense layers, fused QKV, remat and the
 pipeline-parallel encoder.
 """
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from climb_tpu_torch.models.model_config import ViltConfig
+from climb_tpu_torch.models import adapters
+from climb_tpu_torch.models.model_config import AdapterSpec, ViltConfig
 from climb_tpu_torch.ops import attention, block, mlp
 from climb_tpu_torch.ops.patch_embed import patch_grid_mask, patchify
 
@@ -85,12 +95,26 @@ def dropout(x: torch.Tensor, rate: float, training: bool, generator=None) -> tor
     return x * (keep / (1.0 - rate)).to(x.dtype)
 
 
-class ViltBlock(nn.Module):
-    """One pre-norm block: x -> LN1 -> MHA -> +x -> LN2 -> FFN(GELU) -> +x."""
+def fused_block_ok(cfg: ViltConfig, spec: Optional[AdapterSpec]) -> bool:
+    """JAX's rule for the fused attention sublayer (vilt_core.py:183-188)."""
+    return (cfg.attn_impl == "fused_block" and cfg.hidden_dropout == 0.0
+            and (spec is None or not (spec.mh_adapter or spec.lora)))
 
-    def __init__(self, cfg: ViltConfig):
+
+def mlp_lora(spec: Optional[AdapterSpec]) -> bool:
+    """True when LoRA targets fc1 or fc2, which runs the FFN per op."""
+    return spec is not None and spec.lora and bool({"fc1", "fc2"} & set(spec.lora_targets))
+
+
+class ViltBlock(nn.Module):
+    """One pre-norm block: x -> LN1 -> MHA -> +x -> LN2 -> FFN(GELU) -> +x,
+    with the per-task adapters of ``adapter_spec``, if any."""
+
+    def __init__(self, cfg: ViltConfig, adapter_spec: Optional[AdapterSpec] = None,
+                 adapter_tasks: Tuple[str, ...] = ()):
         super().__init__()
         self.cfg = cfg
+        self.adapter_spec = adapter_spec
         d, f = cfg.hidden_size, cfg.intermediate_size
         self.ln1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.q = nn.Linear(d, d)
@@ -100,12 +124,24 @@ class ViltBlock(nn.Module):
         self.ln2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.fc1 = nn.Linear(d, f)
         self.fc2 = nn.Linear(f, d)
+        adapters.add_task_adapters(
+            self, adapter_spec, adapter_tasks, d,
+            {"q": (d, d), "k": (d, d), "v": (d, d), "attn_out": (d, d), "fc1": (d, f),
+             "fc2": (f, d)})
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor, generator=None,
+                active_adapter: Optional[str] = None) -> torch.Tensor:
         cfg = self.cfg
         dtype = cfg.compute_dtype
+        spec = self.adapter_spec
         b, s, d = x.shape
-        if cfg.attn_impl == "fused_block" and cfg.hidden_dropout == 0.0:
+
+        def lora(target, inp, out):
+            if spec is None or not spec.lora:
+                return out
+            return adapters.apply_task_lora(self, inp, out, target, spec, active_adapter, dtype)
+
+        if fused_block_ok(cfg, spec):
             # the whole sublayer (LN1 -> QKV -> MHA -> out-projection -> +x) as
             # one kernel entry; the parameters keep their names and layout
             x = block.attention_sublayer(
@@ -117,18 +153,35 @@ class ViltBlock(nn.Module):
         else:
             heads = (b, s, cfg.num_heads, cfg.head_dim)
             h = layer_norm(self.ln1, x, dtype)
-            q = dense(self.q, h, dtype).view(heads)
-            k = dense(self.k, h, dtype).view(heads)
-            v = dense(self.v, h, dtype).view(heads)
+            q = lora("q", h, dense(self.q, h, dtype)).view(heads)
+            k = lora("k", h, dense(self.k, h, dtype)).view(heads)
+            v = lora("v", h, dense(self.v, h, dtype)).view(heads)
             ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
-            attn_out = dense(self.attn_out, ctx.reshape(b, s, d), dtype)
-            x = x + dropout(attn_out, cfg.hidden_dropout, self.training, generator)
+            ctx = ctx.reshape(b, s, d)
+            attn_out = lora("attn_out", ctx, dense(self.attn_out, ctx, dtype))
+            attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
+            if spec is not None and spec.mh_adapter:
+                attn_out = adapters.apply_task_adapter(self, attn_out, "attn", active_adapter,
+                                                       dtype)
+            x = x + attn_out
         h = layer_norm(self.ln2, x, dtype)
-        h = mlp.mlp(
-            h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),
-            self.fc2.weight.to(dtype), self.fc2.bias.to(dtype),
-        )
-        return x + dropout(h, cfg.hidden_dropout, self.training, generator)
+        mlp_in = h
+        if mlp_lora(spec):
+            h = lora("fc1", h, dense(self.fc1, h, dtype))
+            h = F.gelu(h, approximate="none")  # HF 'gelu' is the exact erf GELU
+            h = lora("fc2", h, dense(self.fc2, h, dtype))
+        else:
+            h = mlp.mlp(
+                h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),
+                self.fc2.weight.to(dtype), self.fc2.bias.to(dtype),
+            )
+        h = dropout(h, cfg.hidden_dropout, self.training, generator)
+        if spec is not None and spec.output_adapter:
+            adapter_input = mlp_in if spec.is_parallel else h
+            delta_base = adapters.apply_task_adapter(self, adapter_input, "mlp", active_adapter,
+                                                     dtype)
+            h = h + (delta_base - adapter_input) if spec.is_parallel else delta_base
+        return x + h
 
 
 class ViltCore(nn.Module):
@@ -140,7 +193,8 @@ class ViltCore(nn.Module):
     (sequence_output, pooled_output, joint_mask).
     """
 
-    def __init__(self, cfg: ViltConfig):
+    def __init__(self, cfg: ViltConfig, adapter_spec: Optional[AdapterSpec] = None,
+                 adapter_tasks: Tuple[str, ...] = ()):
         super().__init__()
         if cfg.mlp_impl not in mlp.MLP_IMPLS:
             raise NotImplementedError(
@@ -155,10 +209,12 @@ class ViltCore(nn.Module):
         self.visual_position_embeddings = nn.Parameter(torch.zeros(cfg.pos_grid ** 2 + 1, d))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.modality_type_embeddings = nn.Embedding(cfg.modality_type_vocab_size, d)
-        self.encoder = nn.ModuleList(ViltBlock(cfg) for _ in range(cfg.num_layers))
+        self.encoder = nn.ModuleList(ViltBlock(cfg, adapter_spec, tuple(adapter_tasks))
+                                     for _ in range(cfg.num_layers))
         self.final_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.pooler = nn.Linear(d, d)
         self.dropout_generator = None  # a torch.Generator on the model's device
+        self.active_adapter: Optional[str] = None  # the task whose adapters apply
 
     def forward(self, input_ids, text_mask, pixel_values, patch_hw,
                 image_token_type_idx=None, token_type_ids=None):
@@ -204,8 +260,8 @@ class ViltCore(nn.Module):
         x = torch.cat([t, img], dim=1).to(dtype)
         joint_mask = torch.cat([text_mask.to(f32), img_mask], dim=1)
         mask_bias = attention.mask_to_bias(joint_mask, dtype=f32)
-        for block in self.encoder:
-            x = block(x, mask_bias, gen)
+        for layer in self.encoder:
+            x = layer(x, mask_bias, gen, self.active_adapter)
 
         x = layer_norm(self.final_layernorm, x, dtype)
         pooled = torch.tanh(dense(self.pooler, x[:, 0], dtype))
@@ -215,9 +271,13 @@ class ViltCore(nn.Module):
 def init_weights_(module: nn.Module, generator: torch.Generator, initializer_range: float):
     """flax's initializers, drawn from ``generator``: lecun-normal Dense
     kernels, zero biases, N(0, initializer_range) embeddings and text
-    positions, unit LayerNorms, zero visual positions and CLS token."""
+    positions, unit LayerNorms, zero visual positions and CLS token; then the
+    adapters' own initializers (``models/adapters.py``), drawn after the
+    rest so that adding adapters leaves the other weights' draws unchanged."""
     with torch.no_grad():
-        for m in module.modules():
+        for name, m in module.named_modules():
+            if adapters.is_adapter_param(name):
+                continue
             if isinstance(m, nn.Linear):
                 # truncated normal at +-2 std, rescaled to unit variance
                 std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
@@ -233,3 +293,4 @@ def init_weights_(module: nn.Module, generator: torch.Generator, initializer_ran
                                 generator=generator)
                 nn.init.zeros_(m.visual_position_embeddings)
                 nn.init.zeros_(m.cls_token)
+        adapters.reset_adapters_(module, generator)

@@ -60,16 +60,20 @@ def load_pretrained(model: ViltContinualLearner, path: str):
                 len(missing))
 
 
-def create_cl_model(args, task_configs, device: torch.device) -> ViltContinualLearner:
+def create_cl_model(args, task_configs, device: torch.device,
+                    adapter_handler=None) -> ViltContinualLearner:
     """The learner on ``device`` in eval mode (the train step switches it to
-    train mode), initialized from ``args.seed``."""
+    train mode), initialized from ``args.seed``. With ``adapter_handler``
+    (``cl/adapters.py``) every block holds one adapter per task, drawn with
+    the rest of the weights (JAX ``model_factory.py:125-126``)."""
     task_keys = list(args.ordered_cl_tasks)
     cfg = vilt_config_from_args(args, "nlvr2" in task_keys)
     if args.encoder_name != "vilt":
         raise NotImplementedError(
             f"--encoder_name {args.encoder_name}: only 'vilt' is ported (ViLT-BERT "
             "comes with a later slice)")
-    model = ViltContinualLearner(cfg, head_specs_from_task_configs(task_keys, task_configs))
+    model = ViltContinualLearner(cfg, head_specs_from_task_configs(task_keys, task_configs),
+                                 **(adapter_handler.model_kwargs() if adapter_handler else {}))
     generator = torch.Generator().manual_seed(int(getattr(args, "seed", 42)))
     model.reset_parameters(generator)
     pretrained = getattr(args, "pretrained_model_name", "scratch")

@@ -4,7 +4,10 @@ count of updates applied.
 
 The parameters are the model's own ``nn.Parameter``s, updated in place. The
 count is a host integer: the learning-rate schedule reads it without waiting
-for the device.
+for the device. With the optimizer's ``skip_nonfinite = N`` guard
+(``optax.apply_if_finite``), ``apply_gradients`` first checks the gradients
+on the host: a non-finite step changes nothing but the guard's counters,
+unless it is the (N+1)-th in a row.
 """
 
 from typing import Dict
@@ -19,21 +22,32 @@ class TrainState:
         self.params = params
         self.tx = tx
         self.mu, self.nu = tx.init(params)
-        self.step = 0
+        self.step = 0  # updates applied: the optimizer's count
+        self.notfinite_count = 0  # non-finite steps in a row
+        self.total_notfinite = 0
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: AdamW) -> "TrainState":
         return cls(dict(model.named_parameters()), tx)
 
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]):
+    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> bool:
+        """One optimizer update; False when the guard skipped it."""
+        if self.tx.skip_nonfinite:
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            self.total_notfinite += 0 if finite else 1
+            if not finite and self.notfinite_count <= self.tx.skip_nonfinite:
+                return False
         self.tx.step(self.params, grads, self.mu, self.nu, self.step)
         self.step += 1
+        return True
 
     def state_dict(self) -> dict:
         """Host copies of everything, for ``ckpt.checkpoint.save_train_state``."""
         host = lambda d: {n: t.detach().to("cpu", copy=True) for n, t in d.items()}
         return {"params": host(self.params), "mu": host(self.mu), "nu": host(self.nu),
-                "step": self.step}
+                "step": self.step, "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict):
@@ -44,3 +58,5 @@ class TrainState:
             for n, t in own.items():
                 t.copy_(sd[name][n])
         self.step = int(sd["step"])
+        self.notfinite_count = int(sd.get("notfinite_count", 0))
+        self.total_notfinite = int(sd.get("total_notfinite", 0))

@@ -1,5 +1,8 @@
-"""The train step (counterpart of ``climb_tpu/train/train_step.py:61-99,
-231-355``): prepare_batch -> forward -> masked loss -> backward -> AdamW.
+"""The train step (counterpart of ``climb_tpu/train/train_step.py:32-150,
+231-400``): prepare_batch -> forward -> masked loss [+ EWC penalty + feature
+distillation] -> backward -> AdamW; and the two steps the CL algorithms add,
+a loss-and-gradient step for EWC's Fisher (``make_grad_fn``) and the
+experience-replay step with a fresh optimizer (``make_replay_step``).
 
 Loss parity:
 - 'ce'        cross-entropy over classification logits (NLVR2, SNLI-VE)
@@ -11,9 +14,21 @@ Every loss is a mean over the rows where ``valid`` is 1: the zero-padded
 rows of an epoch's last batch carry no gradient.
 
 ``prepare_batch`` and ``batch_metric`` live in ``train/eval_step.py``.
+
+The CL penalties:
+- EWC (``cl/ewc.py``): ``weight * sum F (theta - theta*)^2`` over the
+  encoder's parameters (``vilt.*``) for one previous task's Fisher and anchor.
+- Feature distillation (``cl/distill.py``): ``weight * mean over examples of
+  mean_k (f_student - f_teacher)^2`` over the valid rows, with the features
+  the head reads (``ViltContinualLearner.forward_with_features``); one
+  student forward gives the logits and the features, and the teacher's
+  forward runs without autograd and without dropout.
+With k microbatches each adds its loss sum and its distillation sum divided
+by the whole batch's valid count, and the EWC penalty divided by k, so the
+summed gradients are the whole-batch step's (JAX ``train_step.py:294-320``).
 """
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,18 +69,66 @@ def compute_loss(logits: torch.Tensor, batch: dict, loss_type: str) -> torch.Ten
     return lsum / torch.clamp(count, min=1.0)
 
 
-def _grads(state: TrainState) -> Dict[str, torch.Tensor]:
+class EwcRef(NamedTuple):
+    """One previous task's diagonal Fisher and anchor (encoder parameter name
+    -> tensor, on the parameters' device) and the penalty weight."""
+
+    fisher: Dict[str, torch.Tensor]
+    anchor: Dict[str, torch.Tensor]
+    weight: float
+
+
+class FdRef(NamedTuple):
+    """The distillation teacher: a full state dict of the learner (on the
+    parameters' device) and the penalty weight."""
+
+    teacher: Dict[str, torch.Tensor]
+    weight: float
+
+
+def ewc_penalty(params: Dict[str, torch.Tensor], ewc_ref: EwcRef) -> torch.Tensor:
+    """weight * sum_i F_i (theta_i - theta*_i)^2 over the names in the Fisher."""
+    total = sum((f * (params[n] - ewc_ref.anchor[n]) ** 2).sum()
+                for n, f in ewc_ref.fisher.items())
+    return ewc_ref.weight * total
+
+
+def fd_penalty_sum(feats: torch.Tensor, teacher_feats: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Masked sum over examples of the mean squared feature distance (the
+    caller divides by its valid count, as ``compute_loss_sum``'s callers do)."""
+    per_ex = ((feats.to(torch.float32) - teacher_feats.to(torch.float32)) ** 2).mean(-1)
+    return (per_ex * valid).sum()
+
+
+def teacher_features(model: torch.nn.Module, task_key: str, batch: dict,
+                     teacher: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The teacher's features on ``batch``: the learner with the teacher's
+    weights, in eval mode (no dropout) and without autograd."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return torch.func.functional_call(model, teacher, (task_key, batch),
+                                              {"return_features": True})[1]
+    finally:
+        model.train(was_training)
+
+
+def _grads(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Each parameter's gradient; zeros for one the loss does not reach (the
     other tasks' heads), as JAX differentiates every leaf, so AdamW's weight
     decay moves them as it does there."""
     return {n: p.grad if p.grad is not None else torch.zeros_like(p)
-            for n, p in state.params.items()}
+            for n, p in params.items()}
 
 
 def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: str,
                     compute_dtype=torch.float32, grad_accum_steps=1) -> Callable:
-    """``train_step(state, batch) -> metrics`` (device scalars: loss,
-    metric_sum, metric_count); updates ``state`` and the model in place.
+    """``train_step(state, batch, ewc_ref=None, fd_ref=None) -> metrics``
+    (device scalars: loss, metric_sum, metric_count, and ewc_loss or
+    distill_loss with their references); updates ``state`` and the model in
+    place.
     ``task_key`` names the learner's head; None is a single-head model
     (``ViltClassifier``), called with the batch alone.
 
@@ -84,7 +147,8 @@ def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: 
     if accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
 
-    def train_step(state: TrainState, batch: dict) -> dict:
+    def train_step(state: TrainState, batch: dict, ewc_ref: Optional[EwcRef] = None,
+                   fd_ref: Optional[FdRef] = None) -> dict:
         model.train()
         batch = prepare_batch(batch, compute_dtype)
         for p in state.params.values():
@@ -93,17 +157,82 @@ def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: 
         if n % accum:
             raise ValueError(f"batch of {n} does not split into {accum} microbatches")
         denom = torch.clamp(_valid(batch, n, batch["input_ids"].device).sum(), min=1.0)
-        loss, logits = 0.0, []
+        loss, fd, logits = 0.0, 0.0, []
         for i in range(accum):
             mb = {k: v[i * n // accum:(i + 1) * n // accum] for k, v in batch.items()}
-            out = model(*model_inputs(task_key, mb))
+            if fd_ref is None:
+                out = model(*model_inputs(task_key, mb))
+            else:
+                out, feats = model(task_key, mb, return_features=True)
+                t_feats = teacher_features(model, task_key, mb, fd_ref.teacher)
+                fd_scaled = fd_ref.weight * fd_penalty_sum(
+                    feats, t_feats, _valid(mb, out.shape[0], out.device)) / denom
             lsum, _ = compute_loss_sum(out, mb, loss_type)
-            micro_loss = lsum / denom
+            data_loss = lsum / denom
+            micro_loss = data_loss
+            if fd_ref is not None:
+                micro_loss = micro_loss + fd_scaled
+                fd = fd + fd_scaled.detach()
+            if ewc_ref is not None:
+                micro_loss = micro_loss + ewc_penalty(state.params, ewc_ref) / accum
             micro_loss.backward()
-            loss = loss + micro_loss.detach()
+            loss = loss + data_loss.detach()
             logits.append(out.detach())
-        state.apply_gradients(_grads(state))
+        state.apply_gradients(_grads(state.params))
         metric_sum, metric_count = batch_metric(torch.cat(logits), batch, loss_type)
-        return {"loss": loss, "metric_sum": metric_sum, "metric_count": metric_count}
+        metrics = {"loss": loss, "metric_sum": metric_sum, "metric_count": metric_count}
+        if ewc_ref is not None:
+            # logged apart, after the update, as the JAX step does
+            with torch.no_grad():
+                metrics["ewc_loss"] = ewc_penalty(state.params, ewc_ref)
+        if fd_ref is not None:
+            metrics["distill_loss"] = fd
+        return metrics
 
     return train_step
+
+
+def make_grad_fn(model: torch.nn.Module, task_key: Optional[str], loss_type: str,
+                 compute_dtype=torch.float32) -> Callable:
+    """``grad_step(batch) -> (loss, grads)``: the batch-mean loss and every
+    parameter's gradient, no update (EWC's Fisher; reference ewc.py:59-71
+    runs the train step without an optimizer)."""
+
+    def grad_step(batch: dict):
+        model.train()
+        batch = prepare_batch(batch, compute_dtype)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss = compute_loss(model(*model_inputs(task_key, batch)), batch, loss_type)
+        loss.backward()
+        grads = _grads(params)
+        for p in params.values():
+            p.grad = None
+        return loss.detach(), grads
+
+    return grad_step
+
+
+def make_replay_step(model: torch.nn.Module, task_key: Optional[str], loss_type: str,
+                     make_tx: Callable, compute_dtype=torch.float32) -> Callable:
+    """``replay_step(batch) -> loss``: one experience-replay step with a
+    *fresh* optimizer state (zero moments, count 0) on every call, as the
+    reference builds a new AdamW per replay step (experience_replay.py:61).
+    ``make_tx()`` gives the optimizer: constant task lr, no warmup, the
+    model's trainability mask."""
+
+    def replay_step(batch: dict):
+        model.train()
+        batch = prepare_batch(batch, compute_dtype)
+        state = TrainState.create(model, make_tx())
+        for p in state.params.values():
+            p.grad = None
+        loss = compute_loss(model(*model_inputs(task_key, batch)), batch, loss_type)
+        loss.backward()
+        state.apply_gradients(_grads(state.params))
+        for p in state.params.values():
+            p.grad = None
+        return loss.detach()
+
+    return replay_step

@@ -1,33 +1,44 @@
 """The vision-language task trainer (counterpart of
-``climb_tpu/train/trainers.py:49-596``) for SNLI-VE and NLVR2.
+``climb_tpu/train/trainers.py:49-596``) for VQA, NLVR2, SNLI-VE and VCR.
 
 Skeleton parity (e.g. reference train_snli_ve.py:159-228): AdamW with the
-poly-warmup schedule over ``len(train loader) * num_epochs`` steps, the epoch
-loop of train steps with the loss logged every ``log_freq`` steps, an eval
-every epoch, the best parameters kept (copied off the card), and the elastic
-per-epoch train state in the task's checkpoint directory, from which a killed
-run resumes at the epoch boundary with the same trajectory (the loader's
-order is a function of (seed, epoch), and the dropout generator's state is
-saved with it).
+poly-warmup schedule over ``len(train loader) * num_epochs`` steps (with the
+model's trainability mask, ``--skip_nonfinite_updates`` and
+``--adam_moments_dtype``), the epoch loop of train steps with the loss logged
+every ``log_freq`` steps, an eval every epoch, the best parameters kept
+(copied off the card), and the elastic per-epoch train state in the task's
+checkpoint directory, from which a killed run resumes at the epoch boundary
+with the same trajectory (the loader's order is a function of (seed, epoch);
+the dropout generator's state and Python's ``random`` state, which experience
+replay and EWC draw from, are saved with it).
 
-VQA and VCR training wait for their slice (the VQA label space, VCR's
-trainer), as do the CL-algorithm hooks (replay, EWC, distillation), the
-low-shot variants, real datasets and mid-epoch SIGTERM checkpoints.
+The CL hooks, in the JAX trainer's order (trainers.py:388-392, 457-461,
+483-488): the distillation teacher's reference once per task, an EWC
+reference drawn before each step, and a replay step after every
+``replay_frequency``-th step. VQA's loss is the soft-target BCE over the
+task config's ``num_labels`` (``--synthetic_vqa_labels`` overrides it); VCR's
+batch is the global batch divided by its four choices.
+
+Not ported yet: the low-shot variants (``LowShotVLTaskTrainer``), real
+datasets and mid-epoch SIGTERM checkpoints.
 """
 
 import logging
 import os
+import pickle
+import random as py_random
 import time
 
+import numpy as np
 import torch
 
 from climb_tpu_torch.ckpt.checkpoint import (
+    load_model_file,
     load_state_dict,
     load_train_state,
     save_state_dict,
     save_train_state,
 )
-from climb_tpu_torch.ckpt.convert import load_reference_checkpoint
 from climb_tpu_torch.data.collation import stack_collate
 from climb_tpu_torch.data.loader import DataLoader
 from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
@@ -38,7 +49,6 @@ from climb_tpu_torch.train.train_step import make_train_step
 
 logger = logging.getLogger(__name__)
 
-TRAINED_TASKS = ("snli-ve", "nlvr2")
 LOG_FREQ = 100  # the JAX trainer's log_freq without wandb
 
 
@@ -60,14 +70,15 @@ def _host_copy(model: torch.nn.Module) -> dict:
 
 class VLTaskTrainer:
     """``__init__(args, task_configs, model_config, device, task_key)``,
-    ``train(model)``, ``eval(model)``, ``eval_forgetting(model, path)``."""
+    ``train(model, replay_memory, ewc, distill)``, ``eval(model)``,
+    ``eval_forgetting(model, path)``, ``get_train_dataloader()``,
+    ``get_collate_fn()`` (the reference's ``TaskTrainer`` protocol,
+    task_trainer.py:5-14)."""
 
-    def __init__(self, args, task_configs, model_config, device, task_key: str):
-        if task_key not in TRAINED_TASKS:
-            raise NotImplementedError(
-                f"training task {task_key!r} is not ported to climb_tpu_torch yet (the VQA/VCR "
-                f"training slice: the VQA label space, VCR's trainer); ported: "
-                f"{', '.join(TRAINED_TASKS)}")
+    task_key: str = None  # set by the registry's variants
+
+    def __init__(self, args, task_configs, model_config, device, task_key: str = None):
+        task_key = task_key or self.task_key
         if not getattr(args, "synthetic", False):
             raise NotImplementedError("real datasets are not ported to climb_tpu_torch yet (the "
                                       "real-data slice); pass --synthetic")
@@ -111,19 +122,25 @@ class VLTaskTrainer:
     def get_collate_fn(self):
         return stack_collate
 
+    def put(self, batch: dict) -> dict:
+        return to_device(batch, self.device)
+
     # -- training ------------------------------------------------------------
     def make_tx(self, model: torch.nn.Module):
         return make_optimizer(
             [n for n, _ in model.named_parameters()], lr=self.lr, total_steps=self.max_steps,
             warmup_ratio=self.warmup_ratio, weight_decay=self.weight_decay,
-            adam_epsilon=self.adam_epsilon)
+            adam_epsilon=self.adam_epsilon, trainable_mask=model.trainable_mask,
+            skip_nonfinite=int(getattr(self.args, "skip_nonfinite_updates", 0) or 0),
+            moments_dtype=getattr(self.args, "adam_moments_dtype", None))
 
-    def train(self, model: torch.nn.Module):
+    def train(self, model: torch.nn.Module, replay_memory=None, ewc=None, distill=None):
         """Train on this task; returns (best_score, model holding the best parameters)."""
         args = self.args
         state = TrainState.create(model, self.make_tx(model))
         train_step = make_train_step(model, self.task_key, self.loss_type,
                                      model.cfg.compute_dtype, args.grad_accum_steps)
+        replay_freq = int(getattr(args, "replay_frequency", 100))
         generator = torch.Generator(device=self.device).manual_seed(int(args.seed))
         model.vilt.dropout_generator = generator
 
@@ -135,6 +152,7 @@ class VLTaskTrainer:
         self.best_epoch = -1
         if state_path and save_every and os.path.exists(state_path):
             initial = _host_copy(model)
+            py_rng_before = py_random.getstate()
             try:
                 meta = load_train_state(state, state_path)
                 start_epoch = int(meta["epoch"]) + 1
@@ -142,6 +160,8 @@ class VLTaskTrainer:
                 best_score = float(meta["best_score"])
                 self.best_epoch = int(meta["best_epoch"])
                 generator.set_state(meta["generator"])
+                if "py_random" in meta:
+                    py_random.setstate(pickle.loads(meta["py_random"].numpy().tobytes()))
                 if self.best_epoch > 0 and os.path.exists(best_path):
                     best_params = load_state_dict(best_path)
                 logger.info("task=%s: resuming from epoch %d (step %d, best %.2f @ epoch %d)",
@@ -155,19 +175,28 @@ class VLTaskTrainer:
                 model.load_state_dict(initial)
                 state = TrainState.create(model, self.make_tx(model))
                 generator.manual_seed(int(args.seed))
+                py_random.setstate(py_rng_before)
                 start_epoch, global_step, best_score, best_params = 1, 0, -1.0, None
                 self.best_epoch = -1
 
+        fd_ref = distill.ref() if distill is not None and distill.has_teacher() else None
         for epoch in range(start_epoch, self.num_epochs + 1):
             self.train_dataloader.set_epoch(epoch)
             t0, seen = time.time(), 0
             for batch in self.train_dataloader:
-                metrics = train_step(state, to_device(batch, self.device))
+                batch = self.put(batch)
+                ewc_ref = ewc.sample_ref() if ewc is not None and ewc.has_tasks() else None
+                metrics = train_step(state, batch, ewc_ref, fd_ref)
                 global_step += 1
                 seen += self.batch_size
+                if replay_memory is not None and replay_memory.do_replay() \
+                        and global_step % replay_freq == 0:
+                    replay_memory.run_replay_step(model)
                 if global_step % LOG_FREQ == 0:
-                    logger.info("task=%s step %d: loss=%.4f (%.1f ex/s)", self.task_key,
-                                global_step, float(metrics["loss"]),
+                    extra = "".join(f" {k}={float(metrics[k]):.4f}"
+                                    for k in ("ewc_loss", "distill_loss") if k in metrics)
+                    logger.info("task=%s step %d: loss=%.4f%s (%.1f ex/s)", self.task_key,
+                                global_step, float(metrics["loss"]), extra,
                                 seen / max(time.time() - t0, 1e-9))
             dt = time.time() - t0
             score = self.eval(model)
@@ -182,6 +211,8 @@ class VLTaskTrainer:
                 save_train_state(state, {
                     "epoch": epoch, "global_step": global_step, "best_score": best_score,
                     "best_epoch": self.best_epoch, "generator": generator.get_state(),
+                    "py_random": torch.from_numpy(np.frombuffer(
+                        pickle.dumps(py_random.getstate()), dtype=np.uint8).copy()),
                 }, state_path)
 
         if best_params is None:  # no epoch ran: keep the final parameters
@@ -210,7 +241,24 @@ class VLTaskTrainer:
         eval_forgetting, e.g. train_snli_ve.py:268-282); the model keeps its
         own parameters."""
         own = model.state_dict()
-        ckpt = load_reference_checkpoint(model_path)
+        ckpt = load_model_file(model_path)
         params = {k: (ckpt[k].to(v.device) if k in ckpt and ckpt[k].shape == v.shape else v)
                   for k, v in own.items()}
         return self.eval(model, params)
+
+
+def _variant(key: str):
+    return type(f"{key.replace('-', '_').upper()}Trainer", (VLTaskTrainer,), {"task_key": key})
+
+
+TRAINER_REGISTRY = {key: _variant(key) for key in ("vqa", "nlvr2", "snli-ve", "vcr")}
+
+
+def get_task_trainer_class(name: str):
+    """The trainer of a task config's ``trainer`` name. The low-shot trainers
+    of Phase II are not ported yet."""
+    if name not in TRAINER_REGISTRY:
+        raise NotImplementedError(
+            f"trainer {name!r} is not ported to climb_tpu_torch yet (the low-shot trainers "
+            "come with the Phase II low-shot driver)")
+    return TRAINER_REGISTRY[name]

@@ -77,7 +77,7 @@ def test_predict_matches_jax_cli(task, checkpoint, tmp_path):
     ["--from_export", "model.bin"],
     ["--dense_impl", "int8"],
     ["--attn_impl", "xla_ckpt"],
-    ["--cl_algorithm", "adapter"],
+    ["--remat"],  # --cl_algorithm adapter is ported (tests/test_torch_cl_drivers_adapter.py)
     ["--use_mesh"],
     ["--aspect_buckets", "384,512"],
     ["--pretrained_model_name", "dandelin/vilt-b32-mlm"],

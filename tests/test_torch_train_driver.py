@@ -9,6 +9,8 @@ the JAX tree into the port's model), and its results.json must then agree
 with the JAX driver's. Also: climb_tpu's ``load_params`` reads the port's
 task checkpoint and scores the same; a rerun skips finished tasks; a run cut
 after an epoch resumes to the same final parameters; unported paths raise.
+The CL algorithms and VQA/VCR training have their own files,
+``tests/test_torch_cl_*.py``.
 """
 
 import json
@@ -62,8 +64,8 @@ def _start_from_jax(monkeypatch):
         made[tuple(args.ordered_cl_tasks)] = jax.tree_util.tree_map(np.asarray, model.params)
         return model
 
-    def port_from_jax(args, configs, device):
-        model = port_create(args, configs, device)
+    def port_from_jax(args, configs, device, **kw):
+        model = port_create(args, configs, device, **kw)
         partial_load(model, state_dict_from_jax(made[tuple(args.ordered_cl_tasks)]))
         return model
 
@@ -130,7 +132,7 @@ def test_jax_loads_port_checkpoint_with_the_same_score(runs):
 
 
 def test_rerun_skips_finished_tasks(runs, monkeypatch):
-    def no_training(self, model):
+    def no_training(self, model, **cl):
         raise AssertionError("a finished task was trained again")
 
     monkeypatch.setattr(trainers.VLTaskTrainer, "train", no_training)
@@ -176,14 +178,13 @@ def test_device_cuda_without_card_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cl_algorithm", "ewc", "--ewc_fisher_sample_percentage", "0.1",
-     "--ewc_loss_weight", "1.0", "--ordered_cl_tasks", "snli-ve,nlvr2"],
-    ["--ordered_cl_tasks", "vcr"],
+    ["--fuse_qkv"],  # ewc, vcr and --adam_moments_dtype are ported: these three still raise
+    ["--aspect_buckets", "384,512"],
     ["--grad_accum_steps", "auto"],
     ["--remat"],
     ["--do_wandb_logging"],
     ["--sharded_checkpoints"],
-    ["--adam_moments_dtype", "bfloat16"],
+    ["--fsdp"],
 ])
 def test_unported_paths_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):

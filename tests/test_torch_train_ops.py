@@ -188,7 +188,9 @@ def test_adamw_three_updates_match_optax(tiny_tree):
                                    err_msg=n)
 
 
-@pytest.mark.parametrize("flag", ["trainable_mask", "skip_nonfinite", "moments_dtype"])
-def test_unported_optimizer_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="CL-algorithm slice"):
-        optimizer.make_optimizer(["a.weight"], lr=1e-4, total_steps=10, **{flag: 1})
+# the three options are ported; a value the optimizer cannot honour still raises
+@pytest.mark.parametrize("flag,value", [("trainable_mask", {"b.weight": torch.tensor(1.0)}),
+                                        ("skip_nonfinite", -1), ("moments_dtype", "float16")])
+def test_unported_optimizer_options_raise(flag, value):
+    with pytest.raises(ValueError):
+        optimizer.make_optimizer(["a.weight"], lr=1e-4, total_steps=10, **{flag: value})
