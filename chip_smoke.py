@@ -30,7 +30,8 @@ Phases, each printing one JSON line as soon as it ends:
               carries previous_ms, the kernel's time before its last
               redesign at its shape.
   4. predict: ``climb_tpu_torch.cli.predict.main`` at full ViLT-B/32 width on
-              a synthetic snli-ve split, with the launch counts of that run;
+              a synthetic snli-ve split through the prefetching loader, with
+              the launch counts, step times and host split of that run;
               then the logits of one batch, kernel path against plain path
               (held to a tolerance in f32), and a profile of one bf16 step.
      predict_fused: the same with ``--attn_impl fused_block``.
@@ -63,7 +64,31 @@ Phases, each printing one JSON line as soon as it ends:
               epochs: the exact launch counts, the sequence length the
               attention kernel saw, the results JSON, step time and
               examples/sec, and a profile of one train step.
-  8. the kernels line (every TPU kernel of climb_tpu with its port), then the
+  8. data_root: a CLiMB data root fabricated from a seed in a temporary
+              directory: snli-ve and nlvr2 in the reference on-disk layout,
+              Flickr30k JPEGs (500x375, 375x500) and NLVR2 PNG pairs of mixed
+              web sizes, sentences of 8-40 tokens from a word list, and the
+              script's own vocab.txt.
+     loader:  the port's DataLoader over both train splits at 1, 2, 4 and 8
+              thread workers and 4 forked processes: examples/s, ms per
+              batch, the route of each step (native or PIL decode and resize,
+              native or Python WordPiece) and the host's CPUs. Fails if a
+              native library whose toolchain is present did not build.
+     real_data: the Phase I driver on that root without --synthetic
+              (sequential_ft snli-ve -> nlvr2, --vocab_path, the default two
+              loader workers): exact launch counts (the normalize kernel once
+              a batch), results, step ms by events and on the host, ex/s, the
+              host split of each step (ms waiting on the loader, copying to
+              the card, dispatching the step) and a checksum of the first
+              three batches the step received against the loader's host
+              batches; then snli-ve with --visual_input_type raw (no
+              normalize launch) and one batch's f32 pixels of both paths,
+              bit for bit.
+     predict_real: predict.main on the root's snli-ve dev split from that
+              checkpoint: launch counts, the predictions' count and example
+              order, ex/s beside phase predict's.
+     Phases train and predict report the same host split.
+  9. the kernels line (every TPU kernel of climb_tpu with its port), then the
      card line, then the result line.
 
 Exits non-zero, before printing any result, without a card or when any phase
@@ -105,6 +130,34 @@ FUSED_TAIL_WIDTH = (192, 3)
 # 1040 with a 128x128 image, S = 1040 + 1 + 16
 LONG_BATCH, LONG_TEXT, LONG_SEQ = 16, 1040, 1057
 LANGUAGE_TRAIN_SIZE, LANGUAGE_EPOCHS = 64, 2  # 4 steps an epoch
+
+# phases loader, real_data and predict_real: a CLiMB data root fabricated from
+# REAL_SEED with TRAIN_SIZE train and TRAIN_SIZE // 4 dev examples a task
+REAL_SEED = 0
+FLICKR_IMAGES = 96  # snli-ve's 320 hypotheses share 96 Flickr30k photos
+FLICKR_SIZES = ((500, 375), (375, 500))  # (w, h): Flickr30k's usual landscape, portrait
+# (w, h) of NLVR2's web images, one pair an example
+NLVR2_SIZES = ((640, 480), (500, 333), (800, 600), (400, 400), (1024, 683), (300, 450),
+               (700, 525), (480, 640))
+LOADER_WORKERS = (("thread", 1), ("thread", 2), ("thread", 4), ("thread", 8), ("process", 4))
+# the predict phases run far more batches than the loader holds ahead
+# (readahead_batches), and read the rate once what it held is spent
+PREDICT_EXAMPLES = 4096  # phase predict's synthetic eval split: 64 batches of 64
+PREDICT_REAL_BATCH = 16
+PREDICT_REAL_EXAMPLES = 1024  # phase predict_real's snli-ve split: 64 batches of 16
+CHECKSUM_BATCHES = 3  # the first train batches held bit for bit against the loader's
+WORDS = tuple("""
+a an the man woman person people child children boy girl dog dogs cat cats horse bird
+group crowd player team worker street road park beach water snow grass field building
+city car bike bus train table chair ball hat shirt jacket dress shoes bag camera phone
+book food plate cup glass window door wall tree trees flowers sky sun light picture
+image left right two three four several many some one other small large big little
+young old red blue green yellow black white brown orange pink gray is are was be being
+sitting standing walking running playing holding wearing looking riding eating talking
+smiling jumping watching waiting working reading swimming climbing throwing catching
+on in at of with near behind under over next to by from into through while and or but
+not there here it its his her their they he she this that these those both each every
+""".split())
 
 # (atol, rtol, reason) per kernel and dtype, set before the first run
 TOLERANCES = {
@@ -580,7 +633,8 @@ def check_attention_long(torch, results):
 def predict_argv(out_dir, dtype, attn_impl="pallas"):
     return [
         "--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve", "--task_key", "snli-ve",
-        "--synthetic", "--synthetic_train_size", "1024", "--batch_size", str(BATCH),
+        "--synthetic", "--synthetic_train_size", str(4 * PREDICT_EXAMPLES),
+        "--batch_size", str(BATCH),
         "--compute_dtype", dtype, "--attn_impl", attn_impl, "--mlp_impl", "pallas",
         "--seed", "0", "--output_dir", out_dir,
         "--output_file", os.path.join(out_dir, f"predictions_{dtype}.json"),
@@ -602,7 +656,9 @@ def run_predict(torch, attn_impl="pallas"):
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
 
     fused = attn_impl == "fused_block"
-    with tempfile.TemporaryDirectory() as out_dir:
+    steps, feeds = [], []
+    with tempfile.TemporaryDirectory() as out_dir, timed_eval_steps(torch, predict, steps), \
+            recorded_feed(torch, predict, feeds, train_only=False):
         argv = predict_argv(out_dir, "bfloat16", attn_impl)
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -611,12 +667,12 @@ def run_predict(torch, attn_impl="pallas"):
         launches = dict(LAUNCHES)
         with open(os.path.join(out_dir, "predictions_bfloat16.json")) as f:
             saved = json.load(f)
-    n_batches = math.ceil(256 / BATCH)
+    n_batches = math.ceil(PREDICT_EXAMPLES / BATCH)
     expected = expected_launches(fused, n_batches, 0, n_batches)
     if launches != expected:
         raise AssertionError(f"launches {launches} != expected {expected}")
     preds = out["predictions"]
-    if not (out["n_examples"] == len(preds) == 256 and saved == out
+    if not (out["n_examples"] == len(preds) == PREDICT_EXAMPLES and saved == out
             and set(preds) <= {0, 1, 2} and 0.0 <= out["metric"] <= 100.0
             and math.isfinite(out["examples_per_sec"])):
         summary = {k: v for k, v in out.items() if k != "predictions"}
@@ -627,8 +683,41 @@ def run_predict(torch, attn_impl="pallas"):
           "n_examples": out["n_examples"], "n_batches": n_batches, "metric": out["metric"],
           "examples_per_sec": out["examples_per_sec"], "seconds": seconds,
           "launches": launches, "launches_per_batch": {k: v / n_batches for k, v in
-                                                       launches.items()}})
-    return launches
+                                                       launches.items()},
+          **eval_step_times(steps, feeds, BATCH)})
+    return launches, out
+
+
+def readahead_batches(num_workers=2, prefetch=2, size=2):
+    """The most batches a DataLoader and ``device_prefetch`` (at their
+    defaults and the drivers' --num_workers 2) hold ready ahead of the step:
+    num_workers + prefetch in flight, prefetch queued, one waiting at the
+    queue and size copied ahead."""
+    return num_workers + 2 * prefetch + 1 + size
+
+
+def eval_step_times(steps, feeds, batch):
+    """An eval loop's step ms by CUDA events and on the host (start to next
+    start), medians over the batches after the first, and its host split.
+    ``steady`` reads the host rate and the loader wait over the batches after
+    twice the readahead, once what the loader held ahead is spent, so that it
+    counts the loader's work."""
+    skip = 2 * readahead_batches()
+    if len(steps) < skip + 16:
+        raise AssertionError(f"{len(steps)} timed eval steps: too few for a steady-state "
+                             f"reading after {skip} batches")
+    event_ms = [s[2].elapsed_time(s[3]) for s in steps][1:]
+    host_ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:])][1:]
+    window = steps[skip:]
+    return {"step_ms_events_median": median(event_ms), "step_ms_events": event_ms,
+            "step_ms_host_median": median(host_ms), "step_ms_host": host_ms,
+            "steady": {"after_batches": skip, "n_batches": len(window) - 1,
+                       "readahead_batches": readahead_batches(),
+                       "examples_per_sec": batch * (len(window) - 1)
+                       / (window[-1][1] - window[0][1]),
+                       "loader_wait_ms_median": median(
+                           [f["loader_wait_ms"] for f in feeds[skip:-1]])},
+            "host_split": host_split(steps, feeds)["all"]}
 
 
 def profile_step(torch, step, batch, what, top=12):
@@ -677,6 +766,7 @@ def compare_paths(torch, attn_impl="pallas"):
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from climb_tpu_torch.train import eval_step as eval_step_mod
     from climb_tpu_torch.train.model_factory import create_cl_model
+    from climb_tpu_torch.train.trainers import to_device
 
     dev = torch.device("cuda")
     row = {"phase": "paths", "attn_impl": attn_impl}
@@ -685,7 +775,7 @@ def compare_paths(torch, attn_impl="pallas"):
         args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
         model = create_cl_model(args, task_configs, dev)
         step = eval_step_mod.make_eval_step(model, "snli-ve", "ce", model.cfg.compute_dtype)
-        batch = predict.to_device(next(iter(predict.build_eval_loader(args))), dev)
+        batch = to_device(next(iter(predict.build_eval_loader(args))), dev)
         reset_launch_counts()
         kernel_logits = step(batch)[0].float()
         kernel_ms = time_ms(torch, lambda: step(batch), iters=5, warmup=1)
@@ -730,18 +820,21 @@ def train_argv(out_dir, fused=False):
 
 
 @contextlib.contextmanager
-def timed_train_steps(torch, module, steps, profile_at=None, profile_what=""):
+def timed_train_steps(torch, module, steps, profile_at=None, profile_what="", on_batch=None):
     """Replace ``module.make_train_step`` by one whose steps append (task,
-    host start, start event, end event) to ``steps``. Nothing here waits for
-    the card, so the loader's next batch overlaps the step as it does untimed.
-    The step of index ``profile_at`` runs under torch.profiler instead and
-    appends None."""
+    host start, start event, end event, host ms in the step call) to
+    ``steps``. Nothing here waits for the card, so the loader's next batch
+    overlaps the step as it does untimed. The step of index ``profile_at``
+    runs under torch.profiler instead and appends None. ``on_batch(i,
+    batch)`` sees step i's batch on the compute stream just before it."""
     make = module.make_train_step
 
     def timed_make(model, task_key, *a, **kw):
         step = make(model, task_key, *a, **kw)
 
         def timed(state, batch, *refs):
+            if on_batch is not None:
+                on_batch(len(steps), batch)
             if len(steps) == profile_at:
                 out = []
                 profile_step(torch, lambda b: out.append(step(state, b, *refs)), batch,
@@ -753,13 +846,85 @@ def timed_train_steps(torch, module, steps, profile_at=None, profile_what=""):
             start.record()
             out = step(state, batch, *refs)
             end.record()
-            steps.append((task_key, t, start, end))
+            steps.append((task_key, t, start, end, 1e3 * (time.perf_counter() - t)))
             return out
 
         return timed
 
     with mock.patch.object(module, "make_train_step", timed_make):
         yield
+
+
+@contextlib.contextmanager
+def timed_eval_steps(torch, module, steps):
+    """Replace ``module.make_eval_step`` by one whose steps append (None, host
+    start, start event, end event, host ms in the step call) to ``steps``."""
+    make = module.make_eval_step
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            out = step(batch)
+            end.record()
+            steps.append((None, t, start, end, 1e3 * (time.perf_counter() - t)))
+            return out
+
+        return timed
+
+    with mock.patch.object(module, "make_eval_step", timed_make):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_feed(torch, module, feeds, train_only=True, host_batches=None):
+    """Pass a ``timings`` list (``feeds``) to ``module.device_prefetch``: per
+    batch handed to a step, the ms it waited on the loader and the ms it spent
+    pinning and enqueueing copies. With ``train_only`` only the shuffled
+    (train) loaders' batches count. The first CHECKSUM_BATCHES host batches
+    are copied into ``host_batches`` as the loader gives them."""
+    import numpy as np
+
+    real = module.device_prefetch
+
+    def keep(batch_iter):
+        for batch in batch_iter:
+            if host_batches is not None and len(host_batches) < CHECKSUM_BATCHES:
+                host_batches.append({k: (v.numpy() if isinstance(v, torch.Tensor)
+                                         else np.asarray(v)).copy() for k, v in batch.items()})
+            yield batch
+
+    def recording(batch_iter, device, size=2, timings=None):
+        if train_only and not getattr(batch_iter, "shuffle", False):
+            return real(batch_iter, device, size, timings)
+        return real(keep(batch_iter), device, size, feeds)
+
+    with mock.patch.object(module, "device_prefetch", recording):
+        yield
+
+
+def host_split(steps, feeds):
+    """Medians over the steps after the first (each task's first where steps
+    name tasks): ms the step's batch waited on the loader, ms in the copy to
+    the card (pinning, enqueueing, the stream hand-over) and ms dispatching
+    the step (its host time)."""
+    if len(feeds) != len(steps):
+        raise AssertionError(f"{len(feeds)} fed batches for {len(steps)} timed steps")
+    out = {}
+    for task in dict.fromkeys(s[0] for s in steps if s is not None):
+        idx = [i for i, s in enumerate(steps) if s is not None and s[0] == task][1:]
+        if not idx:
+            continue
+        out[task or "all"] = {
+            "loader_wait_ms_median": median([feeds[i]["loader_wait_ms"] for i in idx]),
+            "copy_ms_median": median([feeds[i]["copy_ms"] for i in idx]),
+            "dispatch_ms_median": median([steps[i][4] for i in idx]),
+            "loader_wait_ms": [feeds[i]["loader_wait_ms"] for i in idx],
+        }
+    return out
 
 
 def median(xs):
@@ -772,10 +937,11 @@ def run_train(torch, fused=False):
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from climb_tpu_torch.train import trainers
 
-    steps = []
+    steps, feeds = [], []
     size = FUSED_TRAIN_SIZE if fused else TRAIN_SIZE
     tasks = ["snli-ve"] if fused else ["snli-ve", "nlvr2"]
-    with tempfile.TemporaryDirectory() as out_dir, timed_train_steps(torch, trainers, steps):
+    with tempfile.TemporaryDirectory() as out_dir, timed_train_steps(torch, trainers, steps), \
+            recorded_feed(torch, trainers, feeds):
         reset_launch_counts()
         t0 = time.perf_counter()
         driver.main(train_argv(out_dir, fused))
@@ -811,11 +977,6 @@ def run_train(torch, fused=False):
     if [r["task_key"] for r in results] != tasks or not all(
             math.isfinite(x) and 0.0 <= x <= 100.0 for x in scores):
         raise AssertionError(f"bad results {results} / {eval_results}")
-    # steady state: every step but each task's first (kernel build, warm-up)
-    event_ms = {task: [s[2].elapsed_time(s[3]) for s in steps if s[0] == task][1:]
-                for task in n_steps}
-    host_ms = {task: [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:])
-                      if a[0] == b[0] == task][1:] for task in n_steps}
     row = {"phase": "train_fused" if fused else "train",
            "attn_impl": "fused_block" if fused else "pallas",
            "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, "
@@ -824,17 +985,27 @@ def run_train(torch, fused=False):
            + ", one epoch each, bf16 compute, f32 master weights and AdamW moments",
            "seconds": seconds, "launches": launches, "n_train_steps": n_steps,
            "n_eval_batches": n_eval, "results": results,
-           "forgetting_snli_ve_after_nlvr2": forgetting}
-    for task in n_steps:
-        examples = TRAIN_BATCH // (2 if task == "nlvr2" else 1)
-        row[task] = {"examples_per_step": examples,
-                     "step_ms_events_median": median(event_ms[task]),
-                     "step_ms_events": event_ms[task],
-                     "step_ms_host_median": median(host_ms[task]),
-                     "step_ms_host": host_ms[task],
-                     "train_examples_per_sec": 1e3 * examples / median(host_ms[task])}
+           "forgetting_snli_ve_after_nlvr2": forgetting,
+           "host_split": host_split(steps, feeds), **train_step_times(steps, n_steps)}
     emit(row)
     return launches
+
+
+def train_step_times(steps, n_steps):
+    """Per task: examples a step, step ms by CUDA events and on the host (one
+    step's start to the next's) and train ex/s, over the steady state (every
+    step but each task's first: kernel build, warm-up)."""
+    out = {}
+    for task in n_steps:
+        event_ms = [s[2].elapsed_time(s[3]) for s in steps if s[0] == task][1:]
+        host_ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps, steps[1:])
+                   if a[0] == b[0] == task][1:]
+        examples = TRAIN_BATCH // (2 if task == "nlvr2" else 1)
+        out[task] = {"examples_per_step": examples,
+                     "step_ms_events_median": median(event_ms), "step_ms_events": event_ms,
+                     "step_ms_host_median": median(host_ms), "step_ms_host": host_ms,
+                     "train_examples_per_sec": 1e3 * examples / median(host_ms)}
+    return out
 
 
 def train_batch_on_card(torch, args, dev):
@@ -1409,6 +1580,379 @@ def run_language(torch):
     return launches
 
 
+def photo(rng, w, h):
+    """A (w, h) RGB image from numpy: random coarse colour, upsampled, plus
+    pixel noise, so that decode, resize and compression do real work."""
+    import numpy as np
+    from PIL import Image
+
+    coarse = rng.randint(0, 256, (max(2, h // 24), max(2, w // 24), 3)).astype(np.uint8)
+    img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR)).astype(np.int16)
+    return Image.fromarray(np.clip(img + rng.randint(-10, 11, img.shape), 0, 255).astype(np.uint8))
+
+
+def sentence(rng):
+    """8-40 tokens of the word list: 7-39 words and a full stop."""
+    words = [WORDS[i] for i in rng.randint(0, len(WORDS), rng.randint(7, 40))]
+    return " ".join(words).capitalize() + "."
+
+
+def fabricate_climb_root(root, seed=REAL_SEED):
+    """A CLiMB data root in the reference on-disk layout (that of
+    tests/test_driver_real_data.py) for snli-ve and nlvr2: TRAIN_SIZE train and
+    TRAIN_SIZE // 4 dev examples each, Flickr30k JPEGs of 500x375 and 375x500,
+    an NLVR2 image pair of mixed web sizes (PNG) per example, sentences from
+    WORDS, and the vocab.txt of the words. Returns the root and its image
+    count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    jobs = []  # (path, w, h); every image's pixels come from its own seed
+    for i in range(FLICKR_IMAGES):
+        w, h = FLICKR_SIZES[i % len(FLICKR_SIZES)]
+        jobs.append((os.path.join(root, "flickr30k", "flickr30k_images", f"{i + 1}.jpg"), w, h))
+    cats = ("entailment", "contradiction", "neutral")
+    os.makedirs(os.path.join(root, "snli-ve"))
+    os.makedirs(os.path.join(root, "nlvr2", "data"))
+    for split, n in (("train", TRAIN_SIZE), ("dev", TRAIN_SIZE // 4)):
+        with open(os.path.join(root, "snli-ve", f"snli_ve_{split}.jsonl"), "w") as f:
+            for _ in range(n):
+                f.write(json.dumps({"Flickr30K_ID": str(1 + rng.randint(FLICKR_IMAGES)),
+                                    "sentence2": sentence(rng),
+                                    "gold_label": cats[rng.randint(3)]}) + "\n")
+        with open(os.path.join(root, "nlvr2", "data", f"{split}.json"), "w") as f:
+            for i in range(n):
+                stem = f"{split}-{i}-0"
+                for k in (0, 1):
+                    w, h = NLVR2_SIZES[rng.randint(len(NLVR2_SIZES))]
+                    jobs.append((os.path.join(root, "nlvr2", "images", split,
+                                              f"{stem}-img{k}.png"), w, h))
+                f.write(json.dumps({"identifier": f"{stem}-{i % 4}", "sentence": sentence(rng),
+                                    "label": "True" if rng.randint(2) else "False"}) + "\n")
+    for d in {os.path.dirname(p) for p, _, _ in jobs}:
+        os.makedirs(d, exist_ok=True)
+
+    def save(job):
+        (path, w, h), i = job
+        img = photo(np.random.RandomState(seed * 1000003 + i), w, h)
+        img.save(path, quality=90) if path.endswith(".jpg") else img.save(path)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(save, zip(jobs, range(len(jobs)))))
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ",", "?", "!"] + list(WORDS)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(dict.fromkeys(vocab)) + "\n")
+    return len(jobs)
+
+
+def fabricate_predict_root(root, out, seed=REAL_SEED + 1):
+    """A data root for phase predict_real: root's Flickr30k photos (hard
+    links), snli-ve train split and vocab.txt, and an snli-ve dev split of
+    PREDICT_REAL_EXAMPLES new hypotheses over those photos."""
+    import shutil
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    shutil.copytree(os.path.join(root, "flickr30k"), os.path.join(out, "flickr30k"),
+                    copy_function=os.link)
+    os.makedirs(os.path.join(out, "snli-ve"))
+    shutil.copy(os.path.join(root, "snli-ve", "snli_ve_train.jsonl"), os.path.join(out, "snli-ve"))
+    shutil.copy(os.path.join(root, "vocab.txt"), out)
+    cats = ("entailment", "contradiction", "neutral")
+    with open(os.path.join(out, "snli-ve", "snli_ve_dev.jsonl"), "w") as f:
+        for _ in range(PREDICT_REAL_EXAMPLES):
+            f.write(json.dumps({"Flickr30K_ID": str(1 + rng.randint(FLICKR_IMAGES)),
+                                "sentence2": sentence(rng),
+                                "gold_label": cats[rng.randint(3)]}) + "\n")
+    return out
+
+
+def real_args(root, visual_input_type="pil-image"):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(climb_data_dir=root, image_height=CANVAS[0], image_width=CANVAS[1],
+                           max_text_len=TEXT, tokenizer="bert-base-uncased",
+                           vocab_path=os.path.join(root, "vocab.txt"),
+                           visual_input_type=visual_input_type)
+
+
+def run_loader(torch, root):
+    """The port's DataLoader over the fabricated snli-ve and nlvr2 train splits,
+    one shuffled epoch each at LOADER_WORKERS, pinned like the trainer's on the
+    card: examples/s, ms per batch, each step's route and the host's CPUs."""
+    import multiprocessing
+
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.data.collation import stack_collate
+    from climb_tpu_torch.data.loader import DataLoader
+    from climb_tpu_torch.data.visionlanguage import build_vl_datasets
+    from climb_tpu_torch.native import build as native_build
+    from climb_tpu_torch.native import native_available
+    from climb_tpu_torch.train.trainers import batch_divisor
+
+    routes = native_available()
+    failed = {k: v for k, v in native_build.status.items() if v.startswith("failed")}
+    if failed:
+        raise AssertionError(f"native libraries whose toolchain is present failed: {failed}")
+    row = {"phase": "loader", "cpu_count": os.cpu_count(),
+           "cpus_usable": len(os.sched_getaffinity(0)), "native": routes,
+           "native_build": dict(native_build.status), "pin_memory": torch.cuda.is_available(),
+           "readings": []}
+    for task in ("snli-ve", "nlvr2"):
+        dataset = build_vl_datasets(real_args(root), task, task_configs[task])[0]
+        tokenizer = type(dataset.tokenizer).__name__
+        if "WordPiece" not in tokenizer:
+            raise AssertionError(f"{task}: tokenizer {tokenizer}, expected WordPiece")
+        jpeg = task == "snli-ve"
+        route = {"decode": "native libjpeg" if jpeg and routes["jpeg"] else "PIL",
+                 "resize": "native C++" if jpeg and routes["jpeg"] and routes["image"]
+                 else "PIL", "tokenizer": tokenizer}
+        batch = TRAIN_BATCH // batch_divisor(task_configs[task])
+        for mode, workers in LOADER_WORKERS:
+            dataset._tok_cache.clear()
+            loader = DataLoader(dataset, batch, stack_collate, shuffle=True, seed=0,
+                                num_workers=workers, worker_mode=mode,
+                                pin_memory=torch.cuda.is_available())
+            loader.set_epoch(1)
+            n, children, t0 = 0, 0, time.perf_counter()
+            for _ in loader:
+                n += 1
+                children = max(children, len(multiprocessing.active_children()))
+            seconds = time.perf_counter() - t0
+            if mode == "process" and children < workers:
+                raise AssertionError(f"{task}: {children} worker processes, expected {workers}")
+            row["readings"].append({
+                "task": task, "worker_mode": mode, "num_workers": workers,
+                "batch_size": batch, "n_batches": n, "seconds": seconds,
+                "examples_per_sec": len(dataset) / seconds, "ms_per_batch": 1e3 * seconds / n,
+                "images_per_example": 2 if task == "nlvr2" else 1, "route": route})
+    emit(row)
+
+
+def real_train_argv(root, out_dir, tasks="snli-ve,nlvr2", algorithm="sequential_ft", *extra):
+    """The Phase I driver on the fabricated root, without --synthetic, at the
+    default --num_workers (2), bf16, one epoch a task."""
+    return ["--encoder_name", "vilt", "--pretrained_model_name", "scratch",
+            "--cl_algorithm", algorithm, "--ordered_cl_tasks", tasks, "--climb_data_dir", root,
+            "--vocab_path", os.path.join(root, "vocab.txt"), "--output_dir", out_dir,
+            "--batch_size", str(TRAIN_BATCH),
+            "--task_config_overrides", "snli-ve.num_epochs=1,nlvr2.num_epochs=1",
+            "--compute_dtype", "bfloat16", "--attn_impl", "pallas", "--mlp_impl", "pallas",
+            "--seed", "0", "--do_train", "--do_eval", *extra]
+
+
+@contextlib.contextmanager
+def recorded_tokenizers(names):
+    """Record the class of every tokenizer the VL datasets load."""
+    from climb_tpu_torch.data.visionlanguage import datasets
+
+    real = datasets.load_tokenizer
+
+    def recording(*a, **kw):
+        tok = real(*a, **kw)
+        names.append(type(tok).__name__)
+        return tok
+
+    with mock.patch.object(datasets, "load_tokenizer", recording):
+        yield
+
+
+def batch_digest(batch) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(batch[k].tobytes())
+    return h.hexdigest()[:16]
+
+
+def run_real_data(torch, root, out_dir):
+    """The Phase I driver on the data root: sequential_ft snli-ve -> nlvr2 through
+    the prefetching loader, with exact launch counts, step times, the host split
+    and a checksum of the first batches the step received against the loader's
+    host batches; then snli-ve with --visual_input_type raw (no normalize launch)
+    and one batch's f32 pixels of both paths, bit for bit. Returns the launch
+    counts of both runs and the sequential run's last task checkpoint."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.data.collation import stack_collate
+    from climb_tpu_torch.data.visionlanguage import build_vl_datasets
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.ops import image_ops
+    from climb_tpu_torch.train import trainers
+
+    steps, feeds, host_batches, received, tokenizers = [], [], [], [], []
+
+    def receive(i, batch):
+        if i < CHECKSUM_BATCHES:
+            received.append({k: v.clone() for k, v in batch.items()})
+
+    with timed_train_steps(torch, trainers, steps, on_batch=receive), \
+            recorded_feed(torch, trainers, feeds, host_batches=host_batches), \
+            recorded_tokenizers(tokenizers):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        driver.main(real_train_argv(root, out_dir))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    exp = os.path.join(out_dir, "vilt-sequential_ft-task0_snli-ve-task1_nlvr2")
+    with open(os.path.join(exp, "results.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(exp, "eval_results.json")) as f:
+        eval_results = json.load(f)
+    n_steps = {"snli-ve": math.ceil(TRAIN_SIZE / TRAIN_BATCH),
+               "nlvr2": math.ceil(TRAIN_SIZE / (TRAIN_BATCH // 2))}
+    eval_size = TRAIN_SIZE // 4
+    n_eval = 2 * math.ceil(eval_size / TRAIN_BATCH) + math.ceil(eval_size / (TRAIN_BATCH // 2))
+    n_train = sum(n_steps.values())
+    expected = expected_launches(False, n_train + n_eval, n_train, n_train + n_eval)
+    if launches != expected:
+        raise AssertionError(f"real_data launches {launches} != expected {expected}")
+    if len(steps) != n_train:
+        raise AssertionError(f"{len(steps)} timed train steps, expected {n_train}")
+    if not tokenizers or set(tokenizers) - {"NativeWordPieceTokenizer", "WordPieceTokenizer"}:
+        raise AssertionError(f"the datasets loaded tokenizers {tokenizers}, expected WordPiece")
+    forgetting = eval_results["forgetting"]["nlvr2"]["snli-ve"]
+    scores = [r["best_score"] for r in results] + [forgetting["absolute_transfer_score"]]
+    if [r["task_key"] for r in results] != ["snli-ve", "nlvr2"] or not all(
+            math.isfinite(x) and 0.0 <= x <= 100.0 for x in scores):
+        raise AssertionError(f"bad results {results} / {eval_results}")
+    # what the step received against what the loader gave, bit for bit
+    checksums = []
+    for i, (host, dev) in enumerate(zip(host_batches, received)):
+        got = {k: v.cpu().numpy() for k, v in dev.items()}
+        same = sorted(got) == sorted(host) and all(
+            got[k].dtype == host[k].dtype and got[k].tobytes() == host[k].tobytes()
+            for k in host)
+        checksums.append({"batch": i, "host_sha256": batch_digest(host),
+                          "received_sha256": batch_digest(got), "bit_equal": same})
+        if not same:
+            raise AssertionError(f"step {i} received another batch than the loader gave: "
+                                 f"{checksums[-1]}")
+    if len(checksums) != CHECKSUM_BATCHES:
+        raise AssertionError(f"{len(checksums)} batches checksummed")
+    row = {"phase": "real_data",
+           "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, 384x640 canvas, "
+           "S=281), random weights from seed 0, sequential_ft snli-ve -> nlvr2 from the "
+           f"fabricated data root ({TRAIN_SIZE} train and {eval_size} dev examples a task), "
+           "--num_workers 2 (thread), one epoch each, bf16 compute",
+           "seconds": seconds, "launches": launches, "n_train_steps": n_steps,
+           "n_eval_batches": n_eval, "results": results,
+           "forgetting_snli_ve_after_nlvr2": forgetting, "tokenizers": sorted(set(tokenizers)),
+           "prefetch_checksums": checksums, "host_split": host_split(steps, feeds),
+           **train_step_times(steps, n_steps)}
+
+    # --visual_input_type raw: the host normalizes, the kernel never runs
+    raw_dir = os.path.join(out_dir, "raw")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    driver.main(real_train_argv(root, raw_dir, "snli-ve", "singletask_ft",
+                                "--visual_input_type", "raw"))
+    torch.cuda.synchronize()
+    raw_seconds = time.perf_counter() - t0
+    raw_launches = dict(LAUNCHES)
+    n_raw = n_steps["snli-ve"] + math.ceil(eval_size / TRAIN_BATCH)
+    expected = expected_launches(False, n_raw, n_steps["snli-ve"], 0)
+    if raw_launches != expected:
+        raise AssertionError(f"raw launches {raw_launches} != expected {expected}")
+    with open(os.path.join(raw_dir, "vilt-singletask_ft-task0_snli-ve", "results.json")) as f:
+        raw_results = json.load(f)
+    if not (0.0 <= raw_results[0]["best_score"] <= 100.0):
+        raise AssertionError(f"bad raw results {raw_results}")
+    # one batch: the card's f32 normalize of the uint8 canvas against the host's
+    dev = torch.device("cuda")
+    pil, raw = (build_vl_datasets(real_args(root, vit), "snli-ve", task_configs["snli-ve"])[0]
+                for vit in ("pil-image", "raw"))
+    u8 = stack_collate([pil[i] for i in range(TRAIN_BATCH)])["pixel_values"]
+    host = torch.from_numpy(stack_collate([raw[i] for i in range(TRAIN_BATCH)])["pixel_values"])
+    on_card = image_ops.normalize_images(torch.from_numpy(u8).to(dev), torch.float32).cpu()
+    if host.dtype != torch.float32 or not torch.equal(on_card.view(torch.int32),
+                                                      host.view(torch.int32)):
+        raise AssertionError("raw: host-normalized pixels differ from the card's f32 normalize")
+    row["raw"] = {"seconds": raw_seconds, "launches": raw_launches, "results": raw_results,
+                  "f32_pixels_bit_equal_to_pil_image_path": True,
+                  "pixels_checked": int(host.numel())}
+    emit(row)
+    ckpt = os.path.join(exp, "checkpoints", "task1_nlvr2", "model")
+    return launches, raw_launches, ckpt
+
+
+def predict_real_argv(root, ckpt, out_dir):
+    return ["--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve,nlvr2",
+            "--task_key", "snli-ve", "--checkpoint", ckpt, "--climb_data_dir", root,
+            "--vocab_path", os.path.join(root, "vocab.txt"),
+            "--batch_size", str(PREDICT_REAL_BATCH), "--compute_dtype", "bfloat16",
+            "--attn_impl", "pallas", "--mlp_impl", "pallas", "--seed", "0",
+            "--output_dir", out_dir, "--output_file", os.path.join(out_dir, "preds.json")]
+
+
+def run_predict_real(torch, root, ckpt, predict_out):
+    """predict.main on the snli-ve dev split of fabricate_predict_root's root
+    from phase real_data's checkpoint: exact launch counts, the prediction count, the order (each
+    prediction equals the same model's on the same batch fed in example order
+    without the loader), ex/s beside phase predict's, step times and the host
+    split."""
+    from climb_tpu_torch.ckpt.checkpoint import load_model_file
+    from climb_tpu_torch.ckpt.convert import partial_load
+    from climb_tpu_torch.cli import predict
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.data.collation import stack_collate
+    from climb_tpu_torch.data.loader import pad_batch
+    from climb_tpu_torch.data.visionlanguage import build_vl_datasets
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.train.eval_step import make_eval_step
+    from climb_tpu_torch.train.model_factory import create_cl_model
+    from climb_tpu_torch.train.trainers import to_device
+
+    steps, feeds = [], []
+    with tempfile.TemporaryDirectory() as out_dir, timed_eval_steps(torch, predict, steps), \
+            recorded_feed(torch, predict, feeds, train_only=False):
+        argv = predict_real_argv(root, ckpt, out_dir)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = predict.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    n_examples = PREDICT_REAL_EXAMPLES
+    n_batches = math.ceil(n_examples / PREDICT_REAL_BATCH)
+    expected = expected_launches(False, n_batches, 0, n_batches)
+    if launches != expected:
+        raise AssertionError(f"predict_real launches {launches} != expected {expected}")
+    preds = out["predictions"]
+    if not (out["n_examples"] == len(preds) == n_examples) or not set(preds) <= {0, 1, 2}:
+        raise AssertionError(f"predict_real: {out['n_examples']} examples, {len(preds)} "
+                             f"predictions, expected {n_examples}")
+    # the order: the same checkpoint, batches of the split in example order
+    dev = torch.device("cuda")
+    args = predict.build_parser().parse_args(argv)
+    args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+    model = create_cl_model(args, task_configs, dev)
+    partial_load(model, load_model_file(ckpt))
+    step = make_eval_step(model, "snli-ve", "ce", model.cfg.compute_dtype)
+    dataset = build_vl_datasets(real_args(root), "snli-ve", task_configs["snli-ve"])[1]
+    ref = []
+    for start in range(0, len(dataset), PREDICT_REAL_BATCH):
+        idx = range(start, min(start + PREDICT_REAL_BATCH, len(dataset)))
+        batch = pad_batch(stack_collate([dataset[i] for i in idx]), PREDICT_REAL_BATCH)
+        logits = step(to_device(batch, dev))[0]
+        ref.extend(torch.argmax(logits, dim=-1).cpu().tolist()[:len(idx)])
+    if preds != ref:
+        raise AssertionError(f"predict_real: predictions out of example order: {preds} vs {ref}")
+    emit({"phase": "predict_real", "config": "ViLT-B/32 from phase real_data's checkpoint, "
+          f"snli-ve dev split of the fabricated predict root ({n_examples} examples), batch "
+          f"{PREDICT_REAL_BATCH}, bf16", "n_examples": n_examples, "n_batches": n_batches,
+          "metric": out["metric"], "examples_per_sec": out["examples_per_sec"],
+          "examples_per_sec_phase_predict": predict_out["examples_per_sec"],
+          "seconds": seconds, "launches": launches, "predictions_in_example_order": True,
+          **eval_step_times(steps, feeds, PREDICT_REAL_BATCH)})
+    return launches
+
+
 def ptxas_resources(report):
     """{mangled kernel name: {"registers", "spill_bytes"}} from nvcc -Xptxas -v."""
     import re
@@ -1526,9 +2070,10 @@ def main() -> int:
         check_gemm_tails(torch)
     check_attention_bwd(torch, results)
     check_attention_long(torch, results)
-    launches = {"predict": run_predict(torch)}
+    launches = {}
+    launches["predict"], predict_out = run_predict(torch)
     compare_paths(torch)
-    launches["predict_fused"] = run_predict(torch, "fused_block")
+    launches["predict_fused"], _ = run_predict(torch, "fused_block")
     compare_paths(torch, "fused_block")
     launches["train"] = run_train(torch)
     launches["train_fused"] = run_train(torch, fused=True)
@@ -1540,6 +2085,18 @@ def main() -> int:
     for name in CL_RUNS:
         launches[f"cl_{name}"] = run_cl(torch, name)
     launches["language"] = run_language(torch)
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "climb_data")
+        t0 = time.perf_counter()
+        n_images = fabricate_climb_root(root)
+        emit({"phase": "data_root", "root": "fabricated in a temporary directory",
+              "seed": REAL_SEED, "images": n_images, "seconds": time.perf_counter() - t0,
+              "examples_per_task": {"train": TRAIN_SIZE, "dev": TRAIN_SIZE // 4}})
+        run_loader(torch, root)
+        launches["real_data"], launches["real_data_raw"], ckpt = run_real_data(
+            torch, root, os.path.join(work, "out"))
+        predict_root = fabricate_predict_root(root, os.path.join(work, "predict_data"))
+        launches["predict_real"] = run_predict_real(torch, predict_root, ckpt, predict_out)
 
     # every TPU kernel of climb_tpu with its port's numbers from this run. Each
     # kernel's launches are those of the path it belongs to (the forward kernels

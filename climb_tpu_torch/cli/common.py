@@ -25,8 +25,9 @@ def add_common_args(parser: argparse.ArgumentParser):
                         help="Log to W&B: not ported (no network); raises.")
     parser.add_argument("--batch_size", type=int, default=32, help="Batch size.")
     parser.add_argument("--num_workers", type=int, default=2,
-                        help="Host loader workers (the port's eval loader is "
-                             "sequential and reads none).")
+                        help="Host loader workers (threads or forked processes, "
+                             "--worker_mode) that decode, tokenize and collate "
+                             "batches ahead of the step.")
     parser.add_argument("--seed", type=int, default=42, help="Random seed.")
 
 
@@ -63,9 +64,9 @@ def add_device_args(parser: argparse.ArgumentParser):
     parser.add_argument("--image_height", type=int, default=384)
     parser.add_argument("--image_width", type=int, default=640)
     parser.add_argument("--aspect_buckets", type=str, default=None,
-                        help="Not ported yet (bucketed loader).")
+                        help="Not ported yet (loader bucketing, training-knobs slice).")
     parser.add_argument("--text_buckets", type=str, default=None,
-                        help="Not ported yet (bucketed loader).")
+                        help="Not ported yet (loader bucketing, training-knobs slice).")
     parser.add_argument("--max_text_len", type=int, default=40)
     parser.add_argument("--synthetic", action="store_true",
                         help="Use synthetic in-memory datasets (no real data needed).")
@@ -87,9 +88,13 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="Comma list of task.key=value hyperparameter overrides of the "
                              "in-memory task configs, e.g. 'snli-ve.num_epochs=2'.")
     parser.add_argument("--tokenizer", type=str, default="bert-base-uncased",
-                        help="Tokenizer for real data (real datasets are not ported yet).")
+                        help="Tokenizer for real data: a vocab file path, an HF name "
+                             "served from the local HF cache only, or 'synthetic' (the "
+                             "hash tokenizer, also the fallback when neither is there).")
     parser.add_argument("--vocab_path", type=str, default=None,
-                        help="WordPiece vocab for real data (not ported yet).")
+                        help="WordPiece vocab.txt for real data; takes precedence over "
+                             "--tokenizer; served by the native C++ tokenizer when it "
+                             "builds.")
     # training knobs of the JAX package
     parser.add_argument("--grad_accum_steps", default=1,
                         type=lambda s: s if s in ("auto", "sweep") else int(s),
@@ -115,7 +120,9 @@ def add_device_args(parser: argparse.ArgumentParser):
     parser.add_argument("--fuse_qkv", action="store_true", help="Not ported yet.")
     parser.add_argument("--worker_mode", type=str, default="thread",
                         choices=["thread", "process"],
-                        help="Loader workers; the port's loader is sequential ('thread' only).")
+                        help="Loader workers: threads, or forked processes for GIL-bound "
+                             "Python work (numpy-only children; pinning stays in the "
+                             "parent).")
     parser.add_argument("--pp_microbatches", type=int, default=0, help="Not ported yet (mesh).")
     parser.add_argument("--pp_virtual", type=int, default=1, help="Not ported yet (mesh).")
     parser.add_argument("--adam_moments_dtype", type=str, default=None, choices=["bfloat16"],
@@ -142,15 +149,14 @@ _UNPORTED = (
     ("use_mesh", False, "the scale-out slice"),
     ("pp_stages", 0, "the scale-out slice"),
     ("fsdp", False, "the scale-out slice"),
-    ("aspect_buckets", None, "the bucketed-loader slice"),
-    ("text_buckets", None, "the bucketed-loader slice"),
+    ("aspect_buckets", None, "the training-knobs slice: loader bucketing"),
+    ("text_buckets", None, "the training-knobs slice: loader bucketing"),
     ("pp_microbatches", 0, "the scale-out slice"),
     ("pp_virtual", 1, "the scale-out slice"),
     ("do_wandb_logging", False, "no network: W&B logging is not ported"),
     ("remat", False, "the remat work of the training-knobs slice"),
     ("fuse_qkv", False, "the training-knobs slice"),
     ("scan_unroll", 1, "the port runs the layers in a Python loop"),
-    ("worker_mode", "thread", "the prefetching-loader slice"),
     ("auto_accum_token_budget", None, "grad-accum auto, once measured on the H100"),
     ("sharded_checkpoints", False, "the scale-out slice"),
     ("async_checkpoint", False, "the scale-out slice"),

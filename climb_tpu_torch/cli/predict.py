@@ -2,14 +2,18 @@
 
 Loads a Phase I checkpoint in the reference torch layout (with its adapters
 and the task's adapter active for ``--cl_algorithm adapter``), runs a task's eval
-split through the serving forward batch by batch, and writes per-example
-predictions, the task metric and the measured throughput in the JAX CLI's
-output JSON. Runs on the card unless ``--device cpu`` is given.
+split (from the CLiMB data root, or ``--synthetic``) through the serving
+forward batch by batch, with the task trainer's eval loader and the batches
+copied ahead to the card, and writes per-example predictions
+(``predictions[i]`` is example i's), the task metric and the measured
+throughput in the JAX CLI's output JSON. Runs on the card unless ``--device
+cpu`` is given.
 
 Usage:
   python -m climb_tpu_torch.cli.predict --encoder_name vilt \\
-      --ordered_cl_tasks snli-ve --task_key snli-ve --synthetic \\
-      --checkpoint model.pt --output_dir out --output_file preds.json
+      --ordered_cl_tasks snli-ve --task_key snli-ve --climb_data_dir DATA \\
+      --vocab_path DATA/vocab.txt --checkpoint model.pt --output_dir out \\
+      --output_file preds.json
 """
 
 import argparse
@@ -30,13 +34,11 @@ from climb_tpu_torch.cli.common import (
     setup_logging,
 )
 from climb_tpu_torch.configs.task_configs import task_configs
-from climb_tpu_torch.data.collation import stack_collate
-from climb_tpu_torch.data.loader import DataLoader
-from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
+from climb_tpu_torch.data.loader import DataLoader, device_prefetch
 from climb_tpu_torch.device import resolve_device
 from climb_tpu_torch.train.eval_step import LOSS_TYPES, make_eval_step
 from climb_tpu_torch.train.model_factory import create_cl_model
-from climb_tpu_torch.train.trainers import batch_divisor, to_device
+from climb_tpu_torch.train.trainers import get_task_trainer_class
 
 logger = logging.getLogger(__name__)
 
@@ -69,7 +71,8 @@ def build_parser():
     parser.add_argument("--lora_targets", type=str, default="")
     parser.add_argument("--climb_data_dir", type=str, default=".")
     parser.add_argument("--input_jsonl", type=str, default=None,
-                        help="Raw JSONL inputs: not ported yet.")
+                        help="Raw JSONL inputs: not ported yet (the serving slice, with "
+                             "data/processor.py).")
     parser.add_argument("--output_file", type=str, default="predictions.json")
     parser.add_argument("--export_model", type=str, default=None,
                         help="jax.export artifacts: not ported.")
@@ -86,14 +89,11 @@ def build_parser():
 
 def _reject_unported_predict(args):
     reject_unported(args)
-    for flag, later in (("input_jsonl", "the raw-input serving slice"),
+    for flag, later in (("input_jsonl", "the serving slice, with data/processor.py"),
                         ("export_model", "the serve/export slice"),
                         ("from_export", "the serve/export slice")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported to climb_tpu_torch yet ({later})")
-    if not args.synthetic:
-        raise NotImplementedError("real datasets are not ported to climb_tpu_torch yet (the "
-                                  "Phase I training slice); pass --synthetic")
     if (args.pretrained_model_name != "scratch" and not args.checkpoint
             and not os.path.isfile(args.pretrained_model_name)):
         raise NotImplementedError(
@@ -102,15 +102,12 @@ def _reject_unported_predict(args):
             "reference-layout file")
 
 
-def build_eval_loader(args) -> DataLoader:
-    task_cfg = task_configs[args.task_key]
-    size = args.synthetic_train_size
-    dataset = make_synthetic_vl_dataset(
-        args.task_key, task_cfg, "val", max(8, size // 4), args.max_text_len,
-        (args.image_height, args.image_width), args.seed, label_noise=args.synthetic_noise,
-    )
-    bs = args.eval_batch_size or args.batch_size
-    return DataLoader(dataset, max(1, bs // batch_divisor(task_cfg)), stack_collate)
+def build_eval_loader(args, device=torch.device("cpu")) -> DataLoader:
+    """The task trainer's eval loader (the JAX CLI's ``trainer.eval_dataloader``):
+    the eval split of the data root or the synthetic one, ``--eval_batch_size``
+    (else ``--batch_size``) over the task's fold divisor, in example order."""
+    cls = get_task_trainer_class(task_configs[args.task_key]["trainer"])
+    return cls(args, task_configs, {}, device, args.task_key).eval_dataloader
 
 
 def main(argv=None):
@@ -139,25 +136,26 @@ def main(argv=None):
 
     eval_step = make_eval_step(model, args.task_key, LOSS_TYPES[args.task_key],
                                model.cfg.compute_dtype)
-    return _predict_dataset(args, build_eval_loader(args), eval_step, device)
+    return _predict_dataset(args, build_eval_loader(args, device), eval_step, device)
 
 
 def _predict_dataset(args, loader, eval_step, device):
     preds, total, count, n, n_timed = [], 0.0, 0.0, 0, 0
     t_start, t0 = time.perf_counter(), None
-    for batch in loader:
-        logits, s, c = eval_step(to_device(batch, device))
+    for batch in device_prefetch(loader, device):
+        logits, s, c = eval_step(batch)
         # float() waits for the card; the first batch (kernel build and
         # warm-up) stays out of the throughput when later batches exist
         total += float(s)
         count += float(c)
-        valid = batch["valid"].astype(bool)
-        preds.extend(torch.argmax(logits, dim=-1).cpu().numpy()[valid].tolist())
-        n += int(valid.sum())
+        valid = batch["valid"].bool()
+        preds.extend(torch.argmax(logits, dim=-1)[valid].cpu().tolist())
+        n_valid = int(valid.sum())
+        n += n_valid
         if t0 is None:
             t0 = time.perf_counter()
         else:
-            n_timed += int(valid.sum())
+            n_timed += n_valid
     now = time.perf_counter()
     ex_s = n_timed / (now - t0) if n_timed else n / max(now - t_start, 1e-9)
     score = 100.0 * total / max(count, 1.0)

@@ -91,8 +91,9 @@ def main(argv=None):
             "(ViLT-BERT comes with a later slice)")
     if not args.synthetic:
         raise NotImplementedError(
-            "real language datasets are not ported to climb_tpu_torch yet (they need a "
-            "tokenizer vocabulary, which is not in the repository); pass --synthetic")
+            "real language datasets are not ported to climb_tpu_torch yet (the Phase II "
+            "datasets slice; the WordPiece tokenizer is ported and reads --vocab_path); "
+            "pass --synthetic")
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     set_seed(args)

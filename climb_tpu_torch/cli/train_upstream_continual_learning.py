@@ -8,17 +8,20 @@ results.json loop with resume-and-skip (:216-294), and the transfer and
 forgetting evaluation that writes eval_results.json (:296-327). Runs on the
 card unless ``--device cpu`` is given.
 
-Every ``--cl_algorithm`` runs, on vqa, nlvr2, snli-ve and vcr, with
-synthetic data: the per-algorithm set-up (JAX driver :207-229: trainability
-masks for the freeze algorithms, the adapter handler before the weights are
-drawn), adapter activation before each trained task (:323-325), and the
+Every ``--cl_algorithm`` runs, on vqa, nlvr2, snli-ve and vcr, from a CLiMB
+data root (``--climb_data_dir``, with ``--vocab_path`` for the WordPiece
+vocabulary) or on ``--synthetic`` data: the per-algorithm set-up (JAX driver
+:207-229: trainability masks for the freeze algorithms, the adapter handler
+before the weights are drawn), adapter activation before each trained task
+(:323-325), and the
 post-task hooks (:345-361), also for a finished task that a rerun skips: an
 experience-replay buffer after each task; EWC's Fisher, and the
 distillation teacher, after each task but the last. The port installs no
 SIGTERM handler yet: a killed run resumes from its last epoch's train state
 and skips finished tasks.
 
-Usage (synthetic smoke run on the CPU):
+Usage (synthetic smoke run on the CPU; drop --synthetic and pass
+--vocab_path DATA/vocab.txt to train on the data root):
   python -m climb_tpu_torch.cli.train_upstream_continual_learning \\
     --encoder_name vilt --pretrained_model_name scratch \\
     --ordered_cl_tasks snli-ve --cl_algorithm singletask_ft \\
@@ -52,6 +55,7 @@ from climb_tpu_torch.cli.common import (
     reject_unported,
     setup_logging,
 )
+from climb_tpu_torch.configs.model_configs import model_configs
 from climb_tpu_torch.configs.task_configs import SUPPORTED_VL_TASKS, task_configs
 from climb_tpu_torch.device import resolve_device
 from climb_tpu_torch.evaluation.cl_eval import (
@@ -86,12 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cl_algorithm", type=str, required=True, choices=CL_ALGORITHMS,
                         help="Continual-learning algorithm.")
     parser.add_argument("--climb_data_dir", type=str, required=True,
-                        help="Directory of the CLiMB data (real data is not ported yet).")
+                        help="Root of the CLiMB data (vqav2/, ms-coco/, nlvr2/, "
+                             "snli-ve/, flickr30k/, vcr/); parse caches are written "
+                             "beside the annotations.")
     parser.add_argument("--do_train", action="store_true")
     parser.add_argument("--do_eval", action="store_true")
     parser.add_argument("--visual_input_type", default=None, choices=["pil-image", "raw"],
-                        help="'pil-image' (uint8 canvas normalized on the device); 'raw' "
-                             "is not ported yet.")
+                        help="'pil-image' (uint8 canvas normalized on the card, the "
+                             "encoder's default) or 'raw' (float32 canvas normalized on "
+                             "the host, bit-equal model inputs).")
     # flags of the CL algorithms, accepted as in the JAX CLI
     parser.add_argument("--memory_percentage", type=float, default=0.0)
     parser.add_argument("--memory_sampling_strategy", type=str,
@@ -155,13 +162,6 @@ def validate_algorithm_args(args):
         assert task_key in SUPPORTED_VL_TASKS, f"unsupported task {task_key}"
 
 
-def _reject_unported_train(args):
-    reject_unported(args)
-    if args.visual_input_type == "raw":
-        raise NotImplementedError("--visual_input_type raw is not ported to climb_tpu_torch "
-                                  "yet (the real-data slice)")
-
-
 def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
@@ -178,11 +178,13 @@ def main(argv=None):
     output_dir = os.path.join(args.output_dir, experiment_name)
     results_file = os.path.join(output_dir, "results.json")
     validate_algorithm_args(args)
-    _reject_unported_train(args)
+    reject_unported(args)
     device = resolve_device(args.device)
     os.makedirs(output_dir, exist_ok=True)
     set_seed(args)
-    args.visual_input_type = args.visual_input_type or "pil-image"
+    if args.visual_input_type is None:
+        args.visual_input_type = model_configs.get(args.encoder_name, model_configs["vilt"])[
+            "visual_input_type"]
 
     cl = {"replay_memory": None, "ewc": None, "distill": None}
     adapter_handler = None

@@ -49,11 +49,12 @@ def micro_f1(all_labels: np.ndarray, all_preds: np.ndarray) -> float:
     return 100.0 * 2 * tp / denom if denom > 0 else 0.0
 
 
-def eval_classifier(model, dataset, batch_size, loss_type, device, extra_batch=None) -> float:
+def eval_classifier(model, dataset, batch_size, loss_type, device, extra_batch=None,
+                    num_workers=2) -> float:
     """Accuracy (micro-F1 for multilabel) of ``model`` over a dataset;
     ``extra_batch`` holds device tensors merged into every batch."""
     eval_step = make_eval_step(model, None, loss_type, model.cfg.compute_dtype)
-    loader = DataLoader(dataset, batch_size, stack_collate)
+    loader = DataLoader(dataset, batch_size, stack_collate, num_workers=num_workers)
     extra = extra_batch or {}
     if loss_type == "bce_multilabel":
         labels_all, preds_all = [], []
@@ -81,11 +82,13 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
     for flag in ("aspect_buckets", "text_buckets"):
         if getattr(args, flag, None):
             raise NotImplementedError(
-                f"--{flag} is not ported to climb_tpu_torch yet (the bucketed-loader slice)")
+                f"--{flag} is not ported to climb_tpu_torch yet (the training-knobs slice: loader "
+                "bucketing)")
     train_ds, val_ds, test_ds = datasets
     num_epochs = task_config["num_epochs"]
+    num_workers = getattr(args, "num_workers", 2)
     train_loader = DataLoader(train_ds, args.batch_size, stack_collate, shuffle=True,
-                              seed=args.seed)
+                              seed=args.seed, num_workers=num_workers)
     tx = make_optimizer(
         [n for n, _ in model.named_parameters()], lr=task_config["lr"],
         total_steps=len(train_loader) * num_epochs, warmup_ratio=task_config["warmup_ratio"],
@@ -107,7 +110,8 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
             seen += args.batch_size
         # the reference's eval gate: epoch > 5 and epoch % 2 == 0
         if eval_gate or (epoch > 5 and epoch % 2 == 0) or epoch == num_epochs:
-            score = eval_classifier(model, val_ds, eval_bs, loss_type, device, extra)
+            score = eval_classifier(model, val_ds, eval_bs, loss_type, device, extra,
+                                    num_workers)
             logger.info("epoch %d dev=%.2f (%.1f ex/s)", epoch, score,
                         seen / max(time.time() - t0, 1e-6))
             if score > best_score or best_params is None:
@@ -117,7 +121,8 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
 
     model.vilt.dropout_generator = None
     model.load_state_dict(best_params)
-    test_score = eval_classifier(model, test_ds, eval_bs, loss_type, device, extra)
+    test_score = eval_classifier(model, test_ds, eval_bs, loss_type, device, extra,
+                                 num_workers)
     logger.info("best dev=%.2f (epoch %d) test=%.2f", best_score, best_epoch, test_score)
     return best_score, test_score, best_epoch, best_params
 

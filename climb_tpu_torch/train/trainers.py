@@ -19,8 +19,15 @@ reference drawn before each step, and a replay step after every
 task config's ``num_labels`` (``--synthetic_vqa_labels`` overrides it); VCR's
 batch is the global batch divided by its four choices.
 
-Not ported yet: the low-shot variants (``LowShotVLTaskTrainer``), real
-datasets and mid-epoch SIGTERM checkpoints.
+The data: the task's train and eval splits from the CLiMB data root
+(``data/visionlanguage``), or synthetic splits with ``--synthetic``, each
+through the prefetching loader (``--num_workers`` workers of
+``--worker_mode``; batches pinned in host memory on the card), and copied
+ahead to the card by ``device_prefetch`` for the train, eval and forgetting
+passes.
+
+Not ported yet: the low-shot variants (``LowShotVLTaskTrainer``) and
+mid-epoch SIGTERM checkpoints.
 """
 
 import logging
@@ -40,8 +47,9 @@ from climb_tpu_torch.ckpt.checkpoint import (
     save_train_state,
 )
 from climb_tpu_torch.data.collation import stack_collate
-from climb_tpu_torch.data.loader import DataLoader
+from climb_tpu_torch.data.loader import DataLoader, device_prefetch
 from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
+from climb_tpu_torch.data.visionlanguage import build_vl_datasets
 from climb_tpu_torch.train.eval_step import LOSS_TYPES, make_eval_step
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_state import TrainState
@@ -61,7 +69,9 @@ def batch_divisor(task_cfg: dict) -> int:
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    """A host batch (numpy arrays or tensors) on ``device``, copied now."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v)).to(device)
+            for k, v in batch.items()}
 
 
 def _host_copy(model: torch.nn.Module) -> dict:
@@ -79,9 +89,6 @@ class VLTaskTrainer:
 
     def __init__(self, args, task_configs, model_config, device, task_key: str = None):
         task_key = task_key or self.task_key
-        if not getattr(args, "synthetic", False):
-            raise NotImplementedError("real datasets are not ported to climb_tpu_torch yet (the "
-                                      "real-data slice); pass --synthetic")
         self.task_key = task_key
         self.args = args
         self.device = device
@@ -101,20 +108,28 @@ class VLTaskTrainer:
     # -- data ----------------------------------------------------------------
     def _build_datasets(self):
         args = self.args
-        size = args.synthetic_train_size
-        canvas = (args.image_height, args.image_width)
-        noise = args.synthetic_noise
-        self.train_dataset = make_synthetic_vl_dataset(
-            self.task_key, self.task_cfg, "train", size, args.max_text_len, canvas, args.seed,
-            label_noise=noise)
-        self.eval_dataset = make_synthetic_vl_dataset(
-            self.task_key, self.task_cfg, "val", max(8, size // 4), args.max_text_len, canvas,
-            args.seed, label_noise=noise)
+        if getattr(args, "synthetic", False):
+            size = args.synthetic_train_size
+            canvas = (args.image_height, args.image_width)
+            noise = args.synthetic_noise
+            self.train_dataset = make_synthetic_vl_dataset(
+                self.task_key, self.task_cfg, "train", size, args.max_text_len, canvas,
+                args.seed, label_noise=noise)
+            self.eval_dataset = make_synthetic_vl_dataset(
+                self.task_key, self.task_cfg, "val", max(8, size // 4), args.max_text_len,
+                canvas, args.seed, label_noise=noise)
+        else:
+            self.train_dataset, self.eval_dataset = build_vl_datasets(args, self.task_key,
+                                                                      self.task_cfg)
+        loader_args = dict(num_workers=getattr(args, "num_workers", 2),
+                           worker_mode=getattr(args, "worker_mode", "thread"),
+                           pin_memory=torch.device(self.device).type == "cuda")
         self.train_dataloader = DataLoader(self.train_dataset, self.batch_size, stack_collate,
-                                           shuffle=True, seed=args.seed)
+                                           shuffle=True, seed=args.seed, **loader_args)
         eval_bs = args.eval_batch_size
         eval_bs = max(1, eval_bs // batch_divisor(self.task_cfg)) if eval_bs else self.batch_size
-        self.eval_dataloader = DataLoader(self.eval_dataset, eval_bs, stack_collate)
+        self.eval_dataloader = DataLoader(self.eval_dataset, eval_bs, stack_collate,
+                                          **loader_args)
 
     def get_train_dataloader(self):
         return self.train_dataloader
@@ -183,8 +198,7 @@ class VLTaskTrainer:
         for epoch in range(start_epoch, self.num_epochs + 1):
             self.train_dataloader.set_epoch(epoch)
             t0, seen = time.time(), 0
-            for batch in self.train_dataloader:
-                batch = self.put(batch)
+            for batch in device_prefetch(self.train_dataloader, self.device):
                 ewc_ref = ewc.sample_ref() if ewc is not None and ewc.has_tasks() else None
                 metrics = train_step(state, batch, ewc_ref, fd_ref)
                 global_step += 1
@@ -230,8 +244,8 @@ class VLTaskTrainer:
         eval_step = make_eval_step(model, self.task_key, self.loss_type,
                                    model.cfg.compute_dtype, params=params)
         total, count = 0.0, 0.0
-        for batch in self.eval_dataloader:
-            _, s, c = eval_step(to_device(batch, self.device))
+        for batch in device_prefetch(self.eval_dataloader, self.device):
+            _, s, c = eval_step(batch)
             total += float(s)
             count += float(c)
         return 100.0 * total / max(count, 1.0)

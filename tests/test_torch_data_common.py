@@ -1,0 +1,58 @@
+"""Shared set-up of the ``test_torch_data_*.py`` and
+``test_torch_real_data_driver.py`` files (no tests here).
+
+The JAX package's native libraries are compiled from its sources, with its
+flags (``climb_tpu/native/build.py``), into a private directory and put in
+place of ``climb_tpu.native``'s functions for one test module, so that both
+packages take the same route (libjpeg decode and the C++ resample, which is
+within 2 levels of PIL's resize, not bit-equal to it) and their canvases can
+be held bit for bit. Nothing is written into the JAX package, whose own
+tests build there.
+"""
+
+import importlib.util
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+
+
+def jax_native(mp: pytest.MonkeyPatch, build_dir) -> None:
+    """Build the JAX package's native libraries under ``build_dir`` and make
+    ``climb_tpu.native`` serve them until ``mp`` is undone."""
+    import climb_tpu.native as jax_native_mod
+    from climb_tpu.native import build as jax_build
+
+    build_dir = Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(Path(jax_build.HERE) / "__init__.py", build_dir / "__init__.py")
+    procs = [subprocess.Popen(["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+                               "-o", str(build_dir / out), str(Path(jax_build.HERE) / src), *extra],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for src, out, extra in jax_build.TARGETS]
+    for proc in procs:
+        out, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, out.decode()[-2000:]
+    spec = importlib.util.spec_from_file_location("jax_native_private", build_dir / "__init__.py")
+    private = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(private)
+    assert all(private.native_available().values())
+    for name in ("NativeWordPieceTokenizer", "resize_into_canvas", "decode_jpeg", "jpeg_dims",
+                 "native_available"):
+        mp.setattr(jax_native_mod, name, getattr(private, name))
+
+
+@pytest.fixture(scope="module")
+def jax_native_route(tmp_path_factory):
+    """The JAX package on its native route for the test module."""
+    mp = pytest.MonkeyPatch()
+    jax_native(mp, tmp_path_factory.mktemp("jax_native"))
+    yield
+    mp.undo()
+
+
+def copy_root(src, dst) -> str:
+    """A copy of a data root without its parse caches (``cached_*``)."""
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("cached_*"))
+    return str(dst)

@@ -100,6 +100,10 @@ def test_predict_without_card_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict",
                                     "climb_tpu_torch.cli.train_upstream_continual_learning",
                                     "climb_tpu_torch.cli.train_language",
+                                    "climb_tpu_torch.data.loader",
+                                    "climb_tpu_torch.data.visionlanguage",
+                                    "climb_tpu_torch.data.tokenization",
+                                    "climb_tpu_torch.native",
                                     "chip_smoke", "chip_ab"])
 def test_import_loads_no_jax(module):
     code = (
@@ -125,6 +129,11 @@ def test_port_sources_import_no_jax_package():
     files = sorted((ROOT / "climb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                   ROOT / "chip_ab.py"]
     assert len(files) > 20
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    assert {"climb_tpu_torch/data/loader.py", "climb_tpu_torch/data/tokenization.py",
+            "climb_tpu_torch/data/visionlanguage/datasets.py", "climb_tpu_torch/data/cache.py",
+            "climb_tpu_torch/data/image_backbones.py", "climb_tpu_torch/native/__init__.py",
+            "climb_tpu_torch/native/build.py"} <= scanned
     bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
            if root in JAX_MODULES}
     assert not bad
