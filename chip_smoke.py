@@ -88,7 +88,29 @@ Phases, each printing one JSON line as soon as it ends:
               checkpoint: launch counts, the predictions' count and example
               order, ex/s beside phase predict's.
      Phases train and predict report the same host split.
-  9. the kernels line (every TPU kernel of climb_tpu with its port), then the
+  9. lowshot: ``climb_tpu_torch.cli.train_lowshot_multimodal.main`` at full
+              width: sequential_ft snli-ve -> nlvr2 on phase real_data's
+              root and task checkpoints (nlvr2 low-shot from the snli-ve
+              checkpoint, six epochs, so that its eval epoch 6 is hit; one
+              record, its low_shot_config the task config's), then
+              singletask_ft vcr on synthetic data (5% of 320 kept, the
+              percentage path and multiple choice). Each run: exact launch
+              counts, records, step ms by CUDA events and on the host, ex/s,
+              the host split; a profile of one nlvr2 step.
+     vision:  ``climb_tpu_torch.cli.train_vision.main`` at full width on a
+              fabricated ImageNet root (8 classes of 66 JPEGs at 500x375, 16
+              shots a class, a val of 64 with LOC_val_solution.csv) and COCO-cls
+              root (160 train and 32 val JPEGs at 640x480, 1-4 of the 80
+              categories each, half of the train file kept), two epochs each:
+              exact launch counts, results (accuracy; micro-F1), step times,
+              ex/s, host split; a profile of one imagenet step.
+     language_real: ``climb_tpu_torch.cli.train_language.main`` without
+              --synthetic on a fabricated PIQA root (64 shots, 2 choices,
+              max_len 80: S = 97), batch 32, bf16: exact launch counts, the
+              attention shapes seen, results, step times and host split.
+     Fails unless the normalize, attention forward and backward and FFN
+     kernels each ran on the vision and low-shot paths.
+ 10. the kernels line (every TPU kernel of climb_tpu with its port), then the
      card line, then the result line.
 
 Exits non-zero, before printing any result, without a card or when any phase
@@ -146,6 +168,22 @@ PREDICT_EXAMPLES = 4096  # phase predict's synthetic eval split: 64 batches of 6
 PREDICT_REAL_BATCH = 16
 PREDICT_REAL_EXAMPLES = 1024  # phase predict_real's snli-ve split: 64 batches of 16
 CHECKSUM_BATCHES = 3  # the first train batches held bit for bit against the loader's
+# phase vision: an ImageNet root (classes of 66 JPEGs at 500x375, 50 a class
+# carved for val, VISION_SHOTS a class trained) and a COCO-cls root (640x480
+# JPEGs with 1-4 of the 80 categories each, a VISION_COCO_SHARE of the train
+# file trained), two epochs each
+VISION_CLASSES, VISION_PER_CLASS, VISION_TEST, VISION_SHOTS = 8, 66, 64, 16
+VISION_COCO_TRAIN, VISION_COCO_VAL, VISION_COCO_SHARE = 160, 32, 0.5
+VISION_EPOCHS = 2
+COCO_CATEGORIES = tuple(i for i in range(1, 91) if i not in
+                        (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))  # the 80 COCO ids
+# phase lowshot: nlvr2 low-shot from phase real_data's snli-ve checkpoint for 6
+# epochs (its first eval epoch), and singletask_ft vcr on synthetic data with
+# 5% of LOWSHOT_VCR_SIZE kept
+LOWSHOT_NLVR2_EPOCHS, LOWSHOT_VCR_SIZE, LOWSHOT_VCR_EPOCHS = 6, 320, 2
+# phase language_real: a PIQA root (train file, its labels, the original dev
+# file) and its n-shot draw; piqa's max_len 80 gives S = 80 + 1 + 16
+PIQA_TRAIN, PIQA_VALID, PIQA_SHOTS, PIQA_EPOCHS, PIQA_SEQ = 400, 100, 64, 2, 97
 WORDS = tuple("""
 a an the man woman person people child children boy girl dog dogs cat cats horse bird
 group crowd player team worker street road park beach water snow grass field building
@@ -1604,8 +1642,6 @@ def fabricate_climb_root(root, seed=REAL_SEED):
     an NLVR2 image pair of mixed web sizes (PNG) per example, sentences from
     WORDS, and the vocab.txt of the words. Returns the root and its image
     count."""
-    from concurrent.futures import ThreadPoolExecutor
-
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -1631,19 +1667,8 @@ def fabricate_climb_root(root, seed=REAL_SEED):
                                               f"{stem}-img{k}.png"), w, h))
                 f.write(json.dumps({"identifier": f"{stem}-{i % 4}", "sentence": sentence(rng),
                                     "label": "True" if rng.randint(2) else "False"}) + "\n")
-    for d in {os.path.dirname(p) for p, _, _ in jobs}:
-        os.makedirs(d, exist_ok=True)
-
-    def save(job):
-        (path, w, h), i = job
-        img = photo(np.random.RandomState(seed * 1000003 + i), w, h)
-        img.save(path, quality=90) if path.endswith(".jpg") else img.save(path)
-
-    with ThreadPoolExecutor(8) as pool:
-        list(pool.map(save, zip(jobs, range(len(jobs)))))
-    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ",", "?", "!"] + list(WORDS)
-    with open(os.path.join(root, "vocab.txt"), "w") as f:
-        f.write("\n".join(dict.fromkeys(vocab)) + "\n")
+    save_photos(jobs, seed)
+    write_vocab(os.path.join(root, "vocab.txt"))
     return len(jobs)
 
 
@@ -1953,6 +1978,326 @@ def run_predict_real(torch, root, ckpt, predict_out):
     return launches
 
 
+def write_vocab(path):
+    """The vocab.txt of WORDS (with "this is an image ." in it)."""
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ",", "?", "!"] + list(WORDS)
+    with open(path, "w") as f:
+        f.write("\n".join(dict.fromkeys(vocab)) + "\n")
+
+
+def save_photos(jobs, seed):
+    """Write each (path, w, h) of ``jobs``, the i-th from seed * 1000003 + i:
+    a JPEG at quality 90 (by the extension), else a PNG."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    for d in {os.path.dirname(p) for p, _, _ in jobs}:
+        os.makedirs(d, exist_ok=True)
+
+    def save(job):
+        (path, w, h), i = job
+        img = photo(np.random.RandomState(seed * 1000003 + i), w, h)
+        if path.lower().endswith((".jpg", ".jpeg")):
+            img.save(path, quality=90)
+        else:
+            img.save(path)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(save, zip(jobs, range(len(jobs)))))
+
+
+def fabricate_vision_root(root, seed=REAL_SEED + 2):
+    """An ImageNet root (ILSVRC2012/: train/<wnid>/*.JPEG, VISION_CLASSES classes
+    of VISION_PER_CLASS photos at 500x375; val/*.JPEG, VISION_TEST photos with
+    LOC_val_solution.csv) and a COCO-cls root (ms-coco/: images/<12-digit
+    id>.jpg at 640x480; detections/annotations/instances_{train,val}2017.json,
+    1-4 of the 80 categories an image), and vocab.txt. Returns the image count."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    imagenet = os.path.join(root, "ILSVRC2012")
+    jobs, rows = [], [("ImageId", "PredictionString")]
+    wnids = [f"n{1440764 + 37 * c:08d}" for c in range(VISION_CLASSES)]
+    for wnid in wnids:
+        jobs += [(os.path.join(imagenet, "train", wnid, f"{wnid}_{i}.JPEG"), 500, 375)
+                 for i in range(VISION_PER_CLASS)]
+    for i in range(VISION_TEST):
+        image_id = f"ILSVRC2012_val_{i + 1:08d}"
+        jobs.append((os.path.join(imagenet, "val", f"{image_id}.JPEG"), 500, 375))
+        rows.append((image_id, f"{wnids[rng.randint(VISION_CLASSES)]} 12 30 240 300"))
+    coco = os.path.join(root, "ms-coco")
+    annotations = {}
+    for split, n, first in (("train", VISION_COCO_TRAIN, 9), ("val", VISION_COCO_VAL, 500009)):
+        annotations[split] = []
+        for i in range(n):
+            image_id = first + 17 * i
+            jobs.append((os.path.join(coco, "images", f"{image_id:012d}.jpg"), 640, 480))
+            for cat in rng.choice(COCO_CATEGORIES, 1 + rng.randint(4), replace=False):
+                annotations[split].append({"image_id": image_id, "category_id": int(cat),
+                                           "bbox": [0.0, 0.0, 64.0, 48.0]})
+    save_photos(jobs, seed)
+    with open(os.path.join(imagenet, "LOC_val_solution.csv"), "w") as f:
+        f.write("\n".join(",".join(r) for r in rows) + "\n")
+    os.makedirs(os.path.join(coco, "detections", "annotations"))
+    for split, anns in annotations.items():
+        with open(os.path.join(coco, "detections", "annotations",
+                               f"instances_{split}2017.json"), "w") as f:
+            json.dump({"annotations": anns}, f)
+    write_vocab(os.path.join(root, "vocab.txt"))
+    return len(jobs)
+
+
+def step_summary(steps, feeds, examples_per_step):
+    """A driver's train steps: ms by CUDA events and on the host (one step's
+    start to the next's), medians over the steps after the first (and but the
+    profiled one), ex/s from the host median, and the host split."""
+    event_ms = [s[2].elapsed_time(s[3]) for s in steps[1:] if s is not None]
+    host_ms = [1e3 * (b[1] - a[1]) for a, b in zip(steps[1:], steps[2:])
+               if a is not None and b is not None]
+    return {"examples_per_step": examples_per_step,
+            "step_ms_events_median": median(event_ms), "step_ms_events": event_ms,
+            "step_ms_host_median": median(host_ms), "step_ms_host": host_ms,
+            "train_examples_per_sec": 1e3 * examples_per_step / median(host_ms),
+            "host_split": host_split(steps, feeds)}
+
+
+def driven(torch, module, run, profile_at=None, profile_what=""):
+    """Run ``run()`` with ``module``'s train steps timed and its fed batches
+    recorded, the launch counts set to 0 just before: (its value, launches,
+    seconds, steps, feeds)."""
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    steps, feeds = [], []
+    with timed_train_steps(torch, module, steps, profile_at=profile_at,
+                           profile_what=profile_what), recorded_feed(torch, module, feeds):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    return out, launches, seconds, steps, feeds
+
+
+def check_run(name, launches, expected, steps, n_steps):
+    if launches != expected:
+        raise AssertionError(f"{name} launches {launches} != expected {expected}")
+    if len(steps) != n_steps:
+        raise AssertionError(f"{name}: {len(steps)} train steps, expected {n_steps}")
+
+
+def vision_argv(root, out_dir, task, num_shot):
+    return ["--task_name", task, "--encoder_name", "vilt", "--checkpoint_name", "scratch",
+            "--pretrained_model_name", "scratch", "--num_shot", str(num_shot),
+            "--subsample_seed", "0", "--climb_data_dir", root,
+            "--vocab_path", os.path.join(root, "vocab.txt"), "--batch_size", str(TRAIN_BATCH),
+            "--compute_dtype", "bfloat16", "--attn_impl", "pallas", "--mlp_impl", "pallas",
+            "--seed", "0", "--output_dir", out_dir,
+            "--task_config_overrides", f"{task}.num_epochs={VISION_EPOCHS}"]
+
+
+def run_vision(torch, root, out_dir):
+    """The vision driver at full width on the fabricated roots: imagenet
+    (VISION_SHOTS a class, cross entropy, accuracy) and coco-cls (a
+    VISION_COCO_SHARE of the train file, multi-label BCE, micro-F1), two epochs
+    each, the dev eval at the last and the test eval; exact launch counts (the
+    normalize kernel once a batch), results, step times, host split, and a
+    profile of imagenet's last step."""
+    from climb_tpu_torch.cli import train_vision
+    from climb_tpu_torch.train import downstream
+
+    eval_batch = min(128, 4 * TRAIN_BATCH)  # train_vision's eval batch
+    coco_val = int(VISION_COCO_TRAIN * 0.1)
+    sizes = {"imagenet": (VISION_CLASSES * VISION_SHOTS, VISION_CLASSES * 50, VISION_TEST),
+             "coco-cls": (int(VISION_COCO_SHARE * VISION_COCO_TRAIN), coco_val,
+                          VISION_COCO_VAL)}
+    shots = {"imagenet": VISION_SHOTS, "coco-cls": VISION_COCO_SHARE}
+    row, launches = {"phase": "vision", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, "
+                     "vocab 30522, 384x640 canvas, S=281), random weights from seed 0, the "
+                     "image-classification head, batch 32, bf16 compute, f32 master weights "
+                     f"and AdamW moments, {VISION_EPOCHS} epochs, --mlp_impl pallas",
+                     "runs": {}}, {}
+    for task in ("imagenet", "coco-cls"):
+        n_train, n_dev, n_test = sizes[task]
+        n_steps = VISION_EPOCHS * math.ceil(n_train / TRAIN_BATCH)
+        n_eval = math.ceil(n_dev / eval_batch) + math.ceil(n_test / eval_batch)
+        profile_at = n_steps - 1 if task == "imagenet" else None
+        what = (f"one bf16 train step of the vision driver (imagenet, batch {TRAIN_BATCH}, "
+                f"S = {SEQ}, 1000-way head): forward, backward, AdamW; batch on the card")
+        argv = vision_argv(root, os.path.join(out_dir, task), task, shots[task])
+        out_fn, counts, seconds, steps, feeds = driven(
+            torch, downstream, lambda: train_vision.main(argv), profile_at, what)
+        expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
+        check_run(f"vision {task}", counts, expected, steps, n_steps)
+        with open(out_fn) as f:
+            results = json.load(f)
+        test, dev, best_epoch = results[f"nshot-{shots[task]}"]["seed-0"]
+        if best_epoch != VISION_EPOCHS or not all(
+                math.isfinite(x) and 0.0 <= x <= 100.0 for x in (test, dev)):
+            raise AssertionError(f"bad vision results {out_fn}: {results}")
+        row["runs"][task] = {
+            "metric": "micro-F1" if task == "coco-cls" else "accuracy",
+            "train_dev_test_examples": [n_train, n_dev, n_test], "n_train_steps": n_steps,
+            "n_eval_batches": n_eval, "eval_batch": eval_batch, "seconds": seconds,
+            "launches": counts, "expected_launches": expected, "results": results,
+            **step_summary(steps, feeds, TRAIN_BATCH)}
+        launches[f"vision_{task.replace('-', '_')}"] = counts
+    emit(row)
+    return launches
+
+
+def lowshot_argv(root, out_dir, tasks, algorithm, overrides, *extra):
+    return ["--encoder_name", "vilt", "--pretrained_model_name", "scratch",
+            "--ordered_cl_tasks", tasks, "--cl_algorithm", algorithm, "--climb_data_dir", root,
+            "--output_dir", out_dir, "--batch_size", str(TRAIN_BATCH),
+            "--task_config_overrides", overrides, "--compute_dtype", "bfloat16",
+            "--attn_impl", "pallas", "--mlp_impl", "pallas", "--seed", "0", *extra]
+
+
+def run_lowshot(torch, root, out_dir):
+    """The low-shot driver at full width: sequential_ft snli-ve -> nlvr2 on
+    phase real_data's data root and checkpoints (nlvr2 low-shot from the snli-ve
+    checkpoint, LOWSHOT_NLVR2_EPOCHS epochs, so that its eval epoch 6 is hit
+    once; every example kept by 2048 shots a class), then singletask_ft vcr on
+    synthetic data (5% of LOWSHOT_VCR_SIZE kept, batch 32 / 4 choices): exact
+    launch counts, the records, step times, host split and a profile of one
+    nlvr2 step."""
+    from climb_tpu_torch.cli import train_lowshot_multimodal as lowshot
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.train import trainers
+
+    row, launches = {"phase": "lowshot", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, "
+                     "vocab 30522, 384x640 canvas, S=281), bf16 compute, f32 master weights "
+                     "and AdamW moments, batch 32, --mlp_impl pallas", "runs": {}}, {}
+    pair_batch = TRAIN_BATCH // 2
+    n_steps = LOWSHOT_NLVR2_EPOCHS * math.ceil(TRAIN_SIZE / pair_batch)
+    n_eval = math.ceil(TRAIN_SIZE // 4 / pair_batch)  # one eval, at epoch 6
+    argv = lowshot_argv(root, out_dir, "snli-ve,nlvr2", "sequential_ft",
+                        f"nlvr2.num_epochs={LOWSHOT_NLVR2_EPOCHS}",
+                        "--vocab_path", os.path.join(root, "vocab.txt"))
+    what = (f"one bf16 low-shot nlvr2 train step from the snli-ve checkpoint ({pair_batch} "
+            f"pairs, S = {SEQ}), from the data root: forward, backward, AdamW")
+    results_file, counts, seconds, steps, feeds = driven(
+        torch, trainers, lambda: lowshot.main(argv), n_steps // 2, what)
+    expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
+    check_run("lowshot sequential_ft", counts, expected, steps, n_steps)
+    with open(results_file) as f:
+        records = json.load(f)
+    want = {k: v for k, v in task_configs["nlvr2"]["low_shot_config"].items() if k != "trainer"}
+    if len(records) != 1 or records[0]["low_shot_config"] != want or \
+            (records[0]["upstream_task_num"], records[0]["upstream_task_key"],
+             records[0]["lowshot_task_num"], records[0]["lowshot_task_key"]) != \
+            (0, "snli-ve", 1, "nlvr2") or not 0.0 <= records[0]["best_low_shot_score"] <= 100.0:
+        raise AssertionError(f"bad low-shot records {records}")
+    row["runs"]["sequential_real"] = {
+        "from": "phase real_data's task checkpoints and data root",
+        "n_train_examples": TRAIN_SIZE, "n_train_steps": n_steps, "n_eval_batches": n_eval,
+        "seconds": seconds, "launches": counts, "expected_launches": expected,
+        "results": records, **step_summary(steps, feeds, pair_batch)}
+    launches["lowshot"] = counts
+
+    vcr_dir = os.path.join(out_dir, "lowshot_vcr")
+    choice_batch = TRAIN_BATCH // 4
+    n_kept = int(LOWSHOT_VCR_SIZE * task_configs["vcr"]["low_shot_config"]["percentage"])
+    n_steps = LOWSHOT_VCR_EPOCHS * math.ceil(n_kept / choice_batch)
+    n_eval = math.ceil(LOWSHOT_VCR_SIZE // 4 / choice_batch)  # one eval, at epoch 2
+    argv = lowshot_argv(vcr_dir, vcr_dir, "vcr", "singletask_ft",
+                        f"vcr.num_epochs={LOWSHOT_VCR_EPOCHS}", "--synthetic",
+                        "--synthetic_train_size", str(LOWSHOT_VCR_SIZE))
+    results_file, counts, seconds, steps, feeds = driven(torch, trainers,
+                                                         lambda: lowshot.main(argv))
+    expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
+    check_run("lowshot vcr", counts, expected, steps, n_steps)
+    with open(results_file) as f:
+        records = json.load(f)
+    want = {k: v for k, v in task_configs["vcr"]["low_shot_config"].items() if k != "trainer"}
+    if len(records) != 1 or records[0]["task_key"] != "vcr" or \
+            records[0]["low_shot_config"] != want or \
+            not 0.0 <= records[0]["best_low_shot_score"] <= 100.0:
+        raise AssertionError(f"bad low-shot records {records}")
+    row["runs"]["vcr_synthetic"] = {
+        "n_train_examples": n_kept, "n_train_steps": n_steps, "n_eval_batches": n_eval,
+        "seconds": seconds, "launches": counts, "expected_launches": expected,
+        "results": records, **step_summary(steps, feeds, choice_batch)}
+    launches["lowshot_vcr"] = counts
+    emit(row)
+    return launches
+
+
+def fabricate_piqa_root(root, seed=REAL_SEED + 3):
+    """A PIQA directory as PIQAProcessor reads it (piqa/train.jsonl with
+    train-labels.lst, piqa/valid.jsonl with valid-labels.lst; a goal and two
+    solutions a row) and vocab.txt."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "piqa"))
+    for split, n in (("train", PIQA_TRAIN), ("valid", PIQA_VALID)):
+        with open(os.path.join(root, "piqa", f"{split}.jsonl"), "w") as f:
+            for _ in range(n):
+                f.write(json.dumps({"goal": sentence(rng), "sol1": sentence(rng),
+                                    "sol2": sentence(rng)}) + "\n")
+        with open(os.path.join(root, "piqa", f"{split}-labels.lst"), "w") as f:
+            f.write("\n".join(str(rng.randint(2)) for _ in range(n)) + "\n")
+    write_vocab(os.path.join(root, "vocab.txt"))
+
+
+def run_language_real(torch, root):
+    """The language driver without --synthetic on the fabricated PIQA root:
+    PIQA_SHOTS examples drawn with seed 0, two choices an example, max_len 80
+    (S = 97 with the 128x128 mean image), batch 32, bf16: exact launch counts,
+    the attention shapes seen, results, step times and host split."""
+    from climb_tpu_torch.cli import train_language
+    from climb_tpu_torch.ops import attention
+    from climb_tpu_torch.train import downstream
+
+    seen = set()
+    attention_fwd = attention.attention_fwd
+
+    def recording_fwd(q, k, v, bias):
+        seen.add(tuple(q.shape))
+        return attention_fwd(q, k, v, bias)
+
+    n_steps = PIQA_EPOCHS * math.ceil(PIQA_SHOTS / TRAIN_BATCH)
+    eval_batch = min(256, 4 * TRAIN_BATCH)  # train_downstream's eval batch
+    n_dev = int(0.3 * PIQA_TRAIN)
+    n_eval = math.ceil(n_dev / eval_batch) + math.ceil(PIQA_VALID / eval_batch)
+    with tempfile.TemporaryDirectory() as out_dir, \
+            mock.patch.object(attention, "attention_fwd", recording_fwd):
+        argv = ["--task_name", "piqa", "--encoder_name", "vilt", "--checkpoint_name", "scratch",
+                "--pretrained_model_name", "scratch", "--climb_data_dir", root,
+                "--vocab_path", os.path.join(root, "vocab.txt"), "--num_shot", str(PIQA_SHOTS),
+                "--subsample_seed", "0", "--batch_size", str(TRAIN_BATCH),
+                "--compute_dtype", "bfloat16", "--attn_impl", "pallas", "--mlp_impl", "pallas",
+                "--seed", "0", "--output_dir", out_dir,
+                "--task_config_overrides", f"piqa.num_epochs={PIQA_EPOCHS}"]
+        out_fn, launches, seconds, steps, feeds = driven(
+            torch, downstream, lambda: train_language.main(argv))
+        with open(out_fn) as f:
+            results = json.load(f)
+    expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
+    check_run("language_real", launches, expected, steps, n_steps)
+    tail = (PIQA_SEQ, HEADS, HEAD_DIM)
+    if seen != {(2 * TRAIN_BATCH,) + tail, (2 * eval_batch,) + tail}:
+        raise AssertionError(f"the attention kernel saw shapes {sorted(seen)}, expected S = "
+                             f"{PIQA_SEQ} at two choices of the train and eval batches")
+    test, dev, best_epoch = results[f"nshot-{PIQA_SHOTS}"]["seed-0"]
+    if os.path.basename(out_fn) != "piqa_scratch_results.json" or best_epoch != PIQA_EPOCHS \
+            or not all(math.isfinite(x) and 0.0 <= x <= 100.0 for x in (test, dev)):
+        raise AssertionError(f"bad language_real results {out_fn}: {results}")
+    emit({"phase": "language_real", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, "
+          "vocab 30522), 80 text positions tiled from 40, 128x128 mean image, S = "
+          f"{PIQA_SEQ}; random weights from seed 0, piqa from the fabricated root "
+          f"({PIQA_SHOTS} of {PIQA_TRAIN - n_dev} train examples, {n_dev} dev, {PIQA_VALID} "
+          f"test; 2 choices), WordPiece of the root's vocab, batch {TRAIN_BATCH}, bf16",
+          "seconds": seconds, "launches": launches, "expected_launches": expected,
+          "n_train_steps": n_steps, "n_eval_batches": n_eval,
+          "attention_shapes_seen": sorted(seen), "results": results,
+          **step_summary(steps, feeds, TRAIN_BATCH)})
+    return launches
+
+
 def ptxas_resources(report):
     """{mangled kernel name: {"registers", "spill_bytes"}} from nvcc -Xptxas -v."""
     import re
@@ -2097,6 +2442,22 @@ def main() -> int:
             torch, root, os.path.join(work, "out"))
         predict_root = fabricate_predict_root(root, os.path.join(work, "predict_data"))
         launches["predict_real"] = run_predict_real(torch, predict_root, ckpt, predict_out)
+        launches.update(run_lowshot(torch, root, os.path.join(work, "out")))
+        vision_root = os.path.join(work, "vision_data")
+        t0 = time.perf_counter()
+        n_images = fabricate_vision_root(vision_root)
+        emit({"phase": "vision_root", "root": "fabricated in a temporary directory",
+              "seed": REAL_SEED + 2, "images": n_images, "seconds": time.perf_counter() - t0})
+        launches.update(run_vision(torch, vision_root, os.path.join(work, "vision_out")))
+        piqa_root = os.path.join(work, "piqa_data")
+        fabricate_piqa_root(piqa_root)
+        launches["language_real"] = run_language_real(torch, piqa_root)
+    # the Phase II paths of this slice run the normalize, attention and FFN kernels
+    for path in ("vision_imagenet", "vision_coco_cls", "lowshot", "lowshot_vcr"):
+        missing = [k for k in ("normalize_u8", "attention_fwd", "attention_bwd", "mlp_fwd")
+                   if launches[path][k] < 1]
+        if missing:
+            raise AssertionError(f"path {path} launched no {missing}: {launches[path]}")
 
     # every TPU kernel of climb_tpu with its port's numbers from this run. Each
     # kernel's launches are those of the path it belongs to (the forward kernels

@@ -82,8 +82,8 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="With --synthetic, shrink the VQA label space to this many "
                              "answers (0 = keep the real 3,129).")
     parser.add_argument("--synthetic_vision_labels", type=int, default=0,
-                        help="With --synthetic, shrink a vision task's label space (Phase "
-                             "II; read by no ported driver).")
+                        help="With --synthetic, shrink a vision task's label space to this "
+                             "many classes (0 = keep the real count) in the vision driver.")
     parser.add_argument("--task_config_overrides", type=str, default="",
                         help="Comma list of task.key=value hyperparameter overrides of the "
                              "in-memory task configs, e.g. 'snli-ve.num_epochs=2'.")
@@ -111,7 +111,10 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="The port installs no SIGTERM handler yet, so this changes "
                              "nothing: a killed run resumes from its last epoch's state.")
     parser.add_argument("--eval_every_epoch", action="store_true",
-                        help="Accepted as in the JAX CLI; both trainers evaluate every epoch.")
+                        help="The Phase II language and vision drivers evaluate every "
+                             "epoch instead of the reference's epoch>5-and-even gate; the VL "
+                             "trainers evaluate every epoch (low-shot: their eval_epochs) "
+                             "either way.")
     parser.add_argument("--remat", action="store_true", help="Not ported yet (remat).")
     parser.add_argument("--remat_policy", type=str, default="full",
                         choices=["full", "dots", "selective"], help="Not ported yet (remat).")

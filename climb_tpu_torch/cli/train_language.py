@@ -5,16 +5,19 @@ Loads an upstream encoder checkpoint, builds a sequence-classification or
 multiple-choice classifier over it, feeds the mean image as the vacuous visual
 input (one canvas shared by the batch), reallocates the text and image
 sequence budget when max_len > 40 (a 128x128 image), trains, and writes the
-nested ``{task}_{upstream}_results.json``. Runs on the card unless
-``--device cpu`` is given.
-
-Not ported yet (each raises): ViLT-BERT, and real language data with its
-tokenizer (no vocabulary file is in the repository): pass ``--synthetic``.
+nested ``{task}_{upstream}_results.json``. The data comes from the task's
+directory under ``--climb_data_dir`` (``climb_tpu_torch.data.language``,
+tokenized by the WordPiece of ``--vocab_path``; ``--num_shot`` examples, or
+examples a class, drawn with ``--subsample_seed``), or is synthetic with
+``--synthetic``. IMDb and SST-2 are read from local JSON-lines files only
+(``data/language/text_processors.py``). Runs on the card unless ``--device
+cpu`` is given. ViLT-BERT is not ported yet: it raises.
 
 Usage:
-  python -m climb_tpu_torch.cli.train_language --task_name imdb \\
+  python -m climb_tpu_torch.cli.train_language --task_name piqa \\
       --encoder_name vilt --checkpoint_name scratch \\
-      --pretrained_model_name scratch --synthetic --output_dir out
+      --pretrained_model_name scratch --climb_data_dir DATA \\
+      --vocab_path DATA/vocab.txt --num_shot 64 --subsample_seed 0 --output_dir out
 """
 
 import argparse
@@ -34,8 +37,10 @@ from climb_tpu_torch.cli.common import (
 from climb_tpu_torch.configs.model_configs import model_configs
 from climb_tpu_torch.configs.task_configs import task_configs
 from climb_tpu_torch.data.image_pipeline import process_image
+from climb_tpu_torch.data.language import build_language_dataset
 from climb_tpu_torch.data.mean_image import load_mean_image
 from climb_tpu_torch.data.synthetic import SyntheticTextDataset
+from climb_tpu_torch.data.tokenization import load_tokenizer
 from climb_tpu_torch.device import resolve_device
 from climb_tpu_torch.models.surgery import reallocate_text_image
 from climb_tpu_torch.models.vilt import ViltClassifier
@@ -88,12 +93,7 @@ def main(argv=None):
     if args.encoder_name != "vilt":
         raise NotImplementedError(
             f"--encoder_name {args.encoder_name}: only 'vilt' is ported to climb_tpu_torch "
-            "(ViLT-BERT comes with a later slice)")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "real language datasets are not ported to climb_tpu_torch yet (the Phase II "
-            "datasets slice; the WordPiece tokenizer is ported and reads --vocab_path); "
-            "pass --synthetic")
+            "(ViLT-BERT comes with the ViLT-BERT slice)")
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     set_seed(args)
@@ -132,11 +132,24 @@ def main(argv=None):
     model.vilt.load_state_dict(encoder_sd)
     model.to(device).eval()
 
-    n_choices = num_labels if is_mc else None
-    sizes = [args.synthetic_train_size, max(8, args.synthetic_train_size // 4)] * 2
-    datasets = tuple(
-        SyntheticTextDataset(size, num_labels, model_type, n_choices, max_len, seed=args.seed + i)
-        for i, size in enumerate(sizes))[:3]
+    if args.synthetic:
+        n_choices = num_labels if is_mc else None
+        sizes = [args.synthetic_train_size, max(8, args.synthetic_train_size // 4)] * 2
+        datasets = tuple(
+            SyntheticTextDataset(size, num_labels, model_type, n_choices, max_len,
+                                 seed=args.seed + i)
+            for i, size in enumerate(sizes))[:3]
+    else:
+        tok = load_tokenizer(args.tokenizer, args.vocab_path)
+        data_dir = task_config["data_dir"]
+        if data_dir and not os.path.isabs(data_dir):
+            data_dir = os.path.join(args.climb_data_dir, data_dir)
+        datasets = (
+            build_language_dataset(args.task_name, data_dir, "train", max_len, args.num_shot,
+                                   args.subsample_seed, tok),
+            build_language_dataset(args.task_name, data_dir, "val", max_len, tokenizer=tok),
+            build_language_dataset(args.task_name, data_dir, "test", max_len, tokenizer=tok),
+        )
 
     best, test, best_epoch, _ = train_downstream(
         args, model, task_config, datasets, "mc_ce" if is_mc else "ce", device,

@@ -26,8 +26,17 @@ vilt_lang_mc_config = {
     "batch2inputs_converter": "vilt_mc",
 }
 
+vilt_vision_cls_config = {
+    "encoder_dim": 768,
+    "visual_input_type": "pil-image",
+    "encoder_class": "vilt",
+    "classifier_class": "vilt_image_classification",
+    "batch2inputs_converter": "vilt_single",
+}
+
 model_configs = {
     "vilt": vilt_config,
+    "vilt-v-cls": vilt_vision_cls_config,
     "vilt-l-seq": vilt_lang_seq_config,
     "vilt-l-mc": vilt_lang_mc_config,
 }

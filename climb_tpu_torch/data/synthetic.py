@@ -1,5 +1,6 @@
 """Synthetic vision-language examples (the port's copy of
-``climb_tpu/data/synthetic.py``'s ``SyntheticVLDataset``).
+``climb_tpu/data/synthetic.py``'s ``SyntheticVLDataset``, with its low-shot
+subsets, ``convert_to_low_shot`` and ``SubsetDataset``).
 
 Deterministic per index and seed, and equal to the JAX package's examples for
 the same arguments, so both packages can serve the same synthetic split.
@@ -125,6 +126,42 @@ class SyntheticVLDataset:
         else:
             ex["labels"] = np.int32(label)
         return ex
+
+    def convert_to_low_shot(self, percentage: Optional[float] = None,
+                            num_shots_per_class: Optional[int] = None, seed: int = 0):
+        """The low-shot train subset (reference convert_to_low_shot, e.g.
+        vqa_dataset.py:173-187, nlvr2_dataset.py:118-134): a share of the
+        examples, or up to ``num_shots_per_class`` of each class, drawn from a
+        generator of ``seed``; the kept indices are sorted."""
+        rng = np.random.RandomState(seed)
+        if percentage is not None:
+            n = max(1, int(self.size * percentage))
+            keep = rng.choice(self.size, size=n, replace=False)
+        else:
+            keep = []
+            for c in np.unique(self.labels):
+                idx = np.where(self.labels == c)[0]
+                keep.extend(rng.choice(idx, size=min(num_shots_per_class, len(idx)),
+                                       replace=False))
+            keep = np.asarray(keep)
+        return SubsetDataset(self, np.sort(keep))
+
+
+class SubsetDataset:
+    """The examples of ``base`` at ``indices``, in that order."""
+
+    def __init__(self, base, indices):
+        self.base = base
+        self.indices = np.asarray(indices)
+        self.labels = getattr(base, "labels", None)
+        if self.labels is not None:
+            self.labels = self.labels[self.indices]
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.base[int(self.indices[i])]
 
 
 class SyntheticTextDataset:

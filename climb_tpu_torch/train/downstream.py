@@ -4,10 +4,14 @@ AdamW with the poly-warmup schedule from the task config, an eval on the dev
 set only when ``epoch > 5 and epoch % 2 == 0`` (the reference's gate) or at the
 last epoch, the best parameters kept (copied off the card), a final test eval
 with them, and the nested ``{task}_{upstream}_results.json`` keyed
-``nshot-N/seed-S -> (test, dev, best_epoch)``.
+``nshot-N/seed-S -> (test, dev, best_epoch)``. A trainability mask, where the
+caller gives one, zeroes the AdamW updates of the frozen parameters.
 
-Trainability masks (ViLT-BERT) and the aspect and text buckets are not ported:
-they raise.
+The batches come from the prefetching loader (``--num_workers`` workers;
+pinned in host memory on the card) and are copied ahead to the card by
+``device_prefetch``, for training and both evals, as in the Phase I trainer.
+
+The aspect and text buckets are not ported: they raise.
 """
 
 import json
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from climb_tpu_torch.data.collation import stack_collate
-from climb_tpu_torch.data.loader import DataLoader
+from climb_tpu_torch.data.loader import DataLoader, device_prefetch
 from climb_tpu_torch.train.eval_step import make_eval_step
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_state import TrainState
@@ -54,20 +58,22 @@ def eval_classifier(model, dataset, batch_size, loss_type, device, extra_batch=N
     """Accuracy (micro-F1 for multilabel) of ``model`` over a dataset;
     ``extra_batch`` holds device tensors merged into every batch."""
     eval_step = make_eval_step(model, None, loss_type, model.cfg.compute_dtype)
-    loader = DataLoader(dataset, batch_size, stack_collate, num_workers=num_workers)
+    loader = DataLoader(dataset, batch_size, stack_collate, num_workers=num_workers,
+                        pin_memory=torch.device(device).type == "cuda")
     extra = extra_batch or {}
+    batches = device_prefetch(loader, device)
     if loss_type == "bce_multilabel":
         labels_all, preds_all = [], []
-        for batch in loader:
-            valid = batch["valid"].astype(bool)
-            logits, _, _ = eval_step(dict(to_device(batch, device), **extra))
+        for batch in batches:
+            logits, _, _ = eval_step(dict(batch, **extra))
+            valid = batch["valid"].bool().cpu().numpy()
             preds = torch.sigmoid(logits.to(torch.float32)).cpu().numpy() > 0.5
-            labels_all.append(np.asarray(batch["labels"]).astype(bool)[valid])
+            labels_all.append(batch["labels"].bool().cpu().numpy()[valid])
             preds_all.append(preds[valid])
         return micro_f1(np.concatenate(labels_all), np.concatenate(preds_all))
     total, count = 0.0, 0.0
-    for batch in loader:
-        _, s, c = eval_step(dict(to_device(batch, device), **extra))
+    for batch in batches:
+        _, s, c = eval_step(dict(batch, **extra))
         total += float(s)
         count += float(c)
     return 100.0 * total / max(count, 1.0)
@@ -88,7 +94,8 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
     num_epochs = task_config["num_epochs"]
     num_workers = getattr(args, "num_workers", 2)
     train_loader = DataLoader(train_ds, args.batch_size, stack_collate, shuffle=True,
-                              seed=args.seed, num_workers=num_workers)
+                              seed=args.seed, num_workers=num_workers,
+                              pin_memory=torch.device(device).type == "cuda")
     tx = make_optimizer(
         [n for n, _ in model.named_parameters()], lr=task_config["lr"],
         total_steps=len(train_loader) * num_epochs, warmup_ratio=task_config["warmup_ratio"],
@@ -105,8 +112,8 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
     for epoch in range(1, num_epochs + 1):
         train_loader.set_epoch(epoch)
         t0, seen = time.time(), 0
-        for batch in train_loader:
-            train_step(state, dict(to_device(batch, device), **extra))
+        for batch in device_prefetch(train_loader, device):
+            train_step(state, dict(batch, **extra))
             seen += args.batch_size
         # the reference's eval gate: epoch > 5 and epoch % 2 == 0
         if eval_gate or (epoch > 5 and epoch % 2 == 0) or epoch == num_epochs:

@@ -26,8 +26,14 @@ through the prefetching loader (``--num_workers`` workers of
 ahead to the card by ``device_prefetch`` for the train, eval and forgetting
 passes.
 
-Not ported yet: the low-shot variants (``LowShotVLTaskTrainer``) and
-mid-epoch SIGTERM checkpoints.
+The low-shot variants (``LowShotVLTaskTrainer``, the ``low_shot_*`` trainers
+of the task configs' ``low_shot_config``) train on the subset that the train
+split's ``convert_to_low_shot`` keeps (a percentage, or shots per class,
+drawn from ``--seed``), evaluate only at the config's ``eval_epochs``, and,
+when training ends before any of them, keep the final parameters and score
+those.
+
+Not ported yet: mid-epoch SIGTERM checkpoints.
 """
 
 import logging
@@ -86,6 +92,7 @@ class VLTaskTrainer:
     task_trainer.py:5-14)."""
 
     task_key: str = None  # set by the registry's variants
+    low_shot: bool = False
 
     def __init__(self, args, task_configs, model_config, device, task_key: str = None):
         task_key = task_key or self.task_key
@@ -101,6 +108,7 @@ class VLTaskTrainer:
         self.adam_epsilon = tc["adam_epsilon"]
         self.warmup_ratio = tc["warmup_ratio"]
         self.batch_size = max(1, args.batch_size // batch_divisor(tc))
+        self.eval_epochs = None  # every epoch; the low-shot variants name theirs
         self.best_epoch = -1
         self._build_datasets()
         self.max_steps = len(self.train_dataloader) * self.num_epochs
@@ -121,6 +129,8 @@ class VLTaskTrainer:
         else:
             self.train_dataset, self.eval_dataset = build_vl_datasets(args, self.task_key,
                                                                       self.task_cfg)
+        if self.low_shot:
+            self._convert_low_shot()
         loader_args = dict(num_workers=getattr(args, "num_workers", 2),
                            worker_mode=getattr(args, "worker_mode", "thread"),
                            pin_memory=torch.device(self.device).type == "cuda")
@@ -130,6 +140,16 @@ class VLTaskTrainer:
         eval_bs = max(1, eval_bs // batch_divisor(self.task_cfg)) if eval_bs else self.batch_size
         self.eval_dataloader = DataLoader(self.eval_dataset, eval_bs, stack_collate,
                                           **loader_args)
+
+    def _convert_low_shot(self):
+        ls = self.task_cfg["low_shot_config"]
+        if ls["type"] == "percentage":
+            self.train_dataset = self.train_dataset.convert_to_low_shot(
+                percentage=ls["percentage"], seed=self.args.seed)
+        else:
+            self.train_dataset = self.train_dataset.convert_to_low_shot(
+                num_shots_per_class=ls["num_shots_per_class"], seed=self.args.seed)
+        self.eval_epochs = ls["eval_epochs"]
 
     def get_train_dataloader(self):
         return self.train_dataloader
@@ -213,14 +233,15 @@ class VLTaskTrainer:
                                 global_step, float(metrics["loss"]), extra,
                                 seen / max(time.time() - t0, 1e-9))
             dt = time.time() - t0
-            score = self.eval(model)
-            logger.info("task=%s epoch %d/%d: score=%.2f (%.1f ex/s)", self.task_key, epoch,
-                        self.num_epochs, score, seen / max(dt, 1e-6))
-            if score > best_score:
-                best_score, self.best_epoch = score, epoch
-                best_params = _host_copy(model)
-                if best_path and save_every:
-                    save_state_dict(best_params, best_path)
+            if self.eval_epochs is None or epoch in self.eval_epochs:
+                score = self.eval(model)
+                logger.info("task=%s epoch %d/%d: score=%.2f (%.1f ex/s)", self.task_key,
+                            epoch, self.num_epochs, score, seen / max(dt, 1e-6))
+                if score > best_score:
+                    best_score, self.best_epoch = score, epoch
+                    best_params = _host_copy(model)
+                    if best_path and save_every:
+                        save_state_dict(best_params, best_path)
             if state_path and save_every and epoch % save_every == 0:
                 save_train_state(state, {
                     "epoch": epoch, "global_step": global_step, "best_score": best_score,
@@ -229,7 +250,7 @@ class VLTaskTrainer:
                         pickle.dumps(py_random.getstate()), dtype=np.uint8).copy()),
                 }, state_path)
 
-        if best_params is None:  # no epoch ran: keep the final parameters
+        if best_params is None:  # no eval epoch was hit: keep the final parameters
             best_params, best_score = _host_copy(model), self.eval(model)
         if state_path and os.path.exists(state_path):
             os.remove(state_path)  # the task checkpoint supersedes it
@@ -261,18 +282,31 @@ class VLTaskTrainer:
         return self.eval(model, params)
 
 
-def _variant(key: str):
-    return type(f"{key.replace('-', '_').upper()}Trainer", (VLTaskTrainer,), {"task_key": key})
+class LowShotVLTaskTrainer(VLTaskTrainer):
+    """The low-shot variant (reference LowShot*Trainer classes, e.g.
+    train_snli_ve.py:269-347): the low-shot train subset, the config's eval
+    epochs, and no CL hooks."""
+
+    low_shot = True
+
+    def train(self, model: torch.nn.Module, replay_memory=None, ewc=None, distill=None):
+        if replay_memory is not None or ewc is not None or distill is not None:
+            logger.warning("low-shot training ignores the CL algorithm's hooks (reference "
+                           "LowShot*Trainer, e.g. train_snli_ve.py:269-347)")
+        return super().train(model)
 
 
-TRAINER_REGISTRY = {key: _variant(key) for key in ("vqa", "nlvr2", "snli-ve", "vcr")}
+def _variant(base, key: str):
+    return type(f"{key.replace('-', '_').upper()}Trainer", (base,), {"task_key": key})
+
+
+TASKS = ("vqa", "nlvr2", "snli-ve", "vcr")
+TRAINER_REGISTRY = {
+    **{key: _variant(VLTaskTrainer, key) for key in TASKS},
+    **{f"low_shot_{key}": _variant(LowShotVLTaskTrainer, key) for key in TASKS},
+}
 
 
 def get_task_trainer_class(name: str):
-    """The trainer of a task config's ``trainer`` name. The low-shot trainers
-    of Phase II are not ported yet."""
-    if name not in TRAINER_REGISTRY:
-        raise NotImplementedError(
-            f"trainer {name!r} is not ported to climb_tpu_torch yet (the low-shot trainers "
-            "come with the Phase II low-shot driver)")
+    """The trainer of a task config's ``trainer`` name."""
     return TRAINER_REGISTRY[name]

@@ -1,5 +1,5 @@
-"""Shared set-up of the ``test_torch_data_*.py`` and
-``test_torch_real_data_driver.py`` files (no tests here).
+"""Shared set-up of the ``test_torch_data_*.py``, ``test_torch_phase2_*.py``
+and ``test_torch_real_data_driver.py`` files (no tests here).
 
 The JAX package's native libraries are compiled from its sources, with its
 flags (``climb_tpu/native/build.py``), into a private directory and put in
@@ -50,6 +50,19 @@ def jax_native_route(tmp_path_factory):
     jax_native(mp, tmp_path_factory.mktemp("jax_native"))
     yield
     mp.undo()
+
+
+def jit_flax_init(mp: pytest.MonkeyPatch) -> None:
+    """Jit the JAX drivers' ``module.init`` until ``mp`` is undone (it runs op
+    by op otherwise, most of a tiny JAX driver run's time). The port's side
+    of a driver test loads the parameters the JAX driver made, so both still
+    start from the same ones."""
+    import flax.linen
+    import jax
+
+    real_init = flax.linen.Module.init
+    mp.setattr(flax.linen.Module, "init", lambda self, rngs, *a, **kw: jax.jit(
+        lambda r, *b: real_init(self, r, *b, **kw))(rngs, *a))
 
 
 def copy_root(src, dst) -> str:

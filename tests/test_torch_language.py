@@ -82,7 +82,7 @@ def test_language_task_configs_equal_jax(task):
     assert task_configs[task] == jax_task_configs[task]
 
 
-@pytest.mark.parametrize("key", ["vilt", "vilt-l-seq", "vilt-l-mc"])
+@pytest.mark.parametrize("key", ["vilt", "vilt-l-seq", "vilt-l-mc", "vilt-v-cls"])
 def test_model_configs_equal_jax(key):
     assert model_configs[key] == jax_model_configs[key]
 
@@ -354,7 +354,7 @@ def test_language_driver_matches_jax(run, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,match", [
     (["--encoder_name", "viltbert"], "ViLT-BERT"),
-    (["--no_synthetic"], "tokenizer"),
+    (["--no_synthetic"], "imdb_train.jsonl"),
     (["--pretrained_model_name", "dandelin/vilt-b32-mlm"], "not ported"),
     (["--text_buckets", "16,40"], "not ported"),
     (["--remat"], "not ported"),
@@ -362,13 +362,18 @@ def test_language_driver_matches_jax(run, tmp_path, monkeypatch):
 ])
 def test_unported_language_flags_raise(flags, match, tmp_path):
     argv = _argv(tmp_path, "sst2") + ["--device", "cpu"]
+    error = NotImplementedError
     if flags == ["--no_synthetic"]:
+        # real data: imdb is read from local jsonl files only, and its task
+        # config names no directory for them
         argv.remove("--synthetic")
+        argv[argv.index("sst2")] = "imdb"
+        error = FileNotFoundError
     elif flags[0] in argv:
         argv[argv.index(flags[0]) + 1] = flags[1]
     else:
         argv += flags
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         port.main(argv)
 
 
@@ -382,7 +387,10 @@ def test_new_modules_import_no_jax_package():
     """The modules of this path import torch and the port only (exact
     top-level names: ``climb_tpu_torch`` is not ``climb_tpu``)."""
     new = ["ops/block.py", "models/surgery.py", "data/mean_image.py", "data/image_pipeline.py",
-           "configs/model_configs.py", "train/downstream.py", "cli/train_language.py"]
+           "configs/model_configs.py", "train/downstream.py", "cli/train_language.py",
+           "cli/train_lowshot_multimodal.py", "cli/train_vision.py", "data/vision/__init__.py",
+           "data/vision/datasets.py", "data/language/__init__.py",
+           "data/language/text_processors.py", "data/language/text_dataset.py"]
     for rel in new:
         path = ROOT / "climb_tpu_torch" / rel
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

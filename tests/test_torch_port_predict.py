@@ -100,6 +100,10 @@ def test_predict_without_card_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict",
                                     "climb_tpu_torch.cli.train_upstream_continual_learning",
                                     "climb_tpu_torch.cli.train_language",
+                                    "climb_tpu_torch.cli.train_lowshot_multimodal",
+                                    "climb_tpu_torch.cli.train_vision",
+                                    "climb_tpu_torch.data.vision",
+                                    "climb_tpu_torch.data.language",
                                     "climb_tpu_torch.data.loader",
                                     "climb_tpu_torch.data.visionlanguage",
                                     "climb_tpu_torch.data.tokenization",
@@ -133,7 +137,10 @@ def test_port_sources_import_no_jax_package():
     assert {"climb_tpu_torch/data/loader.py", "climb_tpu_torch/data/tokenization.py",
             "climb_tpu_torch/data/visionlanguage/datasets.py", "climb_tpu_torch/data/cache.py",
             "climb_tpu_torch/data/image_backbones.py", "climb_tpu_torch/native/__init__.py",
-            "climb_tpu_torch/native/build.py"} <= scanned
+            "climb_tpu_torch/native/build.py", "climb_tpu_torch/cli/train_lowshot_multimodal.py",
+            "climb_tpu_torch/cli/train_vision.py", "climb_tpu_torch/data/vision/datasets.py",
+            "climb_tpu_torch/data/language/text_processors.py",
+            "climb_tpu_torch/data/language/text_dataset.py"} <= scanned
     bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
            if root in JAX_MODULES}
     assert not bad
