@@ -110,7 +110,25 @@ Phases, each printing one JSON line as soon as it ends:
               attention shapes seen, results, step times and host split.
      Fails unless the normalize, attention forward and backward and FFN
      kernels each ran on the vision and low-shot paths.
- 10. the kernels line (every TPU kernel of climb_tpu with its port), then the
+ 10. viltbert: ``--encoder_name viltbert`` (ViLT-B/32 fed by a frozen
+              BERT-base, 512 positions, vocab 30522; random weights from
+              seed 0, bf16, f32 master weights) through the Phase I driver
+              (sequential_ft snli-ve -> nlvr2, 256 synthetic examples a task,
+              one epoch each: BERT bit-equal before and after, the ViLT side
+              moved, step ms by events and on the host, ex/s, peak memory),
+              predict from its nlvr2 checkpoint (16 batches), the low-shot
+              driver from its checkpoints (nlvr2 from snli-ve, one epoch),
+              the language driver on phase language_real's PIQA root (S = 97,
+              two epochs) and the vision driver on phase vision's ImageNet
+              root (two epochs); each run's launch counts exact and equal to
+              the ViLT path's for the same steps (BERT runs plain PyTorch, no
+              kernel) and BERT bit-unchanged by training. Then phase
+              viltbert_train_paths: three f32 train steps, kernel path against
+              plain path (the loss and the ViLT side's gradients, at phase
+              train_paths' tolerances; no gradient may reach BERT), the bf16
+              step, a profile of it, and BERT's forward against the step: ms
+              to dispatch and on the card, its shares, its kernel launches.
+ 11. the kernels line (every TPU kernel of climb_tpu with its port), then the
      card line, then the result line.
 
 Exits non-zero, before printing any result, without a card or when any phase
@@ -184,6 +202,8 @@ LOWSHOT_NLVR2_EPOCHS, LOWSHOT_VCR_SIZE, LOWSHOT_VCR_EPOCHS = 6, 320, 2
 # phase language_real: a PIQA root (train file, its labels, the original dev
 # file) and its n-shot draw; piqa's max_len 80 gives S = 80 + 1 + 16
 PIQA_TRAIN, PIQA_VALID, PIQA_SHOTS, PIQA_EPOCHS, PIQA_SEQ = 400, 100, 64, 2, 97
+# phase viltbert: predict's nlvr2 batches from the Phase I run's checkpoint
+VILTBERT_PREDICT_BATCHES = 16
 WORDS = tuple("""
 a an the man woman person people child children boy girl dog dogs cat cats horse bird
 group crowd player team worker street road park beach water snow grass field building
@@ -776,11 +796,14 @@ def profile_step(torch, step, batch, what, top=12):
             by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    emit({"phase": "profile", "what": what,
-          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-          "top": [{"name": name[:96], "calls": calls, "ms": us / 1e3}
-                  for name, (calls, us) in rows]})
+    row = {"phase": "profile", "what": what,
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+           "kernel_launches": sum(calls for calls, _ in by_name.values()),
+           "top": [{"name": name[:96], "calls": calls, "ms": us / 1e3}
+                   for name, (calls, us) in rows]}
+    emit(row)
+    return row
 
 
 def plain_path():
@@ -980,12 +1003,14 @@ def run_train(torch, fused=False):
     tasks = ["snli-ve"] if fused else ["snli-ve", "nlvr2"]
     with tempfile.TemporaryDirectory() as out_dir, timed_train_steps(torch, trainers, steps), \
             recorded_feed(torch, trainers, feeds):
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
         driver.main(train_argv(out_dir, fused))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
         exp = os.path.join(out_dir, "vilt-singletask_ft-task0_snli-ve" if fused else
                            "vilt-sequential_ft-task0_snli-ve-task1_nlvr2")
         with open(os.path.join(exp, "results.json")) as f:
@@ -1022,7 +1047,7 @@ def run_train(torch, fused=False):
            + ("singletask_ft snli-ve" if fused else "sequential_ft snli-ve -> nlvr2")
            + ", one epoch each, bf16 compute, f32 master weights and AdamW moments",
            "seconds": seconds, "launches": launches, "n_train_steps": n_steps,
-           "n_eval_batches": n_eval, "results": results,
+           "n_eval_batches": n_eval, "results": results, "peak_memory_bytes": peak,
            "forgetting_snli_ve_after_nlvr2": forgetting,
            "host_split": host_split(steps, feeds), **train_step_times(steps, n_steps)}
     emit(row)
@@ -1086,11 +1111,68 @@ def check_f32_paths(torch, k_losses, p_losses, k_grads, p_grads):
                 for r, n, d, f in worst[:4]]}
 
 
-def compare_train_paths(torch, attn_impl="pallas"):
+def viltbert_argv(argv):
+    """A driver's argv with ``--encoder_name viltbert``."""
+    argv = list(argv)
+    argv[argv.index("--encoder_name") + 1] = "viltbert"
+    return argv
+
+
+def frozen_under_viltbert(name):
+    """ViLT-BERT's parameters that no gradient reaches: the frozen BERT and
+    ViLT's word embeddings, whose place BERT's output takes."""
+    return ".bert." in name or name.endswith(".vilt.word_embeddings.weight")
+
+
+def host_and_device_ms(torch, fn, iters=5):
+    """Medians over ``iters`` calls of ``fn`` after one warm-up: ms on the
+    host to dispatch it (nothing waits for the card) and ms by CUDA events."""
+    fn()
+    host, device = [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t))
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    return median(host), median(device)
+
+
+def bert_share(torch, model, step, batch):
+    """ViLT-BERT's BERT forward against the whole bf16 train step on one
+    batch: ms to dispatch and ms on the card of each, BERT's shares, and
+    BERT's kernel launches in a profile of its forward alone."""
+    bert = model.encoder.bert
+    inputs = (batch["input_ids"], batch["text_mask"], batch.get("token_type_ids"))
+
+    def bert_forward():
+        with torch.no_grad():
+            bert(*inputs)
+
+    step_host, step_device = host_and_device_ms(torch, lambda: step(batch))
+    bert_host, bert_device = host_and_device_ms(torch, bert_forward)
+    prof = profile_step(torch, lambda _: bert_forward(), None,
+                        f"ViLT-BERT's BERT forward alone (snli-ve, batch {TRAIN_BATCH} x "
+                        f"{TEXT} tokens, bf16), as in the train step")
+    return {"step_ms_host": step_host, "step_ms_events": step_device,
+            "bert_forward_ms_host": bert_host, "bert_forward_ms_events": bert_device,
+            "bert_share_of_host_dispatch": bert_host / step_host,
+            "bert_share_of_device_time": bert_device / step_device,
+            "bert_forward_kernel_launches": prof["kernel_launches"],
+            "bert_tokens": int(batch["input_ids"].numel())}
+
+
+def compare_train_paths(torch, attn_impl="pallas", encoder="vilt"):
     """Three f32 train steps of one snli-ve batch through the kernel path and
     the plain path from the same weights, then the bf16 step time of both
     and a profile of one bf16 train step. Returns the bf16 step ms of the
-    kernel path."""
+    kernel path. With ``encoder`` 'viltbert' the gradients held are the ViLT
+    side's (no gradient may reach BERT), and the bf16 row adds BERT's share
+    of the step (``bert_share``)."""
     from climb_tpu_torch.cli import train_upstream_continual_learning as driver
     from climb_tpu_torch.configs.task_configs import task_configs
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
@@ -1099,11 +1181,15 @@ def compare_train_paths(torch, attn_impl="pallas"):
     from climb_tpu_torch.train.train_step import make_train_step
 
     fused = attn_impl == "fused_block"
+    viltbert = encoder == "viltbert"
     dev = torch.device("cuda")
-    row = {"phase": "train_paths", "attn_impl": attn_impl}
+    row = {"phase": "viltbert_train_paths" if viltbert else "train_paths",
+           "attn_impl": attn_impl}
     for dtype in ("float32", "bfloat16"):
         with tempfile.TemporaryDirectory() as out_dir:
             argv = train_argv(out_dir, fused)
+            if viltbert:
+                argv = viltbert_argv(argv)
             argv[argv.index("--ordered_cl_tasks") + 1] = "snli-ve"
             argv[argv.index("bfloat16")] = dtype
             args = driver.build_parser().parse_args(argv)
@@ -1125,6 +1211,13 @@ def compare_train_paths(torch, attn_impl="pallas"):
                     if i == 0:
                         grads = {n: None if p.grad is None else p.grad.clone()
                                  for n, p in model.named_parameters()}
+                        if viltbert:
+                            reached = [n for n in grads if frozen_under_viltbert(n)
+                                       and grads[n] is not None]
+                            if reached:
+                                raise AssertionError(f"a gradient reached {reached[:4]}")
+                            grads = {n: g for n, g in grads.items()
+                                     if not frozen_under_viltbert(n)}
                 ms = time_ms(torch, lambda: step(state, batch), iters=3, warmup=1)
             return losses, grads, ms, step, state
 
@@ -1144,8 +1237,11 @@ def compare_train_paths(torch, attn_impl="pallas"):
         else:
             profile_step(torch, lambda b: k_step(k_state, b), batch,
                          f"one bf16 train step (snli-ve, batch {TRAIN_BATCH}, --attn_impl "
-                         f"{attn_impl}) of the kernel path: forward, backward, AdamW; batch "
-                         "on the card")
+                         f"{attn_impl}, {encoder}) of the kernel path: forward, backward, "
+                         "AdamW; batch on the card")
+            if viltbert:
+                out["bert_share"] = bert_share(torch, model, lambda b: k_step(k_state, b),
+                                               batch)
         row[dtype] = out
         del model, trainer, batch, initial, k_grads, p_grads, k_state
         torch.cuda.synchronize()
@@ -2097,13 +2193,32 @@ def vision_argv(root, out_dir, task, num_shot):
             "--task_config_overrides", f"{task}.num_epochs={VISION_EPOCHS}"]
 
 
-def run_vision(torch, root, out_dir):
+@contextlib.contextmanager
+def bert_held(torch, target, name, held):
+    """Patch ``target.name(first, model, ...)`` (a trainer's ``train``, a
+    Phase II driver's ``train_downstream``) so that each call appends to
+    ``held`` whether the model's BERT came out bit-equal to how it went in."""
+    real = getattr(target, name)
+
+    def checked(first, model, *a, **kw):
+        before = {k: v.clone() for k, v in model.state_dict().items() if ".bert." in k}
+        out = real(first, model, *a, **kw)
+        after = model.state_dict()
+        held.append(bool(before) and all(torch.equal(after[k], v) for k, v in before.items()))
+        return out
+
+    with mock.patch.object(target, name, checked):
+        yield
+
+
+def run_vision(torch, root, out_dir, tasks=("imagenet", "coco-cls"), encoder="vilt"):
     """The vision driver at full width on the fabricated roots: imagenet
     (VISION_SHOTS a class, cross entropy, accuracy) and coco-cls (a
     VISION_COCO_SHARE of the train file, multi-label BCE, micro-F1), two epochs
     each, the dev eval at the last and the test eval; exact launch counts (the
     normalize kernel once a batch), results, step times, host split, and a
-    profile of imagenet's last step."""
+    profile of imagenet's last step. With ``encoder`` 'viltbert' each run
+    must leave BERT bit-unchanged."""
     from climb_tpu_torch.cli import train_vision
     from climb_tpu_torch.train import downstream
 
@@ -2113,12 +2228,14 @@ def run_vision(torch, root, out_dir):
              "coco-cls": (int(VISION_COCO_SHARE * VISION_COCO_TRAIN), coco_val,
                           VISION_COCO_VAL)}
     shots = {"imagenet": VISION_SHOTS, "coco-cls": VISION_COCO_SHARE}
-    row, launches = {"phase": "vision", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, "
-                     "vocab 30522, 384x640 canvas, S=281), random weights from seed 0, the "
-                     "image-classification head, batch 32, bf16 compute, f32 master weights "
-                     f"and AdamW moments, {VISION_EPOCHS} epochs, --mlp_impl pallas",
-                     "runs": {}}, {}
-    for task in ("imagenet", "coco-cls"):
+    viltbert = encoder == "viltbert"
+    row, launches = {"phase": "viltbert_vision" if viltbert else "vision",
+                     "config": VILTBERT_CONFIG if viltbert else "ViLT-B/32 (12 x 768, 12 "
+                     "heads, FFN 3072, vocab 30522, 384x640 canvas, S=281), random weights "
+                     "from seed 0, the image-classification head, batch 32, bf16 compute, f32 "
+                     f"master weights and AdamW moments, {VISION_EPOCHS} epochs, --mlp_impl "
+                     "pallas", "runs": {}}, {}
+    for task in tasks:
         n_train, n_dev, n_test = sizes[task]
         n_steps = VISION_EPOCHS * math.ceil(n_train / TRAIN_BATCH)
         n_eval = math.ceil(n_dev / eval_batch) + math.ceil(n_test / eval_batch)
@@ -2126,10 +2243,18 @@ def run_vision(torch, root, out_dir):
         what = (f"one bf16 train step of the vision driver (imagenet, batch {TRAIN_BATCH}, "
                 f"S = {SEQ}, 1000-way head): forward, backward, AdamW; batch on the card")
         argv = vision_argv(root, os.path.join(out_dir, task), task, shots[task])
-        out_fn, counts, seconds, steps, feeds = driven(
-            torch, downstream, lambda: train_vision.main(argv), profile_at, what)
+        held = []
+        with contextlib.ExitStack() as patches:
+            if viltbert:
+                argv = viltbert_argv(argv)
+                patches.enter_context(bert_held(torch, train_vision, "train_downstream", held))
+            out_fn, counts, seconds, steps, feeds = driven(
+                torch, downstream, lambda: train_vision.main(argv), profile_at,
+                f"{what}, {encoder}")
         expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
-        check_run(f"vision {task}", counts, expected, steps, n_steps)
+        check_run(f"{row['phase']} {task}", counts, expected, steps, n_steps)
+        if viltbert and held != [True]:
+            raise AssertionError(f"{row['phase']} {task}: BERT moved in training ({held})")
         with open(out_fn) as f:
             results = json.load(f)
         test, dev, best_epoch = results[f"nshot-{shots[task]}"]["seed-0"]
@@ -2142,7 +2267,7 @@ def run_vision(torch, root, out_dir):
             "n_eval_batches": n_eval, "eval_batch": eval_batch, "seconds": seconds,
             "launches": counts, "expected_launches": expected, "results": results,
             **step_summary(steps, feeds, TRAIN_BATCH)}
-        launches[f"vision_{task.replace('-', '_')}"] = counts
+        launches[f"{row['phase']}_{task.replace('-', '_')}"] = counts
     emit(row)
     return launches
 
@@ -2225,6 +2350,158 @@ def run_lowshot(torch, root, out_dir):
     return launches
 
 
+VILTBERT_CONFIG = ("ViLT-B/32 (12 x 768, 12 heads, FFN 3072, vocab 30522, 384x640 canvas, "
+                   "S=281) fed by a frozen BERT-base (12 x 768, 12 heads, FFN 3072, 512 "
+                   "positions, vocab 30522), random weights from seed 0, batch 32, bf16 "
+                   "compute, f32 master weights and AdamW moments, --mlp_impl pallas")
+
+
+def run_viltbert(torch, work, vision_root, piqa_root, vilt_train_launches):
+    """Phase viltbert: ``--encoder_name viltbert`` at full width through the
+    Phase I driver (sequential_ft snli-ve -> nlvr2 on TRAIN_SIZE synthetic
+    examples a task, one epoch each, with eval), predict from its nlvr2
+    checkpoint (VILTBERT_PREDICT_BATCHES batches), the low-shot driver from its
+    checkpoints (nlvr2 from snli-ve, one epoch), the language driver on
+    phase language_real's PIQA root and the vision driver on phase vision's
+    ImageNet root, then the f32 kernel path against the plain path and BERT's
+    share of a bf16 train step. Each run: launch counts exact and the ViLT
+    path's for the same steps (BERT launches no kernel), BERT bit-unchanged
+    by training; the Phase I run also moves the ViLT side and reports its
+    step times, ex/s and peak memory."""
+    from climb_tpu_torch.cli import predict
+    from climb_tpu_torch.cli import train_lowshot_multimodal as lowshot
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.train import trainers
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(work, "viltbert_out")
+    exp = os.path.join(out_dir, "viltbert-sequential_ft-task0_snli-ve-task1_nlvr2")
+    row, launches = {"phase": "viltbert", "config": VILTBERT_CONFIG}, {}
+
+    made = {}
+    create = driver.create_cl_model
+
+    def recording_create(*a, **kw):
+        model = made["model"] = create(*a, **kw)
+        made["initial"] = {k: v.clone() for k, v in model.state_dict().items()}
+        return model
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(driver, "create_cl_model", recording_create):
+        _, counts, seconds, steps, feeds = driven(
+            torch, trainers, lambda: driver.main(viltbert_argv(train_argv(out_dir))))
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = {"snli-ve": math.ceil(TRAIN_SIZE / TRAIN_BATCH),
+               "nlvr2": math.ceil(TRAIN_SIZE / (TRAIN_BATCH // 2))}
+    n_train = sum(n_steps.values())
+    n_eval = 2 * math.ceil(TRAIN_SIZE // 4 / TRAIN_BATCH) + math.ceil(
+        TRAIN_SIZE // 4 / (TRAIN_BATCH // 2))
+    expected = expected_launches(False, n_train + n_eval, n_train, n_train + n_eval)
+    check_run("viltbert train", counts, expected, steps, n_train)
+    if counts != vilt_train_launches:
+        raise AssertionError(f"viltbert train launches {counts} != the ViLT path's "
+                             f"{vilt_train_launches}")
+    model, initial = made.pop("model"), made.pop("initial")
+    after = model.state_dict()
+    bert = [k for k in initial if k.startswith("viltbert.bert.")]
+    moved_bert = [k for k in bert if not torch.equal(after[k], initial[k])]
+    moved_vilt = [k for k in initial if k.startswith("viltbert.vilt.")
+                  and not torch.equal(after[k], initial[k])]
+    if not bert or moved_bert or not moved_vilt:
+        raise AssertionError(f"viltbert train: BERT moved {moved_bert[:4]} of {len(bert)}; "
+                             f"{len(moved_vilt)} ViLT tensors moved")
+    n_params = {side: sum(v.numel() for k, v in initial.items()
+                          if k.startswith(f"viltbert.{side}.")) for side in ("bert", "vilt")}
+    del model, initial, after
+    with open(os.path.join(exp, "results.json")) as f:
+        results = json.load(f)
+    if [r["task_key"] for r in results] != ["snli-ve", "nlvr2"] or not all(
+            0.0 <= r["best_score"] <= 100.0 for r in results):
+        raise AssertionError(f"bad viltbert results {results}")
+    row["train"] = {"algorithm": "sequential_ft snli-ve -> nlvr2, one epoch each, with eval",
+                    "seconds": seconds, "launches": counts, "expected_launches": expected,
+                    "n_train_steps": n_steps, "n_eval_batches": n_eval, "results": results,
+                    "n_params": n_params, "peak_memory_bytes": peak,
+                    "bert_tensors_bit_equal": len(bert), "vilt_tensors_moved": len(moved_vilt),
+                    "host_split": host_split(steps, feeds), **train_step_times(steps, n_steps)}
+    launches["viltbert_train"] = counts
+
+    # predict: nlvr2 from its task checkpoint
+    pred_dir = os.path.join(work, "viltbert_predict")
+    n_pred = VILTBERT_PREDICT_BATCHES * (TRAIN_BATCH // 2)
+    argv = ["--encoder_name", "viltbert", "--ordered_cl_tasks", "snli-ve,nlvr2",
+            "--task_key", "nlvr2", "--checkpoint",
+            os.path.join(exp, "checkpoints", "task1_nlvr2", "model"), "--synthetic",
+            "--synthetic_train_size", str(4 * n_pred), "--batch_size", str(TRAIN_BATCH),
+            "--compute_dtype", "bfloat16", "--attn_impl", "pallas", "--mlp_impl", "pallas",
+            "--seed", "0", "--output_dir", pred_dir,
+            "--output_file", os.path.join(pred_dir, "predictions.json")]
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    steps, feeds = [], []
+    with timed_eval_steps(torch, predict, steps), \
+            recorded_feed(torch, predict, feeds, train_only=False):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = predict.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    expected = expected_launches(False, VILTBERT_PREDICT_BATCHES, 0, VILTBERT_PREDICT_BATCHES)
+    if counts != expected or len(steps) != VILTBERT_PREDICT_BATCHES:
+        raise AssertionError(f"viltbert predict launches {counts} != expected {expected} "
+                             f"({len(steps)} batches)")
+    preds = out["predictions"]
+    if not (out["n_examples"] == len(preds) == n_pred and set(preds) <= {0, 1}
+            and 0.0 <= out["metric"] <= 100.0):
+        raise AssertionError(f"bad viltbert predict output: {out['n_examples']} examples, "
+                             f"metric {out['metric']}")
+    row["predict"] = {"task": "nlvr2, from the Phase I run's task checkpoint",
+                      "n_examples": n_pred, "n_batches": VILTBERT_PREDICT_BATCHES,
+                      "metric": out["metric"], "examples_per_sec": out["examples_per_sec"],
+                      "seconds": seconds, "launches": counts,
+                      "step_ms_events_median": median([s[2].elapsed_time(s[3])
+                                                       for s in steps][1:]),
+                      "step_ms_host_median": median([1e3 * (b[1] - a[1]) for a, b in
+                                                     zip(steps, steps[1:])][1:])}
+    launches["viltbert_predict"] = counts
+
+    # low-shot nlvr2 from the snli-ve checkpoint: one epoch, below its first
+    # eval epoch, so its final parameters are scored once
+    pair_batch = TRAIN_BATCH // 2
+    n_steps = math.ceil(TRAIN_SIZE / pair_batch)
+    n_eval = math.ceil(TRAIN_SIZE // 4 / pair_batch)
+    argv = viltbert_argv(lowshot_argv(out_dir, out_dir, "snli-ve,nlvr2", "sequential_ft",
+                                      "nlvr2.num_epochs=1", "--synthetic",
+                                      "--synthetic_train_size", str(TRAIN_SIZE)))
+    held = []
+    with bert_held(torch, trainers.LowShotVLTaskTrainer, "train", held):
+        results_file, counts, seconds, steps, feeds = driven(torch, trainers,
+                                                             lambda: lowshot.main(argv))
+    expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
+    check_run("viltbert lowshot", counts, expected, steps, n_steps)
+    with open(results_file) as f:
+        records = json.load(f)
+    want = {k: v for k, v in task_configs["nlvr2"]["low_shot_config"].items() if k != "trainer"}
+    if held != [True] or len(records) != 1 or records[0]["low_shot_config"] != want or \
+            not 0.0 <= records[0]["best_low_shot_score"] <= 100.0:
+        raise AssertionError(f"bad viltbert low-shot run: BERT held {held}, records {records}")
+    row["lowshot"] = {"from": "the Phase I run's task checkpoints", "seconds": seconds,
+                      "launches": counts, "expected_launches": expected,
+                      "n_train_steps": n_steps, "n_eval_batches": n_eval, "results": records,
+                      **step_summary(steps, feeds, pair_batch)}
+    launches["viltbert_lowshot"] = counts
+    emit(row)
+
+    launches["viltbert_language_real"] = run_language_real(torch, piqa_root, "viltbert")
+    launches.update(run_vision(torch, vision_root, os.path.join(work, "viltbert_vision_out"),
+                               ("imagenet",), "viltbert"))
+    compare_train_paths(torch, "pallas", "viltbert")
+    emit({"phase": "viltbert_done", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches
+
+
 def fabricate_piqa_root(root, seed=REAL_SEED + 3):
     """A PIQA directory as PIQAProcessor reads it (piqa/train.jsonl with
     train-labels.lst, piqa/valid.jsonl with valid-labels.lst; a goal and two
@@ -2243,11 +2520,13 @@ def fabricate_piqa_root(root, seed=REAL_SEED + 3):
     write_vocab(os.path.join(root, "vocab.txt"))
 
 
-def run_language_real(torch, root):
+def run_language_real(torch, root, encoder="vilt"):
     """The language driver without --synthetic on the fabricated PIQA root:
     PIQA_SHOTS examples drawn with seed 0, two choices an example, max_len 80
     (S = 97 with the 128x128 mean image), batch 32, bf16: exact launch counts,
-    the attention shapes seen, results, step times and host split."""
+    the attention shapes seen, results, step times and host split. With
+    ``encoder`` 'viltbert' BERT runs on the 80 text tokens and must come out
+    bit-unchanged."""
     from climb_tpu_torch.cli import train_language
     from climb_tpu_torch.ops import attention
     from climb_tpu_torch.train import downstream
@@ -2263,9 +2542,14 @@ def run_language_real(torch, root):
     eval_batch = min(256, 4 * TRAIN_BATCH)  # train_downstream's eval batch
     n_dev = int(0.3 * PIQA_TRAIN)
     n_eval = math.ceil(n_dev / eval_batch) + math.ceil(PIQA_VALID / eval_batch)
-    with tempfile.TemporaryDirectory() as out_dir, \
-            mock.patch.object(attention, "attention_fwd", recording_fwd):
-        argv = ["--task_name", "piqa", "--encoder_name", "vilt", "--checkpoint_name", "scratch",
+    viltbert = encoder == "viltbert"
+    phase = "viltbert_language_real" if viltbert else "language_real"
+    held = []
+    with tempfile.TemporaryDirectory() as out_dir, contextlib.ExitStack() as patches:
+        patches.enter_context(mock.patch.object(attention, "attention_fwd", recording_fwd))
+        if viltbert:
+            patches.enter_context(bert_held(torch, train_language, "train_downstream", held))
+        argv = ["--task_name", "piqa", "--encoder_name", encoder, "--checkpoint_name", "scratch",
                 "--pretrained_model_name", "scratch", "--climb_data_dir", root,
                 "--vocab_path", os.path.join(root, "vocab.txt"), "--num_shot", str(PIQA_SHOTS),
                 "--subsample_seed", "0", "--batch_size", str(TRAIN_BATCH),
@@ -2277,7 +2561,9 @@ def run_language_real(torch, root):
         with open(out_fn) as f:
             results = json.load(f)
     expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval)
-    check_run("language_real", launches, expected, steps, n_steps)
+    check_run(phase, launches, expected, steps, n_steps)
+    if viltbert and held != [True]:
+        raise AssertionError(f"{phase}: BERT moved in training ({held})")
     tail = (PIQA_SEQ, HEADS, HEAD_DIM)
     if seen != {(2 * TRAIN_BATCH,) + tail, (2 * eval_batch,) + tail}:
         raise AssertionError(f"the attention kernel saw shapes {sorted(seen)}, expected S = "
@@ -2285,9 +2571,10 @@ def run_language_real(torch, root):
     test, dev, best_epoch = results[f"nshot-{PIQA_SHOTS}"]["seed-0"]
     if os.path.basename(out_fn) != "piqa_scratch_results.json" or best_epoch != PIQA_EPOCHS \
             or not all(math.isfinite(x) and 0.0 <= x <= 100.0 for x in (test, dev)):
-        raise AssertionError(f"bad language_real results {out_fn}: {results}")
-    emit({"phase": "language_real", "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072, "
-          "vocab 30522), 80 text positions tiled from 40, 128x128 mean image, S = "
+        raise AssertionError(f"bad {phase} results {out_fn}: {results}")
+    emit({"phase": phase, "config": ("BERT-base (12 x 768, FFN 3072, 512 positions) feeding "
+                                     if viltbert else "") + "ViLT-B/32 (12 x 768, 12 heads, "
+          "FFN 3072, vocab 30522), 80 text positions tiled from 40, 128x128 mean image, S = "
           f"{PIQA_SEQ}; random weights from seed 0, piqa from the fabricated root "
           f"({PIQA_SHOTS} of {PIQA_TRAIN - n_dev} train examples, {n_dev} dev, {PIQA_VALID} "
           f"test; 2 choices), WordPiece of the root's vocab, batch {TRAIN_BATCH}, bf16",
@@ -2452,6 +2739,7 @@ def main() -> int:
         piqa_root = os.path.join(work, "piqa_data")
         fabricate_piqa_root(piqa_root)
         launches["language_real"] = run_language_real(torch, piqa_root)
+        launches.update(run_viltbert(torch, work, vision_root, piqa_root, launches["train"]))
     # the Phase II paths of this slice run the normalize, attention and FFN kernels
     for path in ("vision_imagenet", "vision_coco_cls", "lowshot", "lowshot_vcr"):
         missing = [k for k in ("normalize_u8", "attention_fwd", "attention_bwd", "mlp_fwd")

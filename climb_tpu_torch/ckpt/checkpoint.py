@@ -3,8 +3,11 @@
 After each task the driver saves the whole model to
 ``checkpoints/task{n}_{key}/model`` and the encoder alone to ``.../encoder``
 with ``torch.save`` in the reference torch layout (``vilt_encoder.vilt.*`` +
-``task_layer.*``, and ``vilt.*``), which the reference CLiMB and
-``climb_tpu``'s ``load_params`` read unchanged. That layout has no adapters,
+``task_layer.*``, and ``vilt.*``; for ViLT-BERT, encoder key ``viltbert``,
+``viltbert_encoder.{vilt,bert}.*`` + ``task_layer.*``, and ``vilt.*`` +
+``bert.*``: the encoder file holds both sides, as JAX's ``encoder_key``
+export does), which the reference CLiMB and ``climb_tpu``'s
+``load_params`` read unchanged. That layout has no adapters,
 so an adapter run also writes ``.../adapters``, the ``adapter_*`` parameters
 by their port names (the JAX package's msgpack ``model`` file holds them in
 its tree); ``load_model_file`` reads a ``model`` file together with the
@@ -69,12 +72,14 @@ def task_checkpoint_exists(output_dir: str, task_num: int, task_key: str) -> boo
 
 
 def save_task_checkpoint(output_dir: str, task_num: int, task_key: str,
-                         state_dict: Dict[str, torch.Tensor]):
-    """The full model and the encoder alone, in the reference torch layout,
-    and the adapters, if the model has any, in the port's ``adapters`` file."""
+                         state_dict: Dict[str, torch.Tensor], encoder_key: str = "vilt"):
+    """The full model and its encoder (under ``encoder_key``) alone, in the
+    reference torch layout, and the adapters, if the model has any, in the
+    port's ``adapters`` file."""
     d = task_dir(output_dir, task_num, task_key)
-    _save_atomic(reference_from_state_dict(state_dict, "model"), os.path.join(d, "model"))
-    _save_atomic(reference_from_state_dict(state_dict, "encoder"), os.path.join(d, "encoder"))
+    for kind in ("model", "encoder"):
+        _save_atomic(reference_from_state_dict(state_dict, kind, encoder_key),
+                     os.path.join(d, kind))
     adapters = {k: v for k, v in state_dict.items() if is_adapter_param(k)}
     if adapters:
         save_state_dict(adapters, os.path.join(d, "adapters"))

@@ -1,21 +1,28 @@
 """The weight bridge between the port's ``state_dict`` and other layouts.
 
 - ``state_dict_from_jax(tree)``: a JAX parameter tree (nested dict of numpy
-  arrays, as ``climb_tpu``'s ``create_cl_model`` makes it).
+  arrays, as ``climb_tpu``'s ``create_cl_model`` makes it): a learner's or a
+  classifier's (``vilt`` or ``viltbert`` plus heads), or a bare ``ViltCore``,
+  ``BertCore`` or ``ViltBertCore`` tree.
 - ``state_dict_from_reference(sd)``: the reference torch layout that
   ``climb_tpu``'s ``save_reference_checkpoint`` and the reference CLiMB
-  write: a model file, ``vilt_encoder.vilt.*`` (HF ``ViltModel`` names) plus
+  write (``climb_tpu/ckpt/torch_import.py:100-135``): a model file,
+  ``vilt_encoder.vilt.*`` or ViLT-BERT's ``viltbert_encoder.{vilt,bert}.*``
+  (HF ``ViltModel`` and ``BertModel`` names) plus
   ``task_layer.<task>.{0,1,3}.*`` or ``task_layer.<task>.1.*``; an encoder
-  file, ``vilt.*``; or a bare HF ``ViltModel`` state dict, ``embeddings.*``.
-- ``reference_from_state_dict(sd, kind)``: the inverse, the port's copy of
-  ``climb_tpu/ckpt/torch_import.py::export_torch_state_dict`` for ViLT
+  file, ``vilt.*`` (and ViLT-BERT's ``bert.*``); a bare HF ``ViltModel``
+  state dict, ``embeddings.*``; or BERT alone, a bare HF ``BertModel`` state
+  dict or ``bert.*`` (the layout of HF's BERT pretraining files).
+- ``reference_from_state_dict(sd, kind, encoder_key)``: the inverse, the
+  port's copy of ``climb_tpu/ckpt/torch_import.py::export_torch_state_dict``
   (kind 'model', 'encoder' or 'hf').
 
-Dense kernels (in, out) become ``nn.Linear`` weights (out, in); the patch
-projection keeps the (patch_row, patch_col, channel) flatten order of
-``ops.patch_embed.patchify``. ``state_dict_from_jax`` carries the adapter
-and LoRA leaves (``adapter_*`` under the stacked encoder) across, one slice
-of the layer axis per block; the reference layout has no adapters, so
+The port's names are the JAX tree's: a ViLT learner's encoder is ``vilt.*``,
+ViLT-BERT's ``viltbert.vilt.*`` and ``viltbert.bert.*``. Dense kernels (in,
+out) become ``nn.Linear`` weights (out, in), one slice of the stacked layer
+axis per block; the HF names are mapped by ``models.hf_import``.
+``state_dict_from_jax`` carries the adapter and LoRA leaves (``adapter_*``
+under the stacked encoder) across; the reference layout has no adapters, so
 ``reference_from_state_dict`` leaves them out, as ``climb_tpu``'s
 ``torch_import.py`` does. Native flax msgpack checkpoints are not read:
 they need flax.
@@ -29,6 +36,14 @@ import numpy as np
 import torch
 
 from climb_tpu_torch.configs.task_configs import task_configs
+from climb_tpu_torch.models.hf_import import (
+    BERT_LAYER_NAMES,
+    VILT_BLOCK_NAMES,
+    bert_from_hf,
+    bert_to_hf,
+    vilt_from_hf,
+    vilt_to_hf,
+)
 from climb_tpu_torch.models.vilt import head_name
 
 logger = logging.getLogger(__name__)
@@ -36,18 +51,8 @@ logger = logging.getLogger(__name__)
 _TORCH_ZIP_MAGIC = b"PK\x03\x04"
 _PICKLE_MAGIC = b"\x80"
 
-# port block name -> HF ViltLayer name
-_BLOCK_NAMES = {
-    "ln1": "layernorm_before",
-    "q": "attention.attention.query",
-    "k": "attention.attention.key",
-    "v": "attention.attention.value",
-    "attn_out": "attention.output.dense",
-    "ln2": "layernorm_after",
-    "fc1": "intermediate.dense",
-    "fc2": "output.dense",
-}
-_LAYER_NORMS = ("ln1", "ln2")
+_LAYER_NORMS = ("ln1", "ln2", "attn_ln", "mlp_ln")
+ENCODER_KEYS = ("vilt", "viltbert")
 
 
 def _tensor(x) -> torch.Tensor:
@@ -64,6 +69,18 @@ def _layernorm_from_jax(out, prefix, p):
     out[f"{prefix}.bias"] = _tensor(p["bias"])
 
 
+def _layers_from_jax(out, stacked, names):
+    """The scan-stacked blocks (leading layer axis) as ``encoder.{i}.*``."""
+    for i in range(np.asarray(stacked["q"]["kernel"]).shape[0]):
+        for name in names:
+            leaf = {k: np.asarray(v)[i] for k, v in stacked[name].items()}
+            fn = _layernorm_from_jax if name in _LAYER_NORMS else _linear_from_jax
+            fn(out, f"encoder.{i}.{name}", leaf)
+        for name, sub in stacked.items():
+            if name.startswith("adapter_"):
+                _adapter_from_jax(out, f"encoder.{i}.{name}", sub, i)
+
+
 def _encoder_from_jax(enc: dict) -> Dict[str, torch.Tensor]:
     sd = {
         "word_embeddings.weight": _tensor(enc["word_embeddings"]),
@@ -75,17 +92,17 @@ def _encoder_from_jax(enc: dict) -> Dict[str, torch.Tensor]:
     }
     _layernorm_from_jax(sd, "text_layernorm", enc["text_layernorm"])
     _linear_from_jax(sd, "patch_projection", enc["patch_projection"])
-    stacked = enc["encoder"]
-    for i in range(np.asarray(stacked["q"]["kernel"]).shape[0]):
-        for name in _BLOCK_NAMES:
-            leaf = {k: np.asarray(v)[i] for k, v in stacked[name].items()}
-            fn = _layernorm_from_jax if name in _LAYER_NORMS else _linear_from_jax
-            fn(sd, f"encoder.{i}.{name}", leaf)
-        for name, sub in stacked.items():
-            if name.startswith("adapter_"):
-                _adapter_from_jax(sd, f"encoder.{i}.{name}", sub, i)
+    _layers_from_jax(sd, enc["encoder"], VILT_BLOCK_NAMES)
     _layernorm_from_jax(sd, "final_layernorm", enc["final_layernorm"])
     _linear_from_jax(sd, "pooler", enc["pooler"])
+    return sd
+
+
+def _bert_from_jax(bert: dict) -> Dict[str, torch.Tensor]:
+    sd = {f"{name}.weight": _tensor(bert[name])
+          for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    _layernorm_from_jax(sd, "embed_layernorm", bert["embed_layernorm"])
+    _layers_from_jax(sd, bert["encoder"], BERT_LAYER_NAMES)
     return sd
 
 
@@ -102,13 +119,24 @@ def _adapter_from_jax(out, prefix, tree, layer):
             out[f"{prefix}.{name}"] = _tensor(np.asarray(p)[layer])
 
 
+def _prefixed(prefix: str, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
 def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``ViltContinualLearner`` params (``vilt`` + ``head_<task>``), JAX
-    ``ViltClassifier`` params (``vilt`` + ``head``) or a bare ``ViltCore``
-    tree -> the state dict of the port's module of that kind."""
+    """JAX ``ViltContinualLearner``/``ViltBertContinualLearner`` params (the
+    encoder + ``head_<task>``), JAX ``ViltClassifier``/``ViltBertClassifier``
+    params (the encoder + ``head``), or a bare ``ViltCore``, ``BertCore`` or
+    ``ViltBertCore`` tree -> the state dict of the port's module of that kind."""
+    if "embed_layernorm" in tree:
+        return _bert_from_jax(tree)
     if "word_embeddings" in tree:
         return _encoder_from_jax(tree)
-    sd = {f"vilt.{k}": v for k, v in _encoder_from_jax(tree["vilt"]).items()}
+    if "bert" in tree:
+        return {**_prefixed("vilt", _encoder_from_jax(tree["vilt"])),
+                **_prefixed("bert", _bert_from_jax(tree["bert"]))}
+    key = "viltbert" if "viltbert" in tree else "vilt"
+    sd = _prefixed(key, state_dict_from_jax(tree[key]))
     for name, p in tree.items():
         if name != "head" and not name.startswith("head_"):
             continue
@@ -121,72 +149,39 @@ def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-# port encoder name -> HF ViltModel name, for the tensors that only rename
-_HF_NAMES = {
-    "word_embeddings.weight": "embeddings.text_embeddings.word_embeddings.weight",
-    "text_position_embeddings": "embeddings.text_embeddings.position_embeddings.weight",
-    "token_type_embeddings.weight": "embeddings.text_embeddings.token_type_embeddings.weight",
-    "text_layernorm.weight": "embeddings.text_embeddings.LayerNorm.weight",
-    "text_layernorm.bias": "embeddings.text_embeddings.LayerNorm.bias",
-    "cls_token": "embeddings.cls_token",
-    "patch_projection.bias": "embeddings.patch_embeddings.projection.bias",
-    "modality_type_embeddings.weight": "embeddings.token_type_embeddings.weight",
-    "final_layernorm.weight": "layernorm.weight",
-    "final_layernorm.bias": "layernorm.bias",
-    "pooler.weight": "pooler.dense.weight",
-    "pooler.bias": "pooler.dense.bias",
-}
-_CONV = "embeddings.patch_embeddings.projection.weight"  # (D, C, ph, pw)
-_POS = "embeddings.position_embeddings"                   # (1, P + 1, D)
-
-
-def _encoder_from_hf(hf: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    conv = hf[_CONV]
-    sd = {ours: hf[theirs] for ours, theirs in _HF_NAMES.items()}
-    sd["patch_projection.weight"] = conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1)
-    sd["visual_position_embeddings"] = hf[_POS][0]
-    layers = {int(m.group(1)) for k in hf for m in [re.match(r"encoder\.layer\.(\d+)\.", k)] if m}
-    for i in sorted(layers):
-        for ours, theirs in _BLOCK_NAMES.items():
-            for leaf in ("weight", "bias"):
-                sd[f"encoder.{i}.{ours}.{leaf}"] = hf[f"encoder.layer.{i}.{theirs}.{leaf}"]
-    return sd
-
-
-def _encoder_to_hf(enc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    proj = enc["patch_projection.weight"]  # (D, ph * pw * C)
-    d, rows = proj.shape
-    ph = int(round((rows // 3) ** 0.5))
-    hf = {theirs: enc[ours] for ours, theirs in _HF_NAMES.items()}
-    hf[_CONV] = proj.reshape(d, ph, ph, 3).permute(0, 3, 1, 2).contiguous()
-    hf[_POS] = enc["visual_position_embeddings"][None]
-    layers = {int(m.group(1)) for k in enc for m in [re.match(r"encoder\.(\d+)\.", k)] if m}
-    for i in sorted(layers):
-        for ours, theirs in _BLOCK_NAMES.items():
-            for leaf in ("weight", "bias"):
-                hf[f"encoder.layer.{i}.{theirs}.{leaf}"] = enc[f"encoder.{i}.{ours}.{leaf}"]
-    return hf
-
-
 def _task_key(name: str) -> str:
     """head_snli_ve -> snli-ve, resolved against the task registry."""
     return next((k for k in task_configs if head_name(k) == name), name[len("head_"):])
 
 
-def reference_from_state_dict(sd: Dict[str, torch.Tensor], kind: str = "model"):
+def _strip(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def reference_from_state_dict(sd: Dict[str, torch.Tensor], kind: str = "model",
+                              encoder_key: str = "vilt"):
     """The port's ``state_dict`` -> the reference torch layout (CPU float32
     contiguous tensors). kind 'model': ``vilt_encoder.vilt.*`` +
-    ``task_layer.*`` (the task checkpoint's ``model`` file); 'encoder':
-    ``vilt.*`` (its ``encoder`` file); 'hf': bare ``ViltModel`` names."""
+    ``task_layer.*`` (the task checkpoint's ``model`` file), for ViLT-BERT
+    (``encoder_key`` 'viltbert') ``viltbert_encoder.{vilt,bert}.*`` +
+    ``task_layer.*``; 'encoder': ``vilt.*`` (and ``bert.*``), its ``encoder``
+    file; 'hf': bare ``ViltModel`` names."""
+    if encoder_key not in ENCODER_KEYS:
+        raise ValueError(f"unknown encoder key {encoder_key!r}")
     host = {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}
-    hf = _encoder_to_hf({k[len("vilt."):]: v for k, v in host.items() if k.startswith("vilt.")})
+    enc = _strip(host, encoder_key + ".")
+    if encoder_key == "viltbert":
+        parts = {"vilt": vilt_to_hf(_strip(enc, "vilt.")), "bert": bert_to_hf(_strip(enc, "bert."))}
+    else:
+        parts = {"vilt": vilt_to_hf(enc)}
     if kind == "hf":
-        return hf
+        return parts["vilt"]
+    encoder = {f"{side}.{k}": v for side, hf in parts.items() for k, v in hf.items()}
     if kind == "encoder":
-        return {f"vilt.{k}": v for k, v in hf.items()}
+        return encoder
     if kind != "model":
         raise ValueError(f"unknown checkpoint kind {kind!r}")
-    out = {f"vilt_encoder.vilt.{k}": v for k, v in hf.items()}
+    out = {f"{encoder_key}_encoder.{k}": v for k, v in encoder.items()}
     for k, v in host.items():
         m = re.match(r"(head_[^.]+)\.(fc1|ln|fc2|fc)\.(weight|bias)$", k)
         if m:
@@ -196,26 +191,36 @@ def reference_from_state_dict(sd: Dict[str, torch.Tensor], kind: str = "model"):
 
 
 def state_dict_from_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A reference-layout state dict (model, encoder or bare HF) -> the port's
-    ``state_dict``."""
-    hf = None
-    for prefix in ("vilt_encoder.vilt.", "vilt."):
-        if any(k.startswith(prefix) for k in sd):
-            hf = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-            break
-    if hf is None and any(k.startswith("embeddings.") for k in sd):
-        hf = sd
-    if hf is None:
-        raise ValueError("not a reference ViLT checkpoint: no 'vilt_encoder.vilt.*', "
-                         "'vilt.*' or 'embeddings.*' keys (ViLT-BERT is not ported yet)")
-    hf = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in hf.items()}
-    out = {f"vilt.{k}": v for k, v in _encoder_from_hf(hf).items()}
+    """A reference-layout state dict -> the port's ``state_dict``: ``vilt.*``
+    for a ViLT file, ``viltbert.vilt.*`` and ``viltbert.bert.*`` for a
+    ViLT-BERT file (``viltbert.bert.*`` alone for a BERT file), and the heads."""
+    sd = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()}
+    vilt = bert = None
+    if any(k.startswith("viltbert_encoder.") for k in sd):
+        vilt, bert = _strip(sd, "viltbert_encoder.vilt."), _strip(sd, "viltbert_encoder.bert.")
+    elif any(k.startswith("vilt_encoder.vilt.") for k in sd):
+        vilt = _strip(sd, "vilt_encoder.vilt.")
+    elif any(k.startswith(("vilt.", "bert.")) for k in sd):  # an encoder file
+        vilt, bert = _strip(sd, "vilt."), _strip(sd, "bert.")
+    elif "embeddings.word_embeddings.weight" in sd:  # a bare HF BertModel
+        bert = sd
+    elif any(k.startswith("embeddings.") for k in sd):  # a bare HF ViltModel
+        vilt = sd
+    if not vilt and not bert:
+        raise ValueError("not a reference ViLT or ViLT-BERT checkpoint: no "
+                         "'vilt_encoder.vilt.*', 'viltbert_encoder.*', 'vilt.*', 'bert.*' "
+                         "or 'embeddings.*' keys")
+    if bert:
+        out = _prefixed("viltbert.bert", bert_from_hf(bert))
+        if vilt:
+            out.update(_prefixed("viltbert.vilt", vilt_from_hf(vilt)))
+    else:
+        out = _prefixed("vilt", vilt_from_hf(vilt))
     heads: Dict[str, Dict[str, torch.Tensor]] = {}
     for k, v in sd.items():
         m = re.match(r"task_layer\.([^.]+)\.(\d+)\.(weight|bias)$", k)
         if m:
-            heads.setdefault(m.group(1), {})[f"{m.group(2)}.{m.group(3)}"] = (
-                torch.as_tensor(v, dtype=torch.float32))
+            heads.setdefault(m.group(1), {})[f"{m.group(2)}.{m.group(3)}"] = v
     for task, t in heads.items():
         name = head_name(task)
         if "3.weight" in t:  # classification: Linear(0) LayerNorm(1) GELU(2) Linear(3)
@@ -227,6 +232,24 @@ def state_dict_from_reference(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Te
             out[f"{name}.fc.bias"] = t["1.bias"]
         else:
             logger.warning("Unrecognized head layout for task %s: %s", task, sorted(t))
+    return out
+
+
+def with_encoder_key(sd: Dict[str, torch.Tensor], encoder_key: str) -> Dict[str, torch.Tensor]:
+    """A learner's state dict with its encoder renamed for a model under
+    ``encoder_key``: a ViLT encoder (``vilt.*``) becomes ViLT-BERT's ViLT side
+    (``viltbert.vilt.*``), and ViLT-BERT's ViLT side becomes a ViLT encoder
+    (its BERT dropped), as the JAX package grafts one into the other
+    (``model_factory.py:225-240``). Other names pass unchanged."""
+    out = {}
+    for k, v in sd.items():
+        if encoder_key == "viltbert" and k.startswith("vilt."):
+            k = "viltbert." + k
+        elif encoder_key == "vilt" and k.startswith("viltbert."):
+            if not k.startswith("viltbert.vilt."):
+                continue
+            k = k[len("viltbert."):]
+        out[k] = v
     return out
 
 

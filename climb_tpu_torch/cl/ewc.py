@@ -2,8 +2,9 @@
 reference ``src/cl_algorithms/ewc.py``).
 
 After each task but the last, the driver snapshots the encoder's parameters
-(``vilt.*``, adapters included) as the anchor and accumulates a diagonal
-Fisher: the squared gradients of the batch-mean loss, summed over train
+(``vilt.*``, or ViLT-BERT's ``viltbert.*`` with its frozen BERT, whose
+Fisher is zero as in JAX; adapters included) as the anchor and accumulates
+a diagonal Fisher: the squared gradients of the batch-mean loss, summed over train
 batches in the loader's order until ``int(pct * len(dataset))`` valid
 examples have been seen, divided by the examples seen (reference
 ewc.py:59-71). During later tasks every train step adds ``weight * sum F
@@ -52,7 +53,7 @@ class EWC:
         (in train mode, as the reference's) draws from ``generator``."""
         if task_key in self.task_keys:
             raise ValueError(f"EWC already holds task {task_key}")
-        enc = encoder_params(model)
+        enc = encoder_params(model, model.encoder_key)
         self.device = next(iter(enc.values())).device
         self.param_dict[task_key] = {n: self._store(p) for n, p in enc.items()}
 
@@ -61,7 +62,7 @@ class EWC:
         fisher_sample_size = int(self.fisher_sample_percentage * len(loader.dataset))
         fisher = {n: torch.zeros_like(p) for n, p in enc.items()}
         samples = 0
-        model.vilt.dropout_generator = generator
+        model.encoder.dropout_generator = generator
         try:
             for batch in loader:
                 batch = task_trainer.put(batch)
@@ -73,7 +74,7 @@ class EWC:
                 if samples >= fisher_sample_size:
                     break
         finally:
-            model.vilt.dropout_generator = None
+            model.encoder.dropout_generator = None
         samples = max(samples, 1)
         self.fisher_dict[task_key] = {n: self._store(f / samples) for n, f in fisher.items()}
         self.task_keys.append(task_key)

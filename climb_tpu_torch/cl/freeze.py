@@ -8,6 +8,12 @@ by weight decay. JAX stacks the encoder blocks along a leading layer axis and
 freezes the bottom k with a (num_layers, 1, ...) mask; the port's blocks are
 ``vilt.encoder.{i}.*``, so each gets its layer's 0 or 1.
 
+``encoder_key`` names the encoder: ``vilt``, or ``viltbert`` for ViLT-BERT,
+whose ViLT side (``viltbert.vilt.*``) these masks treat as ViLT's and whose
+BERT (``viltbert.bert.*``) they keep frozen. The JAX driver calls its freeze
+masks with the default key ``vilt``, which leaves BERT's leaves at 1, so that
+weight decay moves the frozen BERT there; the port does not copy that.
+
 Every mask tensor is a scalar on the parameter's device; it broadcasts over
 the parameter.
 """
@@ -47,12 +53,17 @@ def freeze_bottom_k_layers_mask(model, k: int, num_layers: int,
     def rule(names):
         if names[0] != encoder_key:
             return 1.0  # heads always train
-        if names[1] == "encoder":
-            layer = int(names[2])
+        names = names[1:]
+        if names[0] == "bert":
+            return 0.0  # ViLT-BERT's frozen text side
+        if names[0] == "vilt":
+            names = names[1:]  # ViLT-BERT's ViLT side
+        if names[0] == "encoder":
+            layer = int(names[1])
             if not 0 <= layer < num_layers:
                 raise ValueError(f"encoder layer {layer} outside 0..{num_layers - 1}")
             return 1.0 if layer >= k else 0.0
-        if names[1] in ("pooler", "final_layernorm"):
+        if names[0] in ("pooler", "final_layernorm"):
             return 1.0
         return 0.0  # embeddings (word/pos/type/modality/cls/patch projection)
 

@@ -55,7 +55,8 @@ def build_parser():
                         help="Which task head to run.")
     parser.add_argument("--checkpoint", default=None, type=str,
                         help="Model checkpoint in the reference torch layout "
-                             "(vilt_encoder.vilt.* + task_layer.*), with the "
+                             "(vilt_encoder.vilt.* + task_layer.*, or ViLT-BERT's "
+                             "viltbert_encoder.{vilt,bert}.* + task_layer.*), with the "
                              "'adapters' file beside it for an adapter run.")
     # adapter-trained checkpoints need the adapter modules rebuilt and the
     # task's adapter activated (reference evaluate_cl_algorithm.py:118-119)

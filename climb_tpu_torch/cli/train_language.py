@@ -11,7 +11,12 @@ tokenized by the WordPiece of ``--vocab_path``; ``--num_shot`` examples, or
 examples a class, drawn with ``--subsample_seed``), or is synthetic with
 ``--synthetic``. IMDb and SST-2 are read from local JSON-lines files only
 (``data/language/text_processors.py``). Runs on the card unless ``--device
-cpu`` is given. ViLT-BERT is not ported yet: it raises.
+cpu`` is given.
+
+``--encoder_name viltbert`` trains ``ViltBertClassifier`` with BERT frozen by
+its trainability mask (JAX ``train_language.py:84-145``); the long-text
+reallocation touches the ViLT side only. BERT has 512 position slots, so a
+max_len above 512 raises (the JAX driver fails on it at initialization).
 
 Usage:
   python -m climb_tpu_torch.cli.train_language --task_name piqa \\
@@ -42,8 +47,10 @@ from climb_tpu_torch.data.mean_image import load_mean_image
 from climb_tpu_torch.data.synthetic import SyntheticTextDataset
 from climb_tpu_torch.data.tokenization import load_tokenizer
 from climb_tpu_torch.device import resolve_device
+from climb_tpu_torch.models.bert import BertConfig
 from climb_tpu_torch.models.surgery import reallocate_text_image
 from climb_tpu_torch.models.vilt import ViltClassifier
+from climb_tpu_torch.models.viltbert import ViltBertClassifier, viltbert_frozen_mask
 from climb_tpu_torch.train.downstream import (
     train_downstream,
     upstream_name_from_checkpoint,
@@ -64,7 +71,8 @@ def build_parser():
     parser.add_argument("--encoder_name", required=True, type=str,
                         help="The name of the base pretrained encoder.")
     parser.add_argument("--model_catog", default=None, type=str,
-                        help="Model-config key (defaults by task type: vilt-l-seq / vilt-l-mc).")
+                        help="Model-config key (defaults by encoder and task type: "
+                             "vilt-l-seq / vilt-l-mc, viltbert-l-seq / viltbert-l-mc).")
     parser.add_argument("--checkpoint_name", required=True, type=str,
                         help="Path of the upstream encoder checkpoint ('none' for base weights).")
     parser.add_argument("--pretrained_model_name", default="dandelin/vilt-b32-mlm", type=str,
@@ -90,10 +98,6 @@ def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
     reject_unported(args)
-    if args.encoder_name != "vilt":
-        raise NotImplementedError(
-            f"--encoder_name {args.encoder_name}: only 'vilt' is ported to climb_tpu_torch "
-            "(ViLT-BERT comes with the ViLT-BERT slice)")
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     set_seed(args)
@@ -101,11 +105,17 @@ def main(argv=None):
     task_config = apply_task_config_overrides(task_configs, args.task_config_overrides)[
         args.task_name]
     is_mc = args.task_name in MC_TASKS
-    model_catog = args.model_catog or ("vilt-l-mc" if is_mc else "vilt-l-seq")
+    is_viltbert = args.encoder_name == "viltbert"
+    prefix = "viltbert" if is_viltbert else "vilt"
+    model_catog = args.model_catog or (f"{prefix}-l-mc" if is_mc else f"{prefix}-l-seq")
     if model_catog not in model_configs:
         raise ValueError(f"--model_catog {model_catog}: known {sorted(model_configs)}")
     max_len = args.max_len_override or task_config["max_len"]
     num_labels = task_config["num_labels"]
+    bert_slots = BertConfig.max_position_embeddings
+    if is_viltbert and max_len > bert_slots:
+        raise ValueError(f"max_len {max_len}: ViLT-BERT's BERT has {bert_slots} position "
+                         "slots (the JAX driver fails on it too)")
 
     cfg = vilt_config_from_args(args, needs_three_modalities=False)
     encoder_sd, cfg = load_encoder_params(
@@ -113,7 +123,8 @@ def main(argv=None):
         cfg, args.pretrained_model_name, args.seed, encoder_name=args.encoder_name)
 
     # the mean image; text and image budget reallocated for long-text tasks
-    # (reference train_language.py:67-84)
+    # (reference train_language.py:67-84), on ViLT's side: BERT's 512 position
+    # slots stay as they are (viltbert.py:60-85)
     img_size = None
     if max_len > cfg.max_text_len:
         img_size = (128, 128)
@@ -127,10 +138,12 @@ def main(argv=None):
 
     # the full classifier from the seed, the encoder's weights grafted in
     model_type = "multi-choice" if is_mc else "classification"
-    model = ViltClassifier(cfg, num_labels=num_labels, model_type=model_type)
+    classifier = ViltBertClassifier if is_viltbert else ViltClassifier
+    model = classifier(cfg, num_labels=num_labels, model_type=model_type)
     model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
-    model.vilt.load_state_dict(encoder_sd)
+    model.encoder.load_state_dict(encoder_sd)
     model.to(device).eval()
+    trainable_mask = viltbert_frozen_mask(model) if is_viltbert else None
 
     if args.synthetic:
         n_choices = num_labels if is_mc else None
@@ -153,7 +166,7 @@ def main(argv=None):
 
     best, test, best_epoch, _ = train_downstream(
         args, model, task_config, datasets, "mc_ce" if is_mc else "ce", device,
-        extra_batch=extra_batch)
+        extra_batch=extra_batch, trainable_mask=trainable_mask)
     out = write_downstream_results(
         args.num_shot, args.subsample_seed, best, test, best_epoch, task_config["task_name"],
         upstream_name_from_checkpoint(args.checkpoint_name), args.output_dir)

@@ -11,8 +11,8 @@ the sequence low-shot, each from that merged model. Each result is appended
 to ``lowshot_results.json`` with the JAX driver's record layout.
 
 A low-shot run trains the model in place, so each starts from a snapshot of
-the merged upstream parameters (with the model's trainability mask and active
-adapter), restored after it: neither a later low-shot task nor the next
+the merged upstream parameters (ViLT-BERT's frozen BERT among them, with the
+model's trainability mask and active adapter), restored after it: neither a later low-shot task nor the next
 checkpoint's merge sees weights that a low-shot run trained. Runs on the card
 unless ``--device cpu`` is given.
 
@@ -56,7 +56,8 @@ ALLOWED_CL_ENCODERS = ["vilt", "viltbert"]
 def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--encoder_name", required=True, type=str, choices=ALLOWED_CL_ENCODERS,
-                        help="The base encoder ('viltbert' is not ported yet).")
+                        help="The base encoder: ViLT, or ViLT-BERT (ViLT fed by a frozen "
+                             "BERT).")
     parser.add_argument("--pretrained_model_name", required=True, type=str)
     parser.add_argument("--ordered_cl_tasks", type=str, required=True)
     parser.add_argument("--cl_algorithm", type=str, required=True,
@@ -115,10 +116,6 @@ def main(argv=None):
         args.image_height, args.image_width = 64, 96
     for task_key in args.ordered_cl_tasks:
         assert task_key in SUPPORTED_VL_TASKS
-    if args.encoder_name != "vilt":
-        raise NotImplementedError(
-            f"--encoder_name {args.encoder_name}: only 'vilt' is ported to climb_tpu_torch "
-            "(ViLT-BERT comes with the ViLT-BERT slice)")
     reject_unported(args)
     device = resolve_device(args.device)
     configs = task_configs

@@ -8,8 +8,9 @@ results.json loop with resume-and-skip (:216-294), and the transfer and
 forgetting evaluation that writes eval_results.json (:296-327). Runs on the
 card unless ``--device cpu`` is given.
 
-Every ``--cl_algorithm`` runs, on vqa, nlvr2, snli-ve and vcr, from a CLiMB
-data root (``--climb_data_dir``, with ``--vocab_path`` for the WordPiece
+Every ``--cl_algorithm`` runs, with ``--encoder_name vilt`` or ``viltbert``
+(ViLT fed by a frozen BERT; its task checkpoints hold both sides), on vqa,
+nlvr2, snli-ve and vcr, from a CLiMB data root (``--climb_data_dir``, with ``--vocab_path`` for the WordPiece
 vocabulary) or on ``--synthetic`` data: the per-algorithm set-up (JAX driver
 :207-229: trainability masks for the freeze algorithms, the adapter handler
 before the weights are drawn), adapter activation before each trained task
@@ -80,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "train state (--save_state_epochs) and skips finished tasks.")
     parser.add_argument("--encoder_name", default=None, type=str, required=True,
                         choices=ALLOWED_CL_ENCODERS,
-                        help="The base encoder ('viltbert' is not ported yet).")
+                        help="The base encoder: ViLT, or ViLT-BERT (ViLT fed by a frozen "
+                             "BERT).")
     parser.add_argument("--pretrained_model_name", default=None, type=str, required=True,
                         help="'scratch', or a checkpoint file in the reference torch "
                              "layout; an HF hub name needs the network and leaves the "
@@ -199,10 +201,11 @@ def main(argv=None):
 
     model = create_cl_model(args, configs, device, adapter_handler=adapter_handler)
     if args.cl_algorithm == "freeze_encoder":
-        model.trainable_mask = freeze_encoder_mask(model)
+        model.trainable_mask = freeze_encoder_mask(model, model.encoder_key)
     elif args.cl_algorithm == "freeze_bottom_k_layers":
         model.trainable_mask = freeze_bottom_k_layers_mask(
-            model, k=args.layers_to_freeze, num_layers=model.cfg.num_layers)
+            model, k=args.layers_to_freeze, num_layers=model.cfg.num_layers,
+            encoder_key=model.encoder_key)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Continual learner: %s | %d task heads (%s) | %.2fM params | algorithm=%s | %s",
                 args.encoder_name, len(args.ordered_cl_tasks), ",".join(args.ordered_cl_tasks),
@@ -245,7 +248,8 @@ def _run(args, configs, output_dir, results_file, model, device, cl=None, adapte
                 logger.info("Found checkpoint for task %s: loading and skipping", task_name)
                 _, missing = partial_load(model, ckpt)
                 if missing:
-                    save_task_checkpoint(output_dir, task_num, task_key, model.state_dict())
+                    save_task_checkpoint(output_dir, task_num, task_key, model.state_dict(),
+                                         model.encoder_key)
             else:
                 if adapter_handler is not None:
                     logger.info("Activating adapters for task %s", task_name)
@@ -254,7 +258,8 @@ def _run(args, configs, output_dir, results_file, model, device, cl=None, adapte
                 best_eval_score, model = task_trainer.train(model, **cl)
                 logger.info("Best %s score = %.2f (epoch %d)", task_name, best_eval_score,
                             task_trainer.best_epoch)
-                save_task_checkpoint(output_dir, task_num, task_key, model.state_dict())
+                save_task_checkpoint(output_dir, task_num, task_key, model.state_dict(),
+                                     model.encoder_key)
                 results.append({"task_num": task_num, "task_key": task_key,
                                 "best_score": best_eval_score,
                                 "best_epoch": task_trainer.best_epoch})

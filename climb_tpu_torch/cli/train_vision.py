@@ -9,6 +9,8 @@ multi-label BCE, micro-F1 on the host), and writes the nested
 ``{task}_{upstream}_results.json``. The data comes from the task's directory
 under ``--climb_data_dir`` (``climb_tpu_torch.data.vision``), or is synthetic
 with ``--synthetic``. Runs on the card unless ``--device cpu`` is given.
+``--encoder_name viltbert`` trains ``ViltBertClassifier`` with BERT frozen by
+its trainability mask (JAX ``train_vision.py:78-104``).
 
 Usage:
   python -m climb_tpu_torch.cli.train_vision --task_name imagenet \\
@@ -37,6 +39,7 @@ from climb_tpu_torch.data.tokenization import load_tokenizer
 from climb_tpu_torch.data.vision import build_vision_dataset
 from climb_tpu_torch.device import resolve_device
 from climb_tpu_torch.models.vilt import ViltClassifier
+from climb_tpu_torch.models.viltbert import ViltBertClassifier, viltbert_frozen_mask
 from climb_tpu_torch.train.downstream import (
     train_downstream,
     upstream_name_from_checkpoint,
@@ -53,7 +56,8 @@ def build_parser():
     parser.add_argument("--task_name", required=True, type=str,
                         choices=["imagenet", "places365", "inat2019", "coco-cls"])
     parser.add_argument("--encoder_name", required=True, type=str, choices=["vilt", "viltbert"],
-                        help="The base encoder ('viltbert' is not ported yet).")
+                        help="The base encoder: ViLT, or ViLT-BERT (ViLT fed by a frozen "
+                             "BERT).")
     parser.add_argument("--model_catog", default="vilt-v-cls", type=str)
     parser.add_argument("--checkpoint_name", required=True, type=str,
                         help="Path of the upstream encoder checkpoint ('none' for base weights).")
@@ -90,10 +94,6 @@ def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
     reject_unported(args)
-    if args.encoder_name != "vilt":
-        raise NotImplementedError(
-            f"--encoder_name {args.encoder_name}: only 'vilt' is ported to climb_tpu_torch "
-            "(ViLT-BERT comes with the ViLT-BERT slice)")
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     if args.tiny:
@@ -117,10 +117,13 @@ def main(argv=None):
         None if args.checkpoint_name in ("none", "scratch") else args.checkpoint_name,
         cfg, args.pretrained_model_name, args.seed, encoder_name=args.encoder_name)
     # the full classifier from the seed, the encoder's weights grafted in
-    model = ViltClassifier(cfg, num_labels=num_labels, model_type="classification")
+    is_viltbert = args.encoder_name == "viltbert"
+    classifier = ViltBertClassifier if is_viltbert else ViltClassifier
+    model = classifier(cfg, num_labels=num_labels, model_type="classification")
     model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
-    model.vilt.load_state_dict(encoder_sd)
+    model.encoder.load_state_dict(encoder_sd)
     model.to(device).eval()
+    trainable_mask = viltbert_frozen_mask(model) if is_viltbert else None
 
     canvas = (cfg.image_height, cfg.image_width)
     if args.synthetic:
@@ -149,7 +152,7 @@ def main(argv=None):
     # eval batch 128, as the reference's non-train loaders (imagenet:163)
     best, test, best_epoch, _ = train_downstream(
         args, model, task_config, datasets, "bce_multilabel" if is_multilabel else "ce",
-        device, eval_batch_size=128)
+        device, eval_batch_size=128, trainable_mask=trainable_mask)
     out = write_downstream_results(
         n_shot, args.subsample_seed, best, test, best_epoch, task_config["task_name"],
         upstream_name_from_checkpoint(args.checkpoint_name), args.output_dir)

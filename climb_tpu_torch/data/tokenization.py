@@ -11,8 +11,8 @@ happens once in the loader, into fixed-shape (ids, mask, token types) arrays.
   the reference and the fallback.
 - ``HashTokenizer``: a deterministic hash tokenizer for synthetic and test
   pipelines (no vocab file).
-- ``load_tokenizer``: a vocab file, then a locally cached HF tokenizer, then
-  the hash tokenizer with a warning.
+- ``load_tokenizer``: a vocab file, then the hash tokenizer with a warning
+  (the port imports no transformers, so it has no HF-cache step).
 """
 
 import os
@@ -244,8 +244,10 @@ class HashTokenizer:
 
 def load_tokenizer(spec: str = "bert-base-uncased", vocab_path: Optional[str] = None):
     """Resolve a tokenizer: an explicit vocab file (the native WordPiece when
-    its library builds, else the Python one), then an HF fast tokenizer from
-    the local cache (never the network), then the hash tokenizer."""
+    its library builds, else the Python one), then the hash tokenizer. The
+    JAX package tries an HF fast tokenizer from the local cache in between;
+    the port imports no transformers, so a real vocabulary comes from a vocab
+    file (``--vocab_path``, or ``spec`` naming one)."""
     if spec == "synthetic":
         return HashTokenizer()
     path = vocab_path
@@ -258,46 +260,9 @@ def load_tokenizer(spec: str = "bert-base-uncased", vocab_path: Optional[str] = 
             return NativeWordPieceTokenizer(path)
         except Exception:
             return WordPieceTokenizer.from_vocab_file(path)
-    try:
-        from transformers import BertTokenizerFast
+    import logging
 
-        tok = BertTokenizerFast.from_pretrained(spec, local_files_only=True)
-        return _HFTokenizerAdapter(tok)
-    except Exception:
-        import logging
-
-        logging.getLogger(__name__).warning(
-            "tokenizer %s unavailable (no vocab file, no HF cache); "
-            "falling back to HashTokenizer — fine for synthetic runs only",
-            spec,
-        )
-        return HashTokenizer()
-
-
-class _HFTokenizerAdapter:
-    def __init__(self, tok):
-        self.tok = tok
-        self.pad_id = tok.pad_token_id
-
-    def encode(self, text, max_len, text_pair=None):
-        enc = self.tok(
-            text,
-            text_pair,
-            max_length=max_len,
-            padding="max_length",
-            truncation=True,
-            return_token_type_ids=True,
-        )
-        return (
-            np.asarray(enc["input_ids"], np.int32),
-            np.asarray(enc["attention_mask"], np.float32),
-            np.asarray(enc["token_type_ids"], np.int32),
-        )
-
-    def batch_encode(self, texts, max_len, pairs=None):
-        outs = [
-            self.encode(t, max_len, None if pairs is None else pairs[i])
-            for i, t in enumerate(texts)
-        ]
-        ids, mask, types = zip(*outs)
-        return np.stack(ids), np.stack(mask), np.stack(types)
+    logging.getLogger(__name__).warning(
+        "tokenizer %s unavailable (no vocab file); falling back to HashTokenizer — fine "
+        "for synthetic runs only", spec)
+    return HashTokenizer()

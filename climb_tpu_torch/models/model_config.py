@@ -14,6 +14,10 @@ import torch
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    return _TORCH_DTYPES[name]
+
+
 @dataclasses.dataclass(frozen=True)
 class ViltConfig:
     # Transformer
@@ -74,7 +78,7 @@ class ViltConfig:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return _TORCH_DTYPES[self.dtype]
+        return torch_dtype(self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -189,8 +189,13 @@ class ViltCore(nn.Module):
 
     forward(input_ids (B, L) int, text_mask (B, L) {0,1}, pixel_values
     (B, H, W, C) float normalized, patch_hw (B, 2) int, image_token_type_idx
-    (B,) int or None, token_type_ids (B, L) int or None) returns
-    (sequence_output, pooled_output, joint_mask).
+    (B,) int or None, token_type_ids (B, L) int or None, text_embeds
+    (B, L, D) or None) returns (sequence_output, pooled_output, joint_mask).
+    ``text_embeds`` takes the place of the word-embedding lookup (ViLT-BERT
+    feeds BERT's output here); the token-type and position embeddings are
+    added to it and the float32 LayerNorm follows, as JAX's
+    ``vilt_core.py:388-393`` (a bf16 ``text_embeds`` plus the f32 tables
+    promotes to f32).
     """
 
     def __init__(self, cfg: ViltConfig, adapter_spec: Optional[AdapterSpec] = None,
@@ -217,7 +222,7 @@ class ViltCore(nn.Module):
         self.active_adapter: Optional[str] = None  # the task whose adapters apply
 
     def forward(self, input_ids, text_mask, pixel_values, patch_hw,
-                image_token_type_idx=None, token_type_ids=None):
+                image_token_type_idx=None, token_type_ids=None, text_embeds=None):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         f32 = torch.float32
@@ -227,7 +232,9 @@ class ViltCore(nn.Module):
         # text embeddings, LayerNorm in f32
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        t = (self.word_embeddings(input_ids.long())
+        if text_embeds is None:
+            text_embeds = self.word_embeddings(input_ids.long())
+        t = (text_embeds
              + self.token_type_embeddings(token_type_ids.long())
              + self.text_position_embeddings[None, :l, :])
         t = layer_norm(self.text_layernorm, t, f32)

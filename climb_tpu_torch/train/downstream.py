@@ -103,7 +103,7 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
         trainable_mask=trainable_mask)
     state = TrainState.create(model, tx)
     train_step = make_train_step(model, None, loss_type, model.cfg.compute_dtype)
-    model.vilt.dropout_generator = torch.Generator(device=device).manual_seed(int(args.seed))
+    model.encoder.dropout_generator = torch.Generator(device=device).manual_seed(int(args.seed))
     extra = to_device(extra_batch or {}, device)
 
     eval_bs = min(eval_batch_size, args.batch_size * 4)
@@ -126,7 +126,7 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
                 best_params = {k: v.detach().to("cpu", copy=True)
                                for k, v in model.state_dict().items()}
 
-    model.vilt.dropout_generator = None
+    model.encoder.dropout_generator = None
     model.load_state_dict(best_params)
     test_score = eval_classifier(model, test_ds, eval_bs, loss_type, device, extra,
                                  num_workers)

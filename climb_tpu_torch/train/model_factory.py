@@ -2,12 +2,16 @@
 
 Heads for every task in the sequence, three modality-type rows when NLVR2 is
 in it, weights drawn from ``--seed`` through a ``torch.Generator``.
+``--encoder_name viltbert`` builds the ViLT-BERT learner with its frozen-BERT
+trainability mask (JAX ``model_factory.py:119-146``).
 ``--pretrained_model_name`` may name a checkpoint file in the reference torch
-layout (a model, encoder or bare HF ``ViltModel`` state dict), which is
-loaded over the initialization; a two-row modality table grows a third row,
-a copy of the image row (reference vilt.py:106-108). HF hub names need the
-network: as the JAX package does when it cannot load them, the model keeps
-its random initialization and a warning says so.
+layout (a model, encoder or bare HF ``ViltModel`` state dict; for ViLT-BERT
+also one holding BERT), which is loaded over the initialization; a two-row
+modality table grows a third row, a copy of the image row (reference
+vilt.py:106-108). HF hub names need the network: as the JAX package does when
+it cannot load them, the model keeps its random initialization and a warning
+says so. BERT's weights, too, come from a local file only (the JAX package
+downloads ``bert-base-uncased``, ``model_factory.py:211-222``).
 """
 
 import dataclasses
@@ -17,13 +21,30 @@ import os
 import torch
 
 from climb_tpu_torch.ckpt.checkpoint import load_state_dict
-from climb_tpu_torch.ckpt.convert import load_reference_checkpoint, partial_load
+from climb_tpu_torch.ckpt.convert import (
+    load_reference_checkpoint,
+    partial_load,
+    with_encoder_key,
+)
 from climb_tpu_torch.models.model_config import ViltConfig, head_specs_from_task_configs
 from climb_tpu_torch.models.surgery import expand_modality_type_embeddings
 from climb_tpu_torch.models.vilt import ViltContinualLearner
 from climb_tpu_torch.models.vilt_core import ViltCore, init_weights_
+from climb_tpu_torch.models.viltbert import (
+    ViltBertContinualLearner,
+    ViltBertCore,
+    viltbert_frozen_mask,
+)
 
 logger = logging.getLogger(__name__)
+
+LEARNERS = {"vilt": ViltContinualLearner, "viltbert": ViltBertContinualLearner}
+ENCODERS = {"vilt": ViltCore, "viltbert": ViltBertCore}
+# the reference torch layout's encoder names (model, encoder and bare HF files)
+_REFERENCE_PREFIXES = ("vilt_encoder.vilt.", "viltbert_encoder.", "vilt.embeddings.",
+                       "bert.embeddings.", "embeddings.")
+_NO_BERT = ("%s holds no BERT weights: BERT keeps its random initialization (its "
+            "weights come from a local file only)")
 
 
 def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
@@ -47,14 +68,23 @@ def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
     return ViltConfig(**kw)
 
 
+def _resolve(table: dict, encoder_name: str):
+    if encoder_name not in table:
+        raise ValueError(f"--encoder_name {encoder_name}: choose one of {sorted(table)}")
+    return table[encoder_name]
+
+
 def load_pretrained(model: ViltContinualLearner, path: str):
     """Load a reference-layout checkpoint file over the model's weights (a
-    flax msgpack file raises: it needs flax)."""
-    sd = load_reference_checkpoint(path)
-    mod = "vilt.modality_type_embeddings.weight"
+    flax msgpack file raises: it needs flax). A ViLT file loads ViLT-BERT's
+    ViLT side, and a ViLT-BERT file a ViLT learner's encoder."""
+    sd = with_encoder_key(load_reference_checkpoint(path), model.encoder_key)
+    mod = next(k for k in model.state_dict() if k.endswith("modality_type_embeddings.weight"))
     rows = model.cfg.modality_type_vocab_size
     if mod in sd and sd[mod].shape[0] == 2 and rows == 3:
         sd[mod] = torch.cat([sd[mod], sd[mod][1:2]], dim=0)
+    if model.encoder_key == "viltbert" and not any(k.startswith("viltbert.bert.") for k in sd):
+        logger.warning(_NO_BERT, path)
     loaded, missing = partial_load(model, sd)
     logger.info("Pretrained %s: %d tensors loaded, %d kept from init", path, len(loaded),
                 len(missing))
@@ -65,15 +95,13 @@ def create_cl_model(args, task_configs, device: torch.device,
     """The learner on ``device`` in eval mode (the train step switches it to
     train mode), initialized from ``args.seed``. With ``adapter_handler``
     (``cl/adapters.py``) every block holds one adapter per task, drawn with
-    the rest of the weights (JAX ``model_factory.py:125-126``)."""
+    the rest of the weights (JAX ``model_factory.py:125-126``). ViLT-BERT's
+    learner carries ``viltbert_frozen_mask`` as its trainability mask."""
     task_keys = list(args.ordered_cl_tasks)
     cfg = vilt_config_from_args(args, "nlvr2" in task_keys)
-    if args.encoder_name != "vilt":
-        raise NotImplementedError(
-            f"--encoder_name {args.encoder_name}: only 'vilt' is ported (ViLT-BERT "
-            "comes with a later slice)")
-    model = ViltContinualLearner(cfg, head_specs_from_task_configs(task_keys, task_configs),
-                                 **(adapter_handler.model_kwargs() if adapter_handler else {}))
+    learner = _resolve(LEARNERS, args.encoder_name)
+    model = learner(cfg, head_specs_from_task_configs(task_keys, task_configs),
+                    **(adapter_handler.model_kwargs() if adapter_handler else {}))
     generator = torch.Generator().manual_seed(int(getattr(args, "seed", 42)))
     model.reset_parameters(generator)
     pretrained = getattr(args, "pretrained_model_name", "scratch")
@@ -83,37 +111,49 @@ def create_cl_model(args, task_configs, device: torch.device,
         else:
             logger.warning("Could not load pretrained weights %s (HF hub names need the "
                            "network); training from scratch", pretrained)
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    if model.encoder_key == "viltbert":
+        model.trainable_mask = viltbert_frozen_mask(model)
+    return model
 
 
-def _encoder_state_dict(path: str) -> dict:
-    """A checkpoint file as a bare ``ViltCore`` state dict: the reference torch
-    layout (an encoder or a full-model file) or the port's own format (a
-    ``torch.save`` of a model's or an encoder's state dict by its port names)."""
+def _encoder_state_dict(path: str, encoder_name: str = "vilt") -> dict:
+    """A checkpoint file as the state dict of the encoder ``encoder_name``
+    names (``ViltCore``, or ``ViltBertCore``: ``vilt.*`` and ``bert.*``): the
+    reference torch layout (an encoder or a full-model file) or the port's
+    own format (a ``torch.save`` of a model's or an encoder's state dict by
+    its port names). The layouts of JAX ``model_factory.py:225-240``: a
+    ViLT-BERT file gives a ViLT encoder its ViLT side, and a ViLT file gives
+    ViLT-BERT's ViLT side (BERT then keeps its weights)."""
     sd = load_state_dict(path)
-    if any(k.startswith(("vilt_encoder.vilt.", "vilt.embeddings.", "embeddings.")) for k in sd):
+    if any(k.startswith(_REFERENCE_PREFIXES) for k in sd):
         sd = load_reference_checkpoint(path)
-    if any(k.startswith("vilt.") for k in sd):
-        return {k[len("vilt."):]: v for k, v in sd.items() if k.startswith("vilt.")}
-    return sd
+    if any(k.startswith("viltbert.") for k in sd):  # a ViLT-BERT learner or classifier
+        core = {k[len("viltbert."):]: v for k, v in sd.items() if k.startswith("viltbert.")}
+    elif any(k.startswith(("vilt.", "bert.")) for k in sd):  # a ViLT model, a ViltBertCore
+        core = {k: v for k, v in sd.items() if k.startswith(("vilt.", "bert."))}
+    else:  # a bare ViltCore
+        core = {"vilt." + k: v for k, v in sd.items()}
+    if encoder_name == "viltbert":
+        return core
+    return {k[len("vilt."):]: v for k, v in core.items() if k.startswith("vilt.")}
 
 
 def load_encoder_params(checkpoint_name, cfg: ViltConfig, pretrained: str = "scratch",
                         seed: int = 0, encoder_name: str = "vilt"):
     """Encoder-only parameter loading for the Phase II drivers (counterpart of
     ``climb_tpu``'s ``load_encoder_params``; reference ``load_vilt_encoder``,
-    vilt.py:481-514): start from weights drawn from ``seed`` (or a pretrained
-    file), with three modality rows when the upstream checkpoint came from a
-    run with NLVR2 ('nlvr2' in its path), then load the saved encoder over
-    them. Returns (a bare ``ViltCore`` state dict, the cfg)."""
-    if encoder_name != "vilt":
-        raise NotImplementedError(
-            f"--encoder_name {encoder_name}: only 'vilt' is ported (ViLT-BERT comes with a "
-            "later slice)")
+    vilt.py:481-514, and ``load_viltbert_encoder``, viltbert.py:459-493):
+    start from weights drawn from ``seed`` (or a pretrained file), with three
+    modality rows when the upstream checkpoint came from a run with NLVR2
+    ('nlvr2' in its path), then load the saved encoder over them. Returns
+    (the state dict of a bare ``ViltCore``, or of a ``ViltBertCore`` for
+    'viltbert', the cfg)."""
+    core_class = _resolve(ENCODERS, encoder_name)
     needs_three = checkpoint_name is not None and "nlvr2" in str(checkpoint_name)
     if needs_three:
         cfg = dataclasses.replace(cfg, modality_type_vocab_size=3)
-    core = ViltCore(cfg)
+    core = core_class(cfg)
     init_weights_(core, torch.Generator().manual_seed(int(seed)), cfg.initializer_range)
 
     if pretrained not in ("scratch", "", None):
@@ -122,14 +162,16 @@ def load_encoder_params(checkpoint_name, cfg: ViltConfig, pretrained: str = "scr
                 f"--pretrained_model_name {pretrained}: HF hub weights are not ported to "
                 "climb_tpu_torch (they need the network); pass 'scratch' or a "
                 "reference-layout file")
-        enc = _encoder_state_dict(pretrained)
+        enc = _encoder_state_dict(pretrained, encoder_name)
         if needs_three:
             enc, _ = expand_modality_type_embeddings(
                 enc, dataclasses.replace(cfg, modality_type_vocab_size=2))
+        if encoder_name == "viltbert" and not any(k.startswith("bert.") for k in enc):
+            logger.warning(_NO_BERT, pretrained)
         partial_load(core, enc)
 
     if checkpoint_name and os.path.isfile(checkpoint_name):
-        loaded, missing = partial_load(core, _encoder_state_dict(checkpoint_name))
+        loaded, missing = partial_load(core, _encoder_state_dict(checkpoint_name, encoder_name))
         logger.info("Encoder checkpoint %s: %d tensors loaded, %d from init", checkpoint_name,
                     len(loaded), len(missing))
     elif checkpoint_name not in (None, "", "scratch"):

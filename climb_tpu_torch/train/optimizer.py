@@ -7,8 +7,9 @@
   to 0, evaluated in float32 as the JAX schedule is. Its value at step 0 is 0
   whenever that warmup is at least one step.
 - ``weight_decay_mask``: the reference's exact grouping (vilt.py:209-213): no
-  decay for biases and the text-embeddings LayerNorm scale, decay for every
-  other parameter, the encoder and head LayerNorm scales included.
+  decay for biases, the text-embeddings LayerNorm scale and ViLT-BERT's BERT
+  LayerNorm scales (HF's capital ``LayerNorm``), decay for every other
+  parameter, the ViLT encoder and head LayerNorm scales included.
 - ``AdamW``: ``optax.adamw`` step for step: betas (0.9, 0.98), both moments
   bias-corrected, eps outside the square root, ``wd * p`` added to the
   update before the learning rate scales it, and the learning rate read at
@@ -57,10 +58,22 @@ def polynomial_warmup_schedule(lr: float, total_steps: int, warmup_ratio: float 
     return schedule
 
 
+_BERT_LAYER_NORMS = ("embed_layernorm", "attn_ln", "mlp_ln")
+
+
 def weight_decay_mask(names: Iterable[str]) -> Dict[str, bool]:
     """Parameter name -> True where weight decay applies (see the module
     docstring); names are the port's ``named_parameters()``."""
-    return {n: not (n.endswith(".bias") or n == "vilt.text_layernorm.weight") for n in names}
+
+    def decays(name: str) -> bool:
+        parts = name.split(".")
+        if parts[-1] == "bias":
+            return False
+        if parts[-2:] == ["text_layernorm", "weight"]:
+            return False
+        return not ("bert" in parts and parts[-2] in _BERT_LAYER_NORMS)
+
+    return {n: decays(n) for n in names}
 
 
 _MOMENT_DTYPES = {None: None, "bfloat16": torch.bfloat16}

@@ -17,7 +17,8 @@ rows of an epoch's last batch carry no gradient.
 
 The CL penalties:
 - EWC (``cl/ewc.py``): ``weight * sum F (theta - theta*)^2`` over the
-  encoder's parameters (``vilt.*``) for one previous task's Fisher and anchor.
+  encoder's parameters (``vilt.*``, or ViLT-BERT's ``viltbert.*``) for one
+  previous task's Fisher and anchor.
 - Feature distillation (``cl/distill.py``): ``weight * mean over examples of
   mean_k (f_student - f_teacher)^2`` over the valid rows, with the features
   the head reads (``ViltContinualLearner.forward_with_features``); one

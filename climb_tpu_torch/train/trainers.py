@@ -177,7 +177,7 @@ class VLTaskTrainer:
                                      model.cfg.compute_dtype, args.grad_accum_steps)
         replay_freq = int(getattr(args, "replay_frequency", 100))
         generator = torch.Generator(device=self.device).manual_seed(int(args.seed))
-        model.vilt.dropout_generator = generator
+        model.encoder.dropout_generator = generator
 
         ckpt_dir = getattr(args, "task_ckpt_dir", None)
         save_every = int(args.save_state_epochs or 0)
@@ -255,7 +255,7 @@ class VLTaskTrainer:
         if state_path and os.path.exists(state_path):
             os.remove(state_path)  # the task checkpoint supersedes it
         model.load_state_dict(best_params)
-        model.vilt.dropout_generator = None
+        model.encoder.dropout_generator = None
         return best_score, model
 
     # -- evaluation ----------------------------------------------------------

@@ -42,6 +42,7 @@ from climb_tpu_torch.train.model_factory import vilt_config_from_args as port_cf
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_state import TrainState
 from climb_tpu_torch.train.train_step import make_train_step
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps
 
 torch.set_num_threads(1)
 
@@ -245,8 +246,10 @@ def test_two_train_steps_match_jax(start):
                                    err_msg=n)
 
 
-def test_predict_fused_block_matches_jax_cli(start, tmp_path):
+def test_predict_fused_block_matches_jax_cli(start, tmp_path, monkeypatch):
     _, tree, _ = start
+    jit_flax_init(monkeypatch)
+    share_jax_eval_steps(monkeypatch)
     ckpt = tmp_path / "model"
     save_reference_checkpoint(tree, str(ckpt), "model")
 

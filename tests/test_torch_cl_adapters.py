@@ -39,6 +39,7 @@ from climb_tpu_torch.train.model_factory import create_cl_model
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_state import TrainState
 from climb_tpu_torch.train.train_step import compute_loss, make_train_step
+from test_torch_data_common import shape_only_flax_init
 
 torch.set_num_threads(1)
 
@@ -71,8 +72,10 @@ def _models(config):
     """The JAX learner, its tree with every leaf drawn from numpy, and the
     port's learner holding that tree."""
     args = _args(config)
-    jmodel = jax_create_cl_model(args, jax_task_configs,
-                                 adapter_handler=JaxAdapterHandler("vanilla", args))
+    with pytest.MonkeyPatch.context() as mp:  # every leaf is drawn from numpy below
+        shape_only_flax_init(mp)
+        jmodel = jax_create_cl_model(args, jax_task_configs,
+                                     adapter_handler=JaxAdapterHandler("vanilla", args))
     rng = np.random.RandomState(21)
     tree = jax.tree_util.tree_map_with_path(
         lambda p, x: (rng.randn(*np.shape(x)) * 0.1

@@ -24,6 +24,7 @@ from climb_tpu_torch.ckpt.checkpoint import load_task_checkpoint
 from climb_tpu_torch.ckpt.convert import partial_load, state_dict_from_jax
 from climb_tpu_torch.cli import train_upstream_continual_learning as port
 from climb_tpu_torch.models.heads import MultiChoiceHead
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps
 
 LR = 2e-3
 OVERRIDES = ",".join(f"{t}.lr={LR},{t}.num_epochs=1" for t in ("snli-ve", "nlvr2", "vqa", "vcr"))
@@ -55,7 +56,10 @@ def tasks_of(flags):
 
 def start_from_jax(mp):
     """Port models start from the JAX driver's initialization; no dropout in
-    the multiple-choice head of either package."""
+    the multiple-choice head of either package. The JAX side's ``init`` is
+    jitted and its eval steps are shared (``test_torch_data_common.py``)."""
+    jit_flax_init(mp)
+    share_jax_eval_steps(mp)
     made = {}
     jax_create, port_create = jax_train.create_cl_model, port.create_cl_model
 

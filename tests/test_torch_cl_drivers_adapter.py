@@ -25,6 +25,7 @@ from test_torch_cl_driver_common import (
     run_both,
     task_checkpoints,
 )
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps, shape_only_flax_init
 from climb_tpu.ckpt.checkpoint import save_params as jax_save_params
 from climb_tpu.ckpt.torch_import import save_reference_checkpoint
 from climb_tpu.cl.adapters import AdapterHandler as JaxAdapterHandler
@@ -74,7 +75,7 @@ def test_only_the_active_task_moves(run, runs):
 
 
 @pytest.mark.parametrize("config", ["houlsby", "lora"])
-def test_predict_adapter_matches_jax(config, tmp_path):
+def test_predict_adapter_matches_jax(config, tmp_path, monkeypatch):
     """Both CLIs serve nlvr2 with its adapter active from one checkpoint whose
     every leaf (adapters, with non-zero LoRA b, included) is drawn from numpy:
     the JAX CLI from its msgpack file, the port from the reference-layout
@@ -87,8 +88,10 @@ def test_predict_adapter_matches_jax(config, tmp_path):
          "nlvr2", "--tiny", "--output_dir", str(tmp_path), *flags])
     args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
     args.image_height, args.image_width = 64, 96
-    model = jax_create_cl_model(args, jax_task_configs,
-                                adapter_handler=JaxAdapterHandler("vanilla", args))
+    with pytest.MonkeyPatch.context() as mp:  # every leaf is drawn from numpy below
+        shape_only_flax_init(mp)
+        model = jax_create_cl_model(args, jax_task_configs,
+                                    adapter_handler=JaxAdapterHandler("vanilla", args))
     rng = np.random.RandomState(4)
     tree = jax.tree_util.tree_map_with_path(
         lambda p, x: (rng.randn(*np.shape(x)) * 0.1
@@ -105,6 +108,8 @@ def test_predict_adapter_matches_jax(config, tmp_path):
     common = ["--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve,nlvr2", "--task_key",
               "nlvr2", "--synthetic", "--tiny", "--synthetic_train_size", "48",
               "--batch_size", "8", "--compute_dtype", "float32", "--seed", "3", *flags]
+    jit_flax_init(monkeypatch)
+    share_jax_eval_steps(monkeypatch)
     ref = jax_predict(common + ["--checkpoint", str(jax_file), "--output_dir",
                                 str(tmp_path / "jax"), "--output_file",
                                 str(tmp_path / "jax.json")])

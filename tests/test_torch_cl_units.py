@@ -51,6 +51,7 @@ from climb_tpu_torch.train.train_step import (
     make_train_step,
 )
 from climb_tpu_torch.train.trainers import VLTaskTrainer
+from test_torch_data_common import shape_only_flax_init
 
 torch.set_num_threads(1)
 
@@ -83,8 +84,10 @@ def _args(**kw):
 def start():
     """(JAX CLModel, numpy tree with every leaf drawn from numpy, port model)."""
     args = _args()
-    jmodel = jax_create_cl_model(args, jax_task_configs,
-                                 adapter_handler=JaxAdapterHandler("vanilla", args))
+    with pytest.MonkeyPatch.context() as mp:  # every leaf is drawn from numpy below
+        shape_only_flax_init(mp)
+        jmodel = jax_create_cl_model(args, jax_task_configs,
+                                     adapter_handler=JaxAdapterHandler("vanilla", args))
     rng = np.random.RandomState(11)
     tree = jax.tree_util.tree_map_with_path(
         lambda p, x: (rng.randn(*np.shape(x)) * 0.1

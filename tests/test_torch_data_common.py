@@ -1,5 +1,6 @@
 """Shared set-up of the ``test_torch_data_*.py``, ``test_torch_phase2_*.py``
-and ``test_torch_real_data_driver.py`` files (no tests here).
+and ``test_torch_real_data_driver.py`` files, and ``jit_flax_init`` for every
+port test file that runs a JAX driver (no tests here).
 
 The JAX package's native libraries are compiled from its sources, with its
 flags (``climb_tpu/native/build.py``), into a private directory and put in
@@ -52,17 +53,68 @@ def jax_native_route(tmp_path_factory):
     mp.undo()
 
 
+_JITTED_INIT = {}
+
+
 def jit_flax_init(mp: pytest.MonkeyPatch) -> None:
     """Jit the JAX drivers' ``module.init`` until ``mp`` is undone (it runs op
-    by op otherwise, most of a tiny JAX driver run's time). The port's side
-    of a driver test loads the parameters the JAX driver made, so both still
-    start from the same ones."""
+    by op otherwise, most of a tiny JAX driver run's time). The jitted init
+    takes the module (hashed by its configuration) and the keyword arguments
+    as static arguments and is kept for the process, so a later driver run
+    with a module of the same configuration and inputs of the same shapes
+    reuses the compiled init. The port's side of a driver test loads the
+    parameters the JAX driver made, so both still start from the same ones."""
+    import flax.linen
+    import jax
+
+    if not _JITTED_INIT:
+        real_init = flax.linen.Module.init
+
+        def init(module, kw_items, rngs, *batch):
+            return real_init(module, rngs, *batch, **dict(kw_items))
+
+        _JITTED_INIT["init"] = jax.jit(init, static_argnums=(0, 1))
+    jitted = _JITTED_INIT["init"]
+    mp.setattr(flax.linen.Module, "init", lambda self, rngs, *a, **kw: jitted(
+        self, tuple(sorted(kw.items())), rngs, *a))
+
+
+def shape_only_flax_init(mp: pytest.MonkeyPatch) -> None:
+    """Until ``mp`` is undone, ``module.init`` gives the parameters' shapes
+    and dtypes (``jax.eval_shape``) without drawing them, for a test that
+    replaces every leaf with numpy draws anyway."""
     import flax.linen
     import jax
 
     real_init = flax.linen.Module.init
-    mp.setattr(flax.linen.Module, "init", lambda self, rngs, *a, **kw: jax.jit(
-        lambda r, *b: real_init(self, r, *b, **kw))(rngs, *a))
+    mp.setattr(flax.linen.Module, "init", lambda self, rngs, *a, **kw: jax.eval_shape(
+        lambda: real_init(self, rngs, *a, **kw)))
+
+
+_EVAL_STEPS = {}
+
+
+def share_jax_eval_steps(mp: pytest.MonkeyPatch) -> None:
+    """Until ``mp`` is undone, the JAX package's ``make_eval_step`` hands back
+    one jitted eval step per (module, task, loss, dtype) for the process: its
+    trainers build a new one for every eval (each epoch's, the forgetting
+    eval's, predict's), which traces and compiles the same function again."""
+    import climb_tpu.train.downstream as jax_downstream
+    import climb_tpu.train.train_step as jax_train_step
+    import climb_tpu.train.trainers as jax_trainers
+
+    make = _EVAL_STEPS.setdefault("make", jax_train_step.make_eval_step)
+
+    def shared(model, task_key, loss_type, compute_dtype=None, extra_vars=None):
+        args = (model, task_key, loss_type) + (() if compute_dtype is None else (compute_dtype,))
+        if extra_vars is not None:
+            return make(*args, extra_vars=extra_vars)
+        if args not in _EVAL_STEPS:
+            _EVAL_STEPS[args] = make(*args)
+        return _EVAL_STEPS[args]
+
+    for module in (jax_train_step, jax_trainers, jax_downstream):
+        mp.setattr(module, "make_eval_step", shared)
 
 
 def copy_root(src, dst) -> str:

@@ -48,6 +48,7 @@ from climb_tpu_torch.models.vilt import ViltClassifier
 from climb_tpu_torch.ops import attention
 from climb_tpu_torch.train.model_factory import load_encoder_params
 from climb_tpu_torch.train.model_factory import vilt_config_from_args as port_cfg_from_args
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps
 
 torch.set_num_threads(1)
 
@@ -82,7 +83,8 @@ def test_language_task_configs_equal_jax(task):
     assert task_configs[task] == jax_task_configs[task]
 
 
-@pytest.mark.parametrize("key", ["vilt", "vilt-l-seq", "vilt-l-mc", "vilt-v-cls"])
+@pytest.mark.parametrize("key", ["vilt", "vilt-l-seq", "vilt-l-mc", "vilt-v-cls", "viltbert",
+                                 "viltbert-l-seq", "viltbert-l-mc"])
 def test_model_configs_equal_jax(key):
     assert model_configs[key] == jax_model_configs[key]
 
@@ -288,8 +290,15 @@ def test_load_encoder_params_layouts_and_nlvr2_rule(core_tree, tmp_path):
 
     with pytest.raises(NotImplementedError, match="not ported"):
         load_encoder_params(None, pcfg, "dandelin/vilt-b32-mlm", seed=3)
-    with pytest.raises(NotImplementedError, match="ViLT-BERT"):
-        load_encoder_params(None, pcfg, "scratch", seed=3, encoder_name="viltbert")
+    # ViLT-BERT from a ViLT encoder file: the ViLT side is grafted and BERT
+    # keeps the seed's weights (JAX model_factory.py:225-240)
+    got, _ = load_encoder_params(str(tmp_path / "encoder"), pcfg, "scratch", seed=3,
+                                 encoder_name="viltbert")
+    base, _ = load_encoder_params(None, pcfg, "scratch", seed=3, encoder_name="viltbert")
+    assert got.keys() == base.keys() == {"vilt." + k for k in sd} | {
+        k for k in base if k.startswith("bert.")}
+    assert all(torch.equal(got["vilt." + k], sd[k]) for k in sd)
+    assert all(torch.equal(got[k], base[k]) for k in base if k.startswith("bert."))
 
 
 # ---- the driver -----------------------------------------------------------------------
@@ -329,6 +338,8 @@ def test_language_driver_matches_jax(run, tmp_path, monkeypatch):
         made["seq_len"] = model.cfg.seq_len
         return port_train(args, model, *a, **kw)
 
+    jit_flax_init(monkeypatch)
+    share_jax_eval_steps(monkeypatch)
     monkeypatch.setattr(jax_downstream, "train_downstream", jax_recording)
     monkeypatch.setattr(port, "train_downstream", port_from_jax)
     monkeypatch.setattr(jax_vilt, "MultiChoiceHead",
@@ -353,7 +364,6 @@ def test_language_driver_matches_jax(run, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--encoder_name", "viltbert"], "ViLT-BERT"),
     (["--no_synthetic"], "imdb_train.jsonl"),
     (["--pretrained_model_name", "dandelin/vilt-b32-mlm"], "not ported"),
     (["--text_buckets", "16,40"], "not ported"),
@@ -385,12 +395,15 @@ def test_language_driver_without_card_raises(monkeypatch, tmp_path):
 
 def test_new_modules_import_no_jax_package():
     """The modules of this path import torch and the port only (exact
-    top-level names: ``climb_tpu_torch`` is not ``climb_tpu``)."""
+    top-level names: ``climb_tpu_torch`` is not ``climb_tpu``), and no
+    transformers."""
     new = ["ops/block.py", "models/surgery.py", "data/mean_image.py", "data/image_pipeline.py",
            "configs/model_configs.py", "train/downstream.py", "cli/train_language.py",
            "cli/train_lowshot_multimodal.py", "cli/train_vision.py", "data/vision/__init__.py",
            "data/vision/datasets.py", "data/language/__init__.py",
-           "data/language/text_processors.py", "data/language/text_dataset.py"]
+           "data/language/text_processors.py", "data/language/text_dataset.py",
+           "models/bert.py", "models/viltbert.py", "models/hf_import.py",
+           "train/model_factory.py", "ckpt/convert.py"]
     for rel in new:
         path = ROOT / "climb_tpu_torch" / rel
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -399,4 +412,5 @@ def test_new_modules_import_no_jax_package():
                 roots = [alias.name.split(".")[0] for alias in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 roots = [node.module.split(".")[0]]
-            assert not set(roots) & {"jax", "flax", "optax", "climb_tpu"}, (rel, roots)
+            assert not set(roots) & {"jax", "flax", "optax", "climb_tpu", "transformers"}, \
+                (rel, roots)

@@ -35,7 +35,11 @@ from climb_tpu_torch.data.language import PROCESSOR_MAP, build_language_dataset
 from climb_tpu_torch.data.language.text_processors import IMDBProcessor
 from climb_tpu_torch.data.tokenization import load_tokenizer
 from climb_tpu_torch.models import heads
-from test_torch_data_common import jax_native_route, jit_flax_init  # noqa: F401
+from test_torch_data_common import (  # noqa: F401
+    jax_native_route,
+    jit_flax_init,
+    share_jax_eval_steps,
+)
 
 torch.set_num_threads(1)
 
@@ -199,6 +203,7 @@ def test_language_driver_on_files_matches_jax(run, root, tmp_path, monkeypatch,
         return port_train(args, model, task_config, datasets, *a, **kw)
 
     jit_flax_init(monkeypatch)
+    share_jax_eval_steps(monkeypatch)
     monkeypatch.setattr(jax_downstream, "train_downstream", jax_recording)
     monkeypatch.setattr(port, "train_downstream", port_from_jax)
     monkeypatch.setattr(jax_vilt, "MultiChoiceHead",

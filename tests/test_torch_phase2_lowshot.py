@@ -38,7 +38,7 @@ from climb_tpu_torch.data.synthetic import SubsetDataset, make_synthetic_vl_data
 from climb_tpu_torch.models.heads import MultiChoiceHead
 from climb_tpu_torch.train import trainers as port_trainers
 from climb_tpu_torch.train.model_factory import create_cl_model
-from test_torch_data_common import jit_flax_init
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps
 
 torch.set_num_threads(1)
 
@@ -124,6 +124,7 @@ def runs(tmp_path_factory):
 
     head_for = jax_vilt._head_for
     jit_flax_init(mp)
+    share_jax_eval_steps(mp)
     mp.setattr(port_trainers.VLTaskTrainer, "eval", counted_eval)
     mp.setattr(jax_train, "create_cl_model", jax_recording)
     mp.setattr(port, "create_cl_model", port_from_jax)
@@ -218,10 +219,3 @@ def test_lowshot_driver_without_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         port.main(_argv(tmp_path, "singletask"))  # --device defaults to cuda
-
-
-def test_lowshot_driver_viltbert_raises(tmp_path):
-    argv = _argv(tmp_path, "singletask", "--device", "cpu")
-    argv[argv.index("vilt")] = "viltbert"
-    with pytest.raises(NotImplementedError, match="ViLT-BERT"):
-        port.main(argv)

@@ -31,7 +31,12 @@ from climb_tpu_torch.ckpt.convert import state_dict_from_jax
 from climb_tpu_torch.cli import train_vision as port
 from climb_tpu_torch.data.tokenization import load_tokenizer
 from climb_tpu_torch.data.vision import build_vision_dataset
-from test_torch_data_common import copy_root, jax_native_route, jit_flax_init  # noqa: F401
+from test_torch_data_common import (  # noqa: F401
+    copy_root,
+    jax_native_route,
+    jit_flax_init,
+    share_jax_eval_steps,
+)
 
 torch.set_num_threads(1)
 
@@ -201,6 +206,7 @@ def test_vision_driver_matches_jax(run, roots, tmp_path, monkeypatch,
         return port_train(args, model, *a, **kw)
 
     jit_flax_init(monkeypatch)
+    share_jax_eval_steps(monkeypatch)
     monkeypatch.setattr(jax_downstream, "train_downstream", jax_recording)
     monkeypatch.setattr(port, "train_downstream", port_from_jax)
     jax_main(_argv(roots["jax"], tmp_path / "jax", run))
@@ -232,10 +238,3 @@ def test_vision_driver_without_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         port.main(_argv(tmp_path, tmp_path, "imagenet"))  # --device defaults to cuda
-
-
-def test_vision_driver_viltbert_raises(tmp_path):
-    argv = _argv(tmp_path, tmp_path, "imagenet") + ["--device", "cpu"]
-    argv[argv.index("vilt")] = "viltbert"
-    with pytest.raises(NotImplementedError, match="ViLT-BERT"):
-        port.main(argv)

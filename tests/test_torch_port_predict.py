@@ -25,6 +25,7 @@ from climb_tpu.models import ViltContinualLearner as JaxLearner
 from climb_tpu.models import head_specs_from_task_configs as jax_head_specs
 from climb_tpu.train.model_factory import dummy_batch, vilt_config_from_args
 from climb_tpu_torch.cli.predict import main as port_predict
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps
 
 torch.set_num_threads(1)
 
@@ -59,7 +60,9 @@ def _argv(task, out_dir, checkpoint):
 
 
 @pytest.mark.parametrize("task", ["snli-ve", "nlvr2", "vcr"])
-def test_predict_matches_jax_cli(task, checkpoint, tmp_path):
+def test_predict_matches_jax_cli(task, checkpoint, tmp_path, monkeypatch):
+    jit_flax_init(monkeypatch)
+    share_jax_eval_steps(monkeypatch)
     ref = jax_predict(_argv(task, tmp_path / "jax", checkpoint))
     out = port_predict(_argv(task, tmp_path / "port", checkpoint)
                        + ["--device", "cpu", "--attn_impl", "pallas", "--mlp_impl", "pallas"])
@@ -97,27 +100,49 @@ def test_predict_without_card_raises(monkeypatch, tmp_path):
         port_predict(argv)  # --device defaults to cuda
 
 
-@pytest.mark.parametrize("module", ["climb_tpu_torch.cli.predict",
-                                    "climb_tpu_torch.cli.train_upstream_continual_learning",
-                                    "climb_tpu_torch.cli.train_language",
-                                    "climb_tpu_torch.cli.train_lowshot_multimodal",
-                                    "climb_tpu_torch.cli.train_vision",
-                                    "climb_tpu_torch.data.vision",
-                                    "climb_tpu_torch.data.language",
-                                    "climb_tpu_torch.data.loader",
-                                    "climb_tpu_torch.data.visionlanguage",
-                                    "climb_tpu_torch.data.tokenization",
-                                    "climb_tpu_torch.native",
-                                    "chip_smoke", "chip_ab"])
-def test_import_loads_no_jax(module):
+IMPORT_CHECKED = ["climb_tpu_torch.cli.predict",
+                  "climb_tpu_torch.cli.train_upstream_continual_learning",
+                  "climb_tpu_torch.cli.train_language",
+                  "climb_tpu_torch.cli.train_lowshot_multimodal",
+                  "climb_tpu_torch.cli.train_vision",
+                  "climb_tpu_torch.data.vision",
+                  "climb_tpu_torch.data.language",
+                  "climb_tpu_torch.data.loader",
+                  "climb_tpu_torch.data.visionlanguage",
+                  "climb_tpu_torch.data.tokenization",
+                  "climb_tpu_torch.native",
+                  "chip_smoke", "chip_ab",
+                  "climb_tpu_torch.models.bert",
+                  "climb_tpu_torch.models.viltbert",
+                  "climb_tpu_torch.models.hf_import",
+                  "climb_tpu_torch.train.model_factory"]
+# nor transformers: the card's machine does not have it
+FORBIDDEN = JAX_MODULES + ("transformers",)
+
+
+@pytest.fixture(scope="module")
+def imported():
+    """One fresh interpreter imports every module of IMPORT_CHECKED and
+    reports which of them it loaded and which forbidden packages came with
+    them. Imports only add modules, so if all of them together load none of
+    those packages, none of them alone does."""
     code = (
-        f"import sys; import {module}; "
-        f"print(sorted({{m.split('.')[0] for m in sys.modules}} & {set(JAX_MODULES)!r}))"
+        f"import importlib, json, sys; mods = {IMPORT_CHECKED!r}; "
+        "[importlib.import_module(m) for m in mods]; "
+        f"print(json.dumps({{'loaded': [m for m in mods if m in sys.modules], 'forbidden': "
+        f"sorted({{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r})}}))"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "[]"
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", IMPORT_CHECKED)
+def test_import_loads_no_jax(module, imported):
+    """The module imports neither JAX, flax, optax, climb_tpu nor transformers."""
+    assert module in imported["loaded"]
+    assert imported["forbidden"] == []
 
 
 def _imported_roots(path: Path):
@@ -129,7 +154,8 @@ def _imported_roots(path: Path):
 
 
 def test_port_sources_import_no_jax_package():
-    """Exact top-level names: ``climb_tpu_torch`` is not ``climb_tpu``."""
+    """Exact top-level names: ``climb_tpu_torch`` is not ``climb_tpu``. No
+    transformers either."""
     files = sorted((ROOT / "climb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                   ROOT / "chip_ab.py"]
     assert len(files) > 20
@@ -140,7 +166,8 @@ def test_port_sources_import_no_jax_package():
             "climb_tpu_torch/native/build.py", "climb_tpu_torch/cli/train_lowshot_multimodal.py",
             "climb_tpu_torch/cli/train_vision.py", "climb_tpu_torch/data/vision/datasets.py",
             "climb_tpu_torch/data/language/text_processors.py",
-            "climb_tpu_torch/data/language/text_dataset.py"} <= scanned
+            "climb_tpu_torch/data/language/text_dataset.py", "climb_tpu_torch/models/bert.py",
+            "climb_tpu_torch/models/viltbert.py", "climb_tpu_torch/models/hf_import.py"} <= scanned
     bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
-           if root in JAX_MODULES}
+           if root in FORBIDDEN}
     assert not bad

@@ -33,7 +33,12 @@ from test_torch_cl_driver_common import (
     experiment,
     start_from_jax,
 )
-from test_torch_data_common import copy_root, jax_native_route  # noqa: F401
+from test_torch_data_common import (  # noqa: F401
+    copy_root,
+    jax_native_route,
+    jit_flax_init,
+    share_jax_eval_steps,
+)
 
 torch.set_num_threads(1)
 
@@ -75,7 +80,7 @@ def test_driver_matches_jax_on_the_data_root(runs):
                                            "snli-ve_train.pkl"))
 
 
-def test_predict_from_disk_matches_jax(runs, tmp_path):
+def test_predict_from_disk_matches_jax(runs, tmp_path, monkeypatch):
     ckpt = str(experiment(runs["port"], FLAGS) / "checkpoints" / "task1_nlvr2" / "model")
 
     def argv(out):
@@ -85,6 +90,8 @@ def test_predict_from_disk_matches_jax(runs, tmp_path):
                 "--tiny", "--batch_size", "2", "--compute_dtype", "float32", "--seed", "5",
                 "--output_dir", str(out), "--output_file", str(out / "preds.json")]
 
+    jit_flax_init(monkeypatch)
+    share_jax_eval_steps(monkeypatch)
     want = jax_predict(argv(tmp_path / "jax"))
     got = port_predict.main(argv(tmp_path / "port") + ["--device", "cpu"])
     assert got["n_examples"] == want["n_examples"] == 3

@@ -29,6 +29,7 @@ from climb_tpu_torch.ckpt import checkpoint
 from climb_tpu_torch.ckpt.convert import partial_load, state_dict_from_jax
 from climb_tpu_torch.cli import train_upstream_continual_learning as port
 from climb_tpu_torch.train import trainers
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps, shape_only_flax_init
 
 torch.set_num_threads(1)
 
@@ -82,6 +83,8 @@ def runs(tmp_path_factory):
     """Both drivers' output directories after both runs."""
     mp = pytest.MonkeyPatch()
     _start_from_jax(mp)
+    jit_flax_init(mp)
+    share_jax_eval_steps(mp)
     out = {"jax": tmp_path_factory.mktemp("jax"), "port": tmp_path_factory.mktemp("port")}
     try:
         for run in RUNS:
@@ -121,7 +124,9 @@ def test_jax_loads_port_checkpoint_with_the_same_score(runs):
     args = port.build_parser().parse_args(_argv(exp, "singletask"))
     args.ordered_cl_tasks = ["snli-ve"]
     args.image_height, args.image_width = 64, 96
-    model = jax_create_cl_model(args, jax_task_configs)
+    with pytest.MonkeyPatch.context() as mp:  # the parameters come from the checkpoint
+        shape_only_flax_init(mp)
+        model = jax_create_cl_model(args, jax_task_configs)
     step = jax_make_eval_step(model.module, "snli-ve", "ce")
     trainer = trainers.VLTaskTrainer(args, port.task_configs, {}, torch.device("cpu"), "snli-ve")
     total = count = 0.0
