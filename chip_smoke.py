@@ -88,6 +88,35 @@ Phases, each printing one JSON line as soon as it ends:
               checkpoint: launch counts, the predictions' count and example
               order, ex/s beside phase predict's.
      Phases train and predict report the same host split.
+     knobs:   the training knobs at full width, bf16. knobs_remat: one snli-ve
+              train step at batch 32 per --remat_policy (none, full, dots,
+              selective) with --attn_impl pallas and fused_block (fused_block
+              with selective is fused_self_remat), from one set of weights and
+              one batch: exact launch counts with the recompute (REMAT_FORMULA;
+              'dots' runs as 'full' on the port), gradients against the step
+              without remat (bit-equal, else within phase train_paths' f32
+              tolerance, said which), step ms by events, peak memory; then
+              batch 64 without remat and with full.
+              knobs_fuse_qkv: the step ms with and without --fuse_qkv, in
+              turns, and the f32 and bf16 logits against the unfused path.
+              knobs_bucket_kernels: the attention forward and backward and the
+              FFN at every S of --aspect_buckets 384,512,640 --text_buckets
+              auto (161 to 281, bucket_shapes), f32 and bf16, against their
+              plain versions.
+              knobs_buckets: phase real_data's Phase I run with those buckets:
+              exact launch counts, the S each step saw, step ms, ex/s and host
+              split beside the unbucketed run's, the share of padding
+              positions removed, dev scores beside the unbucketed ones.
+              knobs_accum_sweep: --grad_accum_steps sweep's candidates timed
+              at nine shapes (SWEEP_SHAPES: S = 281 from 32 to 512 sequences,
+              nlvr2's fold among them, and S = 1057 from 16 to 64), each
+              shape's pick and peak memory, the token budget the picks imply,
+              and auto's choice with the port's AUTO_ACCUM_TOKEN_BUDGET, which
+              must be the pick or within SWEEP_NOISE (5%) of its time.
+              knobs_preemption: a child process runs singletask_ft snli-ve,
+              gets a real SIGTERM after 3 steps and must exit 143; the rerun
+              resumes mid-epoch and must end on the uninterrupted run's
+              parameters bit for bit.
   9. lowshot: ``climb_tpu_torch.cli.train_lowshot_multimodal.main`` at full
               width: sequential_ft snli-ve -> nlvr2 on phase real_data's
               root and task checkpoints (nlvr2 low-shot from the snli-ve
@@ -1897,7 +1926,7 @@ def run_real_data(torch, root, out_dir):
     and a checksum of the first batches the step received against the loader's
     host batches; then snli-ve with --visual_input_type raw (no normalize launch)
     and one batch's f32 pixels of both paths, bit for bit. Returns the launch
-    counts of both runs and the sequential run's last task checkpoint."""
+    counts of both runs, the sequential run's last task checkpoint and its row."""
     from climb_tpu_torch.cli import train_upstream_continual_learning as driver
     from climb_tpu_torch.configs.task_configs import task_configs
     from climb_tpu_torch.data.collation import stack_collate
@@ -2000,7 +2029,7 @@ def run_real_data(torch, root, out_dir):
                   "pixels_checked": int(host.numel())}
     emit(row)
     ckpt = os.path.join(exp, "checkpoints", "task1_nlvr2", "model")
-    return launches, raw_launches, ckpt
+    return launches, raw_launches, ckpt, row
 
 
 def predict_real_argv(root, ckpt, out_dir):
@@ -2585,6 +2614,583 @@ def run_language_real(torch, root, encoder="vilt"):
     return launches
 
 
+# ---- phase knobs: remat, fused QKV, buckets, grad-accum sweep, preemption ----
+
+REMAT_POLICIES = (None, "full", "dots", "selective")  # None: no remat
+KNOB_BATCH = 64  # the JAX package's batch (BENCH_r04.json), for remat's memory
+BUCKET_WIDTHS, BUCKET_TEXTS = (384, 512, 640), (16, 24, 40)  # 'auto' at max_text_len 40
+BUCKET_FLAGS = ("--aspect_buckets", ",".join(map(str, BUCKET_WIDTHS)), "--text_buckets", "auto")
+
+
+def bucket_shapes():
+    """(S, text length, canvas width) of every bucket: text + CLS + GRID_H
+    rows of W/32 patches."""
+    return sorted((t + 1 + GRID_H * (w // 32), t, w) for w in BUCKET_WIDTHS for t in BUCKET_TEXTS)
+# the accum sweep's shapes: (task, loader batch, text length, canvas), from the
+# driver's batch to sizes far past any the drivers run (sequences x S tokens a
+# step): snli-ve at 32 (8,992), nlvr2 at 32 pairs, the fold of --batch_size
+# 64 (17,984), snli-ve at the JAX package's 64 (17,984), 128, 256 and 512
+# (143,872); the language driver's S = 1057 at 16, 32 and 64 (67,648)
+SWEEP_SHAPES = tuple(
+    [("snli-ve", TRAIN_BATCH, TEXT, CANVAS[:2]), ("nlvr2", TRAIN_BATCH, TEXT, CANVAS[:2])]
+    + [("snli-ve", b, TEXT, CANVAS[:2]) for b in (KNOB_BATCH, 128, 256, 512)]
+    + [("snli-ve", b, LONG_TEXT, (128, 128)) for b in (LONG_BATCH, 2 * LONG_BATCH,
+                                                        4 * LONG_BATCH)])
+# the accum candidates' times are best-of-2 CUDA-event steps; between two runs
+# of this phase on one H100 80GB HBM3 at 700 W they moved up to 3% (accum 1 at
+# batch 32, S = 281: 76.26 and 74.00 ms), so auto's choice may cost up to 5%
+# over the sweep's pick
+SWEEP_NOISE = 0.05
+PREEMPT_AFTER = 3  # SIGTERM once the child has run this many train steps
+
+
+def with_cfg(model, **kw):
+    """``model`` with its frozen ViltConfig replaced, in every module holding
+    it, by a copy with ``kw`` (the remat and fused-QKV knobs change no
+    parameter)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(model.cfg, **kw)
+    for m in model.modules():
+        if type(getattr(m, "cfg", None)) is type(cfg):
+            m.cfg = cfg
+    return model
+
+
+REMAT_FORMULA = (
+    "per train step and layer, beside the step without remat: 'full' and 'dots' (which "
+    "runs as 'full' on the port) launch the layer's forward kernels once more in the "
+    "backward's recompute (per op attention_fwd and mlp_fwd, fused_block fused_block_fwd "
+    "and mlp_fwd); 'selective' with fused_block (fused_self_remat) recomputes the MLP "
+    "sublayer, mlp_fwd once more; per-op 'selective' recomputes nothing")
+
+
+def remat_expected(fused, policy, n_steps):
+    """Launches of ``n_steps`` train steps on one batch each (REMAT_FORMULA)."""
+    out = expected_launches(fused, n_steps, n_steps, n_steps)
+    block = 1 if policy in ("full", "dots") else 0
+    out["fused_block_fwd" if fused else "attention_fwd"] += LAYERS * n_steps * block
+    out["mlp_fwd"] += LAYERS * n_steps * (block or int(fused and policy == "selective"))
+    return out
+
+
+def knob_model(torch, fused, batch_size=TRAIN_BATCH):
+    """The Phase I driver's snli-ve learner (bf16, random weights from seed 0)
+    on the card, its trainer and one train batch on the card."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.train.model_factory import create_cl_model
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = train_argv(out_dir, fused)
+        argv[argv.index("--ordered_cl_tasks") + 1] = "snli-ve"
+        argv[argv.index("--batch_size") + 1] = str(batch_size)
+        args = driver.build_parser().parse_args(argv)
+        args.ordered_cl_tasks = ["snli-ve"]
+        model = create_cl_model(args, task_configs, dev)
+        trainer, batch = train_batch_on_card(torch, args, dev)
+    return model, trainer, batch
+
+
+def grads_against(torch, grads, ref):
+    """'bit-equal', or the worst per-parameter ratio to phase train_paths'
+    GRAD_REL_TOL (raises beyond it)."""
+    if all(torch.equal(grads[n], ref[n]) for n in ref):
+        return {"gradients": "bit-equal"}
+    rel, floor, reason = GRAD_REL_TOL
+    total = math.sqrt(sum(g.double().pow(2).sum().item() for g in ref.values()))
+    worst = max(((grads[n].double() - g.double()).norm().item()
+                 / (rel * g.double().norm().item() + floor * total), n) for n, g in ref.items())
+    if worst[0] > 1.0:
+        raise AssertionError(f"remat gradients beyond tolerance: {worst}")
+    return {"gradients": "within phase train_paths' f32 tolerance, not bit-equal",
+            "worst_ratio_to_tolerance": worst[0], "worst_param": worst[1],
+            "tolerance": {"rel": rel, "floor": floor, "reason": reason}}
+
+
+def remat_step(torch, model, trainer, batch, policy, fused, iters=5):
+    """One train step under ``policy`` from the model's current weights: its
+    launches (exact), the gradients, peak memory above the memory held before
+    the step; then the step ms by CUDA events."""
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.train.train_state import TrainState
+    from climb_tpu_torch.train.train_step import make_train_step
+
+    with_cfg(model, remat=policy is not None, remat_policy=policy or "full")
+    state = TrainState.create(model, trainer.make_tx(model))
+    step = make_train_step(model, "snli-ve", "ce", model.cfg.compute_dtype)
+    for p in model.parameters():  # the step drops them first: not held during it
+        p.grad = None
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step(state, batch)
+    torch.cuda.synchronize()
+    launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+    expected = remat_expected(fused, policy, 1)
+    if launches != expected:
+        raise AssertionError(f"remat {policy} ({'fused_block' if fused else 'pallas'}): "
+                             f"launches {launches} != expected {expected}")
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    ms = time_ms(torch, lambda: step(state, batch), iters=iters, warmup=1)
+    del state, step
+    return grads, {"launches": launches, "step_ms_events": ms, "peak_memory_bytes": peak,
+                   "memory_held_before_step_bytes": held, "peak_above_held_bytes": peak - held}
+
+
+def run_remat(torch):
+    """Phase knobs, remat: one snli-ve train step at batch TRAIN_BATCH for each
+    policy (none, full, dots, selective) with --attn_impl pallas and
+    fused_block (fused_block with selective is fused_self_remat), from the same
+    weights and batch: launches (exact, the recompute included), gradients
+    against the step without remat, step ms, peak memory; then batch
+    KNOB_BATCH without remat and with full."""
+    row = {"phase": "knobs_remat",
+           "config": "ViLT-B/32 (12 x 768, 12 heads, FFN 3072), random weights from seed 0, "
+           f"snli-ve batch {TRAIN_BATCH} (S = {SEQ}), bf16 compute, f32 master weights",
+           "launch_formula": REMAT_FORMULA}
+    launches = {}
+    for fused in (False, True):
+        impl = "fused_block" if fused else "pallas"
+        model, trainer, batch = knob_model(torch, fused)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        ref = None
+        for policy in REMAT_POLICIES:
+            model.load_state_dict(initial)
+            grads, out = remat_step(torch, model, trainer, batch, policy, fused)
+            if ref is None:
+                ref = grads
+            else:
+                out.update(grads_against(torch, grads, ref))
+            del grads
+            name = f"remat_{impl}_{policy or 'none'}"
+            row[name] = out
+            launches[name] = out["launches"]
+        del model, trainer, batch, initial, ref
+        torch.cuda.synchronize()
+    # the JAX package's batch, without remat and with the whole block checkpointed
+    model, trainer, batch = knob_model(torch, False, KNOB_BATCH)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    for policy in (None, "full"):
+        model.load_state_dict(initial)
+        grads, out = remat_step(torch, model, trainer, batch, policy, False, iters=3)
+        del grads
+        row[f"batch{KNOB_BATCH}_pallas_{policy or 'none'}"] = out
+    del model, trainer, batch, initial
+    torch.cuda.synchronize()
+    emit(row)
+    return launches
+
+
+def run_fuse_qkv(torch):
+    """Phase knobs, --fuse_qkv: the bf16 train step ms with and without it
+    (unfused, fused, fused, unfused, by CUDA events), and the f32 and bf16
+    logits of one eval batch against the unfused path."""
+    model, trainer, batch = knob_model(torch, False)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    from climb_tpu_torch.train.eval_step import model_inputs, prepare_batch
+    from climb_tpu_torch.train.train_state import TrainState
+    from climb_tpu_torch.train.train_step import make_train_step
+
+    times = {"unfused": [], "fused": []}
+    for fuse in (False, True, True, False):
+        model.load_state_dict(initial)
+        with_cfg(model, fuse_qkv=fuse)
+        state = TrainState.create(model, trainer.make_tx(model))
+        step = make_train_step(model, "snli-ve", "ce", model.cfg.compute_dtype)
+        times["fused" if fuse else "unfused"].append(
+            time_ms(torch, lambda: step(state, batch), iters=5, warmup=1))
+        del state, step
+    model.load_state_dict(initial)
+    model.eval()
+    logits = {}
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            for fuse in (False, True):
+                with_cfg(model, fuse_qkv=fuse, dtype=dtype)
+                b = prepare_batch(batch, model.cfg.compute_dtype)
+                logits[(dtype, fuse)] = model(*model_inputs("snli-ve", b)).float()
+    with_cfg(model, dtype="bfloat16", fuse_qkv=False)
+    atol, rtol, reason = LOGITS_TOL
+    errs = {d: (logits[(d, True)] - logits[(d, False)]).abs().max().item()
+            for d in ("float32", "bfloat16")}
+    if not torch.allclose(logits[("float32", True)], logits[("float32", False)], atol=atol,
+                          rtol=rtol):
+        raise AssertionError(f"--fuse_qkv f32 logits differ from the unfused path: {errs}")
+    emit({"phase": "knobs_fuse_qkv", "what": f"snli-ve batch {TRAIN_BATCH}, S = {SEQ}, the "
+          "same weights and batch; step ms in turns unfused, fused, fused, unfused",
+          "step_ms_events": times, "logits_max_abs_err_vs_unfused": errs,
+          "f32_tolerance": {"atol": atol, "rtol": rtol, "reason": reason}})
+    del model, trainer, batch, initial, logits
+    torch.cuda.synchronize()
+
+
+def check_bucketed_kernels(torch):
+    """The attention forward and backward and the FFN at every bucketed S of
+    --aspect_buckets 384,512,640 --text_buckets auto (BUCKET_SEQS, batch
+    TRAIN_BATCH, ragged text and patch masks), f32 and bf16, against their
+    plain versions at phase kernel's tolerances."""
+    from climb_tpu_torch.ops import attention, mlp
+    from climb_tpu_torch.ops.patch_embed import patch_grid_mask
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    w1, w2 = (torch.randn(shape, generator=g, device=dev) * 0.02
+              for shape in ((FFN, HIDDEN), (HIDDEN, FFN)))
+    b1, b2 = (torch.randn((n,), generator=g, device=dev) * 0.02 for n in (FFN, HIDDEN))
+    for s, text, width in bucket_shapes():
+        gw = width // 32
+        q32, k32, v32, do32 = (torch.randn((TRAIN_BATCH, s, HEADS, HEAD_DIM), generator=g,
+                                           device=dev) for _ in range(4))
+        tl = torch.randint(4, text + 1, (TRAIN_BATCH,), generator=g, device=dev)
+        phw = torch.stack([torch.randint(1, GRID_H + 1, (TRAIN_BATCH,), generator=g, device=dev),
+                           torch.randint(1, gw + 1, (TRAIN_BATCH,), generator=g, device=dev)], 1)
+        mask = torch.cat([(torch.arange(text, device=dev) < tl[:, None]).float(),
+                          torch.ones((TRAIN_BATCH, 1), device=dev),
+                          patch_grid_mask(phw, GRID_H, gw)], 1)
+        bias = attention.mask_to_bias(mask)
+        x32 = torch.randn((TRAIN_BATCH * s, HIDDEN), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            q, k, v, do, x = (t.to(dtype) for t in (q32, k32, v32, do32, x32))
+            ws = [t.to(dtype) for t in (w1, b1, w2, b2)]
+            with torch.no_grad():
+                out = attention.attention_fwd(q, k, v, bias)
+                e_fwd, _ = compare(torch, "attention_fwd", dn, out,
+                                   attention.mha_plain(q, k, v, bias))
+                grads = attention.attention_bwd(q, k, v, bias, do)
+                e_bwd = max(compare(torch, "attention_bwd", dn, o, r)[0] for o, r in
+                            zip(grads, attention.attention_bwd_plain(q, k, v, bias, do)))
+                e_mlp, _ = compare(torch, "mlp_fwd", dn, mlp.fused_mlp(x, *ws),
+                                   mlp.fused_mlp_plain(x, *ws))
+            rows.append({"S": s, "text": text, "width": width, "dtype": dn,
+                         "attention_fwd_max_abs_err": e_fwd, "attention_bwd_max_abs_err": e_bwd,
+                         "mlp_fwd_rows": TRAIN_BATCH * s, "mlp_fwd_max_abs_err": e_mlp})
+            del q, k, v, do, x, ws, out, grads
+    torch.cuda.synchronize()
+    emit({"phase": "knobs_bucket_kernels", "shapes": f"batch {TRAIN_BATCH}, {HEADS} heads of "
+          f"{HEAD_DIM}, D {HIDDEN}, F {FFN}; tolerances of phase kernel",
+          "seqs": [s for s, _, _ in bucket_shapes()], "checks": rows})
+
+
+def bucket_positions(record, fold):
+    """Encoder positions computed (every row, the zero rows that pad a
+    batch's last bucket included), positions of the rows that hold an
+    example, and valid tokens over a run's train batches (``record``: rows, S
+    and the batch's masks, read after the run)."""
+    computed = in_rows = valid = 0
+    for rows, s, text_mask, patch_hw, ok in record:
+        computed += rows * fold * s
+        in_rows += int(ok.sum()) * fold * s
+        text = text_mask.float().sum(-1).reshape(rows, -1).sum(-1)
+        patches = (patch_hw[..., 0] * patch_hw[..., 1]).float().reshape(rows, -1).sum(-1)
+        valid += float(((fold * (text + 1) + patches) * ok.float()).sum())
+    return computed, in_rows, valid
+
+
+def run_bucketed(torch, root, out_dir, unbucketed):
+    """Phase knobs, buckets: the Phase I driver on the fabricated root as phase
+    real_data runs it (``unbucketed``: its row, this process's card) with
+    --aspect_buckets 384,512,640 --text_buckets auto: exact launch counts, the
+    S each step saw, step ms by events and on the host, ex/s, the host split,
+    the share of the unbucketed run's padding positions removed, dev scores
+    beside the unbucketed run's with their binomial standard error."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.train import trainers
+
+    steps, feeds, record = [], [], []
+
+    def keep(i, batch):  # no sync: the masks are read after the run
+        pv, ids = batch["pixel_values"], batch["input_ids"]
+        s = ids.shape[-1] + 1 + (pv.shape[-3] // 32) * (pv.shape[-2] // 32)
+        record.append((ids.shape[0], s, batch["text_mask"], batch["patch_hw"], batch["valid"]))
+
+    argv = real_train_argv(root, out_dir, "snli-ve,nlvr2", "sequential_ft", *BUCKET_FLAGS)
+    with timed_train_steps(torch, trainers, steps, on_batch=keep), \
+            recorded_feed(torch, trainers, feeds):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        driver.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    args = driver.build_parser().parse_args(argv)
+    args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+    args.visual_input_type = "pil-image"
+    if args.tiny:  # as the driver's main does
+        args.image_height, args.image_width = 64, 96
+    loaders = {}
+    for task in args.ordered_cl_tasks:
+        t = driver._trainer(args, task_configs, torch.device("cpu"), task)
+        t.train_dataloader.set_epoch(1)
+        loaders[task] = t
+    n_steps = {task: len(t.train_dataloader) for task, t in loaders.items()}
+    n_eval = (2 * len(loaders["snli-ve"].eval_dataloader)
+              + len(loaders["nlvr2"].eval_dataloader))
+    n_train = sum(n_steps.values())
+    expected = expected_launches(False, n_train + n_eval, n_train, n_train + n_eval)
+    if launches != expected:
+        raise AssertionError(f"bucketed launches {launches} != expected {expected}")
+    if len(steps) != n_train:
+        raise AssertionError(f"{len(steps)} timed bucketed steps, expected {n_train}")
+    seqs = sorted({r[1] for r in record})
+    if not set(seqs) <= {s for s, _, _ in bucket_shapes()}:
+        raise AssertionError(f"bucketed steps saw S {seqs}, outside {bucket_shapes()}")
+    exp = os.path.join(out_dir, "vilt-sequential_ft-task0_snli-ve-task1_nlvr2")
+    with open(os.path.join(exp, "results.json")) as f:
+        results = json.load(f)
+    padding = {}
+    first = 0
+    for task in args.ordered_cl_tasks:
+        fold = 2 if task == "nlvr2" else 1
+        part = record[first:first + n_steps[task]]
+        first += n_steps[task]
+        computed, in_rows, valid = bucket_positions(part, fold)
+        n = len(loaders[task].train_dataset)
+        bs = loaders[task].batch_size
+        unbucketed_positions = math.ceil(n / bs) * bs * fold * SEQ
+        # the share of the unbucketed run's padding positions that bucketing
+        # removes, counting the rows that pad each bucket's last batch (all of
+        # the step's work) and without them (the examples' own padding)
+        padding[task] = {
+            "positions_unbucketed": unbucketed_positions, "positions_bucketed": computed,
+            "positions_bucketed_in_example_rows": in_rows, "valid_tokens": valid,
+            "padding_share_removed": (unbucketed_positions - computed)
+            / (unbucketed_positions - valid),
+            "padding_share_removed_in_example_rows": (n * fold * SEQ - in_rows)
+            / (n * fold * SEQ - valid)}
+    scores = {}
+    for r, u in zip(results, unbucketed["results"]):
+        n_dev = len(loaders[r["task_key"]].eval_dataset)
+        p = u["best_score"] / 100.0
+        se = 100.0 * math.sqrt(max(p * (1 - p), 1e-9) / n_dev)
+        scores[r["task_key"]] = {"bucketed": r["best_score"], "unbucketed": u["best_score"],
+                                 "binomial_standard_error": se,
+                                 "within_3_standard_errors":
+                                     abs(r["best_score"] - u["best_score"]) <= 3 * se}
+        if not 0.0 <= r["best_score"] <= 100.0:
+            raise AssertionError(f"bad bucketed results {results}")
+    times = train_step_times(steps, n_steps)
+    # a bucket shape's first step pays its warm-up (new GEMM shapes, new
+    # allocator blocks); the steps of a shape already seen, and ex/s over the
+    # examples the steps held (a bucket's last batch is partly padding)
+    seen, first = set(), 0
+    for task, n in n_steps.items():
+        idx = range(first, first + n)
+        first += n
+        warm = []
+        for i in idx:
+            if (task, record[i][1]) in seen:
+                warm.append(i)
+            seen.add((task, record[i][1]))
+        held = [int(record[i][4].sum()) for i in idx]
+        host_s = (steps[idx[-1]][1] - steps[idx[0]][1]) if n > 1 else float("nan")
+        times[task]["step_ms_events_warm_median"] = median(
+            [steps[i][2].elapsed_time(steps[i][3]) for i in warm]) if warm else None
+        times[task]["n_warm_steps"] = len(warm)
+        times[task]["examples_held"] = sum(held)
+        times[task]["train_examples_per_sec_held"] = sum(held[:-1]) / host_s
+    emit({"phase": "knobs_buckets", "flags": " ".join(BUCKET_FLAGS),
+          "config": f"{unbucketed['config']}; {' '.join(BUCKET_FLAGS)}",
+          "seconds": seconds, "seconds_unbucketed": unbucketed["seconds"],
+          "launches": launches, "n_train_steps": n_steps, "n_eval_batches": n_eval,
+          "seqs_seen": seqs, "padding": padding, "dev_scores": scores,
+          "host_split": host_split(steps, feeds), **times,
+          "unbucketed": {task: {k: unbucketed[task][k] for k in (
+              "step_ms_events_median", "step_ms_host_median", "train_examples_per_sec")}
+              for task in n_steps}})
+    return launches
+
+
+def run_accum_sweep(torch):
+    """Phase knobs, --grad_accum_steps sweep: every power-of-2 candidate timed
+    by accum_tune at each of SWEEP_SHAPES, bf16, per-op kernels; each shape's
+    pick, its peak memory, the token budget the picks imply, and auto's
+    choice with the port's AUTO_ACCUM_TOKEN_BUDGET, which must be the pick or
+    within SWEEP_NOISE of its time at every shape."""
+    import dataclasses
+
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.data.collation import stack_collate
+    from climb_tpu_torch.data.loader import DataLoader
+    from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
+    from climb_tpu_torch.models.model_config import ViltConfig, head_specs_from_task_configs
+    from climb_tpu_torch.models.vilt import ViltContinualLearner
+    from climb_tpu_torch.train import accum_tune
+    from climb_tpu_torch.train import train_step as train_step_mod
+    from climb_tpu_torch.train.eval_step import LOSS_TYPES
+    from climb_tpu_torch.train.optimizer import make_optimizer
+    from climb_tpu_torch.train.train_state import TrainState
+    from climb_tpu_torch.train.trainers import to_device
+
+    dev = torch.device("cuda")
+    kind = accum_tune.device_kind(dev)
+    budget = train_step_mod.AUTO_ACCUM_TOKEN_BUDGET
+    out = {"phase": "knobs_accum_sweep", "card": kind, "port_budget": budget,
+           "noise": SWEEP_NOISE, "shapes": []}
+    with tempfile.TemporaryDirectory() as cache_dir:
+        for task, batch_size, text, canvas in SWEEP_SHAPES:
+            cfg = dataclasses.replace(ViltConfig(), max_text_len=text, image_height=canvas[0],
+                                      image_width=canvas[1], dtype="bfloat16",
+                                      attn_impl="pallas", mlp_impl="pallas",
+                                      modality_type_vocab_size=3 if task == "nlvr2" else 2)
+            model = ViltContinualLearner(cfg, head_specs_from_task_configs([task], task_configs))
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            model = model.to(dev)
+            model.encoder.dropout_generator = torch.Generator(device=dev).manual_seed(0)
+            ds = make_synthetic_vl_dataset(task, task_configs[task], "train", batch_size, text,
+                                           canvas, 0)
+            batch = to_device(next(iter(DataLoader(ds, batch_size, stack_collate))), dev)
+            tx = make_optimizer([n for n, _ in model.named_parameters()], lr=1e-5,
+                                total_steps=100, warmup_ratio=0.1, weight_decay=0.01,
+                                adam_epsilon=1e-8)
+            state = TrainState.create(model, tx)
+            tuner = accum_tune.AccumTuner(cfg.patch_size, kind,
+                                          cache_path=os.path.join(cache_dir, "accum.json"),
+                                          config_sig=accum_tune.step_config_signature(cfg))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pick = tuner.tune(lambda a: train_step_mod.make_train_step(
+                model, task, LOSS_TYPES[task], torch.bfloat16, a), state, model, batch)
+            seq, n_seqs, _ = train_step_mod.batch_shape_signature(batch, cfg.patch_size)
+            times = tuner.cache[tuner.key(batch)]["times_ms"]
+            auto = train_step_mod.auto_grad_accum_for_batch(batch, cfg.patch_size)
+            out["shapes"].append({
+                "task": task, "batch": batch_size, "sequences": n_seqs, "S": seq,
+                "tokens": n_seqs * seq, "times_ms": times, "pick": pick,
+                "microbatch_tokens": n_seqs // pick * seq,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "auto_with_port_budget": auto,
+                "auto_over_pick": times.get(str(auto), math.inf) / times[str(pick)]})
+            del model, state, batch, tuner
+            torch.cuda.synchronize()
+    shapes = out["shapes"]
+    # the largest microbatch the sweep found fastest, and the largest step on
+    # which no split won (the budget auto would need to keep every swept pick)
+    out["budget_from_picks"] = max(s["microbatch_tokens"] for s in shapes)
+    out["largest_step_where_accum_1_won"] = max(
+        (s["tokens"] for s in shapes if s["pick"] == 1), default=None)
+    out["port_budget_reproduces_picks"] = all(s["auto_with_port_budget"] == s["pick"]
+                                              for s in shapes)
+    emit(out)
+    off = [(s["task"], s["batch"], s["S"], s["auto_with_port_budget"], s["pick"],
+            s["auto_over_pick"]) for s in shapes if s["auto_over_pick"] > 1 + SWEEP_NOISE]
+    if off:
+        raise AssertionError(f"AUTO_ACCUM_TOKEN_BUDGET = {budget}: auto's choice costs more "
+                             f"than {SWEEP_NOISE:.0%} over the sweep's pick at (task, batch, "
+                             f"S, auto, pick, ratio) {off}")
+
+
+def preemption_child(step_file, argv):
+    """The Phase I driver in a child process; each train step appends its
+    count to ``step_file`` (the parent sends SIGTERM after PREEMPT_AFTER)."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.train import trainers
+
+    make = trainers.make_step_dispatcher
+
+    def counting(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*sa, **skw):
+            out = step(*sa, **skw)
+            with open(step_file, "a") as f:
+                f.write("step\n")
+            return out
+        return run
+
+    trainers.make_step_dispatcher = counting
+    driver.main(argv)
+
+
+def run_preemption(torch, work):
+    """Phase knobs, preemption: singletask_ft snli-ve (synthetic, bf16, full
+    width) uninterrupted in this process; the same command in a child process
+    that gets a real SIGTERM after PREEMPT_AFTER steps and must exit 143 with
+    a mid-epoch train state; the same command again here, which resumes; the
+    resumed run's task checkpoint must equal the uninterrupted one's bit for
+    bit."""
+    import signal
+
+    from climb_tpu_torch.ckpt.checkpoint import load_task_checkpoint
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+
+    def argv(out):
+        a = train_argv(out, False)
+        a[a.index("--ordered_cl_tasks") + 1] = "snli-ve"
+        a[a.index("--cl_algorithm") + 1] = "singletask_ft"
+        a.remove("--do_eval")
+        return a
+
+    whole, cut = os.path.join(work, "preempt_whole"), os.path.join(work, "preempt_cut")
+    t0 = time.perf_counter()
+    driver.main(argv(whole))
+    whole_s = time.perf_counter() - t0
+    step_file = os.path.join(work, "preempt_steps")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.preemption_child(sys.argv[2], sys.argv[3:])")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", code, here, step_file, *argv(cut)],
+                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.perf_counter() + 600
+        while time.perf_counter() < deadline and child.poll() is None:
+            if os.path.exists(step_file):
+                with open(step_file) as f:
+                    if len(f.readlines()) >= PREEMPT_AFTER:
+                        child.send_signal(signal.SIGTERM)
+                        break
+            time.sleep(0.02)
+        _, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - t0
+    with open(step_file) as f:
+        steps_run = len(f.readlines())
+    if child.returncode != 143:
+        raise AssertionError(f"preempted child exited {child.returncode}, expected 143: "
+                             f"{err[-2000:]}")
+    exp = "vilt-singletask_ft-task0_snli-ve"
+    state_path = os.path.join(cut, exp, "checkpoints", "task0_snli-ve", "train_state")
+    meta = torch.load(state_path, weights_only=True)["meta"]
+    n_steps = math.ceil(TRAIN_SIZE / TRAIN_BATCH)
+    t0 = time.perf_counter()
+    driver.main(argv(cut))
+    resume_s = time.perf_counter() - t0
+    a, b = (load_task_checkpoint(os.path.join(d, exp), 0, "snli-ve") for d in (whole, cut))
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    if a.keys() != b.keys() or differ:
+        raise AssertionError(f"resumed parameters differ from the uninterrupted run: "
+                             f"{differ[:5]} ({len(differ)} tensors)")
+    emit({"phase": "knobs_preemption", "sigterm_after_steps": PREEMPT_AFTER,
+          "child_steps_run": steps_run, "child_returncode": child.returncode,
+          "saved_meta": {k: int(meta[k]) for k in ("epoch", "steps_into_epoch", "global_step")},
+          "n_train_steps": n_steps, "mid_epoch": 0 < int(meta["steps_into_epoch"]) < n_steps,
+          "resumed_params_bit_equal": True, "n_tensors": len(a),
+          "seconds": {"uninterrupted": whole_s, "child": child_s, "resume": resume_s}})
+
+
+def run_knobs(torch, root, work, unbucketed):
+    """Phase knobs: remat, fused QKV, buckets, the accum sweep and preemption.
+    Returns the launch counts of its paths."""
+    launches = run_remat(torch)
+    run_fuse_qkv(torch)
+    check_bucketed_kernels(torch)
+    launches["knobs_buckets"] = run_bucketed(torch, root, os.path.join(work, "bucketed"),
+                                             unbucketed)
+    run_accum_sweep(torch)
+    run_preemption(torch, work)
+    return launches
+
+
 def ptxas_resources(report):
     """{mangled kernel name: {"registers", "spill_bytes"}} from nvcc -Xptxas -v."""
     import re
@@ -2725,10 +3331,11 @@ def main() -> int:
               "seed": REAL_SEED, "images": n_images, "seconds": time.perf_counter() - t0,
               "examples_per_task": {"train": TRAIN_SIZE, "dev": TRAIN_SIZE // 4}})
         run_loader(torch, root)
-        launches["real_data"], launches["real_data_raw"], ckpt = run_real_data(
+        launches["real_data"], launches["real_data_raw"], ckpt, real_row = run_real_data(
             torch, root, os.path.join(work, "out"))
         predict_root = fabricate_predict_root(root, os.path.join(work, "predict_data"))
         launches["predict_real"] = run_predict_real(torch, predict_root, ckpt, predict_out)
+        launches.update(run_knobs(torch, root, work, real_row))
         launches.update(run_lowshot(torch, root, os.path.join(work, "out")))
         vision_root = os.path.join(work, "vision_data")
         t0 = time.perf_counter()

@@ -14,19 +14,31 @@ its tree); ``load_model_file`` reads a ``model`` file together with the
 ``adapters`` file beside it. A rerun skips a task whose ``model`` file
 exists, loading it with ``partial_load``.
 
-The elastic per-epoch train state (``train_state``) and the best parameters
-so far (``best_model``) in the task's directory are the port's own
-``torch.save`` files: the model's parameters by their port names, the AdamW
-moments, the update count and the trainer's metadata. Every write goes to a
-temporary file that replaces the target, so a crash mid-write leaves the
-previous file whole. The JAX package's flax msgpack files are not read (they
-need flax): loading one raises.
+The elastic train state (``train_state``, written at epoch ends and on a
+SIGTERM, with ``steps_into_epoch`` in its metadata for a mid-epoch resume)
+and the best parameters so far (``best_model``) in the task's directory are
+the port's own ``torch.save`` files: the model's parameters by their port
+names, the AdamW moments, the update count and the trainer's metadata. Every
+write goes to a temporary file that replaces the target, so a crash
+mid-write leaves the previous file whole.
+
+The JAX package's task checkpoints are flax msgpack files of the parameter
+tree (``climb_tpu/ckpt/checkpoint.py:88-115, 185-209``). ``load_model_file``,
+``load_task_checkpoint`` and ``load_state_dict`` read them beside the port's
+files, with ``read_flax_msgpack``, the port's own decoder of that format (no
+``msgpack``, ``flax`` or ``ml_dtypes`` import: the card's machine has none of
+them), and map the tree, its stacked ``encoder`` included, through
+``ckpt/convert.state_dict_from_jax``. The JAX package's elastic
+``train_state`` (its optax moments) is not read: ``load_train_state`` raises
+for one, and the run restarts the task.
 """
 
 import logging
 import os
+import struct
 from typing import Dict
 
+import numpy as np
 import torch
 
 from climb_tpu_torch.ckpt.convert import (
@@ -34,6 +46,7 @@ from climb_tpu_torch.ckpt.convert import (
     load_reference_checkpoint,
     partial_load,
     reference_from_state_dict,
+    state_dict_from_jax,
 )
 from climb_tpu_torch.models.adapters import is_adapter_param
 
@@ -41,7 +54,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "task_dir", "task_checkpoint_exists", "save_task_checkpoint", "load_task_checkpoint",
-    "load_model_file",
+    "load_model_file", "read_flax_msgpack",
     "partial_load", "save_state_dict", "load_state_dict", "save_train_state",
     "load_train_state",
 ]
@@ -54,13 +67,147 @@ def _save_atomic(obj, path: str):
     os.replace(tmp, path)
 
 
+# flax's msgpack extension types (flax/serialization.py, _MsgpackExtType)
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+class _Unpacker:
+    """A msgpack decoder of the types flax writes: maps, arrays, str, bin,
+    ints, floats, bool, nil and ext."""
+
+    def __init__(self, data: bytes):
+        self.buf = memoryview(data)
+        self.pos = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("msgpack data ends early")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self._array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return str(self._take(b & 0x1F), "utf-8")
+        if b in _FIXED:
+            return _FIXED[b]
+        if b in _SIZED:
+            kind, fmt = _SIZED[b]
+            n = self._unpack(fmt)
+            if kind == "bin":
+                return bytes(self._take(n))
+            if kind == "str":
+                return str(self._take(n), "utf-8")
+            if kind == "array":
+                return self._array(n)
+            if kind == "map":
+                return self._map(n)
+            return self._ext(n)  # ext 8/16/32
+        if b in _NUMBERS:
+            return self._unpack(_NUMBERS[b])
+        if 0xD4 <= b <= 0xD8:  # fixext 1, 2, 4, 8, 16
+            return self._ext(1 << (b - 0xD4))
+        raise ValueError(f"msgpack: unknown type byte 0x{b:02x} at {self.pos - 1}")
+
+    def _array(self, n):
+        return [self.value() for _ in range(n)]
+
+    def _map(self, n):
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def _ext(self, n):
+        code = self._unpack(">b")
+        data = bytes(self._take(n))
+        if code == _EXT_NDARRAY:
+            return _ndarray(data)
+        if code == _EXT_NPSCALAR:
+            arr = _ndarray(data)
+            return arr.reshape(()) if isinstance(arr, torch.Tensor) else arr[()]
+        if code == _EXT_COMPLEX:
+            real, imag = _Unpacker(data).value()
+            return complex(real, imag)
+        raise ValueError(f"msgpack: ext type {code} is not one flax writes")
+
+
+_FIXED = {0xC0: None, 0xC2: False, 0xC3: True}
+_SIZED = {0xC4: ("bin", ">B"), 0xC5: ("bin", ">H"), 0xC6: ("bin", ">I"),
+          0xC7: ("ext", ">B"), 0xC8: ("ext", ">H"), 0xC9: ("ext", ">I"),
+          0xD9: ("str", ">B"), 0xDA: ("str", ">H"), 0xDB: ("str", ">I"),
+          0xDC: ("array", ">H"), 0xDD: ("array", ">I"),
+          0xDE: ("map", ">H"), 0xDF: ("map", ">I")}
+_NUMBERS = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+            0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+
+
+def _ndarray(data: bytes):
+    """flax's ndarray payload, a msgpack (shape, dtype name, C-order bytes):
+    a numpy array, or a ``torch.bfloat16`` tensor for bfloat16 (numpy has
+    no such dtype here: the bytes are read as uint16 and viewed)."""
+    shape, name, raw = _Unpacker(data).value()
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":
+        bits = np.frombuffer(raw, dtype=np.uint16).reshape(shape).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return np.frombuffer(raw, dtype=np.dtype(name)).reshape(shape).copy()
+
+
+def _unchunk(tree):
+    """flax's chunked arrays (``__msgpack_chunked_array__``: a flat array cut
+    into chunks of at most 2**30 bytes) back into arrays, in place."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        if isinstance(chunks[0], torch.Tensor):
+            return torch.cat(chunks).reshape(shape)
+        return np.concatenate(chunks).reshape(shape)
+    for k, v in tree.items():
+        tree[k] = _unchunk(v)
+    return tree
+
+
+def read_flax_msgpack(path: str):
+    """The tree a flax ``msgpack_serialize`` file holds: nested dicts of numpy
+    arrays (``torch.bfloat16`` tensors for bfloat16), numpy scalars and
+    Python values."""
+    with open(path, "rb") as f:
+        data = f.read()
+    reader = _Unpacker(data)
+    tree = reader.value()
+    if reader.pos != len(data):
+        raise ValueError(f"{path}: {len(data) - reader.pos} bytes after the msgpack value")
+    return _unchunk(tree)
+
+
 def _load(path: str):
-    if not is_torch_checkpoint(path):
+    """A ``torch.save`` file of the port, or a JAX msgpack parameter tree as a
+    state dict by the port's names."""
+    if is_torch_checkpoint(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    tree = read_flax_msgpack(path)
+    if isinstance(tree, dict) and set(tree) == {"state", "meta"}:
         raise NotImplementedError(
-            f"{path}: not a torch.save file. climb_tpu's flax msgpack checkpoints need flax "
-            "and are not read by climb_tpu_torch; export them with climb_tpu's "
-            "save_reference_checkpoint")
-    return torch.load(path, map_location="cpu", weights_only=True)
+            f"{path}: a flax msgpack train_state of climb_tpu (its optax moments) is not read "
+            "by climb_tpu_torch, only parameter trees")
+    return state_dict_from_jax(tree)
 
 
 def task_dir(output_dir: str, task_num: int, task_key: str) -> str:
@@ -87,8 +234,11 @@ def save_task_checkpoint(output_dir: str, task_num: int, task_key: str,
 
 
 def load_model_file(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-layout ``model`` file as a port ``state_dict`` (CPU
-    tensors), with the parameters of the ``adapters`` file beside it, if any."""
+    """A reference-layout ``model`` file, or the JAX package's msgpack one, as
+    a port ``state_dict`` (CPU tensors), with the parameters of the
+    ``adapters`` file beside it, if any (a msgpack tree holds its adapters)."""
+    if not is_torch_checkpoint(path):
+        return _load(path)
     sd = load_reference_checkpoint(path)
     adapters = os.path.join(os.path.dirname(path), "adapters")
     if os.path.isfile(adapters):
@@ -107,6 +257,8 @@ def save_state_dict(state_dict: Dict[str, torch.Tensor], path: str):
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``save_state_dict`` file, or a JAX msgpack parameter tree, by the
+    port's names."""
     return _load(path)
 
 
@@ -116,7 +268,13 @@ def save_train_state(state, meta: dict, path: str):
 
 
 def load_train_state(state, path: str) -> dict:
-    """Restore ``state`` in place from ``save_train_state``'s file; returns meta."""
+    """Restore ``state`` in place from ``save_train_state``'s file; returns
+    meta (``epoch``, ``steps_into_epoch`` after a preemption, ``global_step``,
+    the best score and epoch, the generator and Python ``random`` states)."""
+    if not is_torch_checkpoint(path):
+        raise NotImplementedError(
+            f"{path}: a flax msgpack train_state of climb_tpu (its optax moments) is not read "
+            "by climb_tpu_torch; the task restarts from its parameters")
     payload = _load(path)
     state.load_state_dict(payload["state"])
     return payload["meta"]

@@ -24,8 +24,8 @@ axis per block; the HF names are mapped by ``models.hf_import``.
 ``state_dict_from_jax`` carries the adapter and LoRA leaves (``adapter_*``
 under the stacked encoder) across; the reference layout has no adapters, so
 ``reference_from_state_dict`` leaves them out, as ``climb_tpu``'s
-``torch_import.py`` does. Native flax msgpack checkpoints are not read:
-they need flax.
+``torch_import.py`` does. The JAX package's flax msgpack files reach
+``state_dict_from_jax`` through ``ckpt/checkpoint.read_flax_msgpack``.
 """
 
 import logging
@@ -55,12 +55,18 @@ _LAYER_NORMS = ("ln1", "ln2", "attn_ln", "mlp_ln")
 ENCODER_KEYS = ("vilt", "viltbert")
 
 
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):  # a bfloat16 leaf of a msgpack file
+        return x.to(torch.float32).numpy()
+    return np.asarray(x)
+
+
 def _tensor(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+    return torch.from_numpy(np.array(_np(x), dtype=np.float32, copy=True))
 
 
 def _linear_from_jax(out, prefix, p):
-    out[f"{prefix}.weight"] = _tensor(np.asarray(p["kernel"]).T)
+    out[f"{prefix}.weight"] = _tensor(_np(p["kernel"]).T)
     out[f"{prefix}.bias"] = _tensor(p["bias"])
 
 
@@ -71,9 +77,9 @@ def _layernorm_from_jax(out, prefix, p):
 
 def _layers_from_jax(out, stacked, names):
     """The scan-stacked blocks (leading layer axis) as ``encoder.{i}.*``."""
-    for i in range(np.asarray(stacked["q"]["kernel"]).shape[0]):
+    for i in range(_np(stacked["q"]["kernel"]).shape[0]):
         for name in names:
-            leaf = {k: np.asarray(v)[i] for k, v in stacked[name].items()}
+            leaf = {k: _np(v)[i] for k, v in stacked[name].items()}
             fn = _layernorm_from_jax if name in _LAYER_NORMS else _linear_from_jax
             fn(out, f"encoder.{i}.{name}", leaf)
         for name, sub in stacked.items():
@@ -114,9 +120,9 @@ def _adapter_from_jax(out, prefix, tree, layer):
         if isinstance(p, dict):
             _adapter_from_jax(out, f"{prefix}.{name}", p, layer)
         elif name == "kernel":
-            out[f"{prefix}.weight"] = _tensor(np.asarray(p)[layer].T)
+            out[f"{prefix}.weight"] = _tensor(_np(p)[layer].T)
         else:
-            out[f"{prefix}.{name}"] = _tensor(np.asarray(p)[layer])
+            out[f"{prefix}.{name}"] = _tensor(_np(p)[layer])
 
 
 def _prefixed(prefix: str, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -263,8 +269,8 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """torch.load (weights only) a reference-layout file and convert it."""
     if not is_torch_checkpoint(path):
         raise NotImplementedError(
-            f"{path}: native flax msgpack checkpoints need flax and are not read by "
-            "the port; export them with climb_tpu's save_reference_checkpoint")
+            f"{path}: not a reference-layout torch file (a flax msgpack task checkpoint of "
+            "climb_tpu is read as a checkpoint, by ckpt.checkpoint.load_model_file)")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(sd, dict):
         raise ValueError(f"{path}: expected a state dict, got {type(sd)}")

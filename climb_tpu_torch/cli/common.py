@@ -41,12 +41,14 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="Compute dtype for the encoder.")
     parser.add_argument("--attn_impl", type=str, default="auto",
                         choices=["xla", "xla_ckpt", "pallas", "fused_block", "auto"],
-                        help="Attention implementation. 'xla', 'pallas' and "
-                             "'auto' compute one function, and on the card "
-                             "each runs the CUDA attention kernel "
-                             "(csrc/attention.cu); 'fused_block' runs the "
-                             "whole attention sublayer through csrc/block.cu; "
-                             "'xla_ckpt' is not ported yet.")
+                        help="Attention implementation. 'xla', 'xla_ckpt', "
+                             "'pallas' and 'auto' compute one function, and on "
+                             "the card each runs the CUDA attention kernels "
+                             "(csrc/attention.cu, attention_bwd.cu), which keep "
+                             "only q, k and v and recompute the probabilities "
+                             "in backward, as 'xla_ckpt' does; 'fused_block' "
+                             "runs the whole attention sublayer through "
+                             "csrc/block.cu.")
     parser.add_argument("--mlp_impl", type=str, default="xla", choices=["xla", "pallas"],
                         help="FFN implementation. Both values compute one "
                              "function, and on the card each runs the CUDA "
@@ -64,9 +66,22 @@ def add_device_args(parser: argparse.ArgumentParser):
     parser.add_argument("--image_height", type=int, default=384)
     parser.add_argument("--image_width", type=int, default=640)
     parser.add_argument("--aspect_buckets", type=str, default=None,
-                        help="Not ported yet (loader bucketing, training-knobs slice).")
+                        help="Aspect bucketing: comma list of canvas widths in "
+                             "pixels (e.g. 384,512,640) or 'auto' (half, three "
+                             "quarters and all of --image_width). Each batch "
+                             "holds examples whose image fits one width and its "
+                             "canvas is cropped to it; the cropped columns are "
+                             "masked padding, so results are unchanged. Needs "
+                             "the dataset's canvas_widths(); without it the "
+                             "loader warns and runs unbucketed.")
     parser.add_argument("--text_buckets", type=str, default=None,
-                        help="Not ported yet (loader bucketing, training-knobs slice).")
+                        help="Text-length bucketing: comma list of token "
+                             "lengths (e.g. 16,24,40) or 'auto' (16, 24 and "
+                             "--max_text_len). Each batch holds examples whose "
+                             "real token count fits one length and its text is "
+                             "cut to it (a longer example widens the cut); "
+                             "composes with --aspect_buckets. Needs the "
+                             "dataset's text_lengths().")
     parser.add_argument("--max_text_len", type=int, default=40)
     parser.add_argument("--synthetic", action="store_true",
                         help="Use synthetic in-memory datasets (no real data needed).")
@@ -99,28 +114,48 @@ def add_device_args(parser: argparse.ArgumentParser):
     parser.add_argument("--grad_accum_steps", default=1,
                         type=lambda s: s if s in ("auto", "sweep") else int(s),
                         help="Split each batch into k microbatches and sum their gradients "
-                             "in one step (the same trajectory); 'auto' and 'sweep' are not "
-                             "ported (their token budget was measured on a TPU).")
+                             "in one step (the same trajectory). 'auto': per batch shape, "
+                             "the smallest power of 2 whose microbatch holds at most "
+                             "--auto_accum_token_budget encoder tokens; 'sweep': time every "
+                             "power-of-2 candidate on the card the first time a batch shape "
+                             "is seen and keep the fastest, cached per card name in "
+                             "~/.cache/climb_tpu_torch_accum.json.")
     parser.add_argument("--auto_accum_token_budget", type=int, default=None,
-                        help="Token budget of --grad_accum_steps auto: not ported.")
+                        help="Microbatch token budget of --grad_accum_steps auto (default: "
+                             "train_step.AUTO_ACCUM_TOKEN_BUDGET, 143872: on the H100 no "
+                             "split was faster at any step up to that size).")
     parser.add_argument("--save_state_epochs", type=int, default=1,
                         help="Every N epochs, save the full train state (parameters, AdamW "
                              "moments, update count, dropout generator) for an elastic "
                              "resume at the epoch boundary; 0 disables.")
     parser.add_argument("--no_sigterm_checkpoint", action="store_true",
-                        help="The port installs no SIGTERM handler yet, so this changes "
-                             "nothing: a killed run resumes from its last epoch's state.")
+                        help="Do not install the SIGTERM handler. By default, with "
+                             "--save_state_epochs > 0, a SIGTERM during training saves the "
+                             "full train state at the next step boundary and exits 143; "
+                             "the same command then resumes mid-epoch on the same "
+                             "trajectory.")
     parser.add_argument("--eval_every_epoch", action="store_true",
                         help="The Phase II language and vision drivers evaluate every "
                              "epoch instead of the reference's epoch>5-and-even gate; the VL "
                              "trainers evaluate every epoch (low-shot: their eval_epochs) "
                              "either way.")
-    parser.add_argument("--remat", action="store_true", help="Not ported yet (remat).")
+    parser.add_argument("--remat", action="store_true",
+                        help="Recompute encoder blocks in backward instead of keeping their "
+                             "activations (torch.utils.checkpoint): less memory for more "
+                             "compute.")
     parser.add_argument("--remat_policy", type=str, default="full",
-                        choices=["full", "dots", "selective"], help="Not ported yet (remat).")
+                        choices=["full", "dots", "selective"],
+                        help="What --remat recomputes: 'full' the whole block; 'dots' "
+                             "the same on the port (JAX keeps the projections' products); "
+                             "'selective' only the attention probabilities, which the "
+                             "kernels never keep (with --attn_impl fused_block the MLP "
+                             "sublayer is checkpointed).")
     parser.add_argument("--scan_unroll", type=int, default=1,
                         help="JAX layer-scan unroll; the port runs a Python loop (1 only).")
-    parser.add_argument("--fuse_qkv", action="store_true", help="Not ported yet.")
+    parser.add_argument("--fuse_qkv", action="store_true",
+                        help="One (D, 3D) product for q, k and v instead of three (D, D) "
+                             "products; the parameters keep their names and layout. "
+                             "--attn_impl fused_block ignores it.")
     parser.add_argument("--worker_mode", type=str, default="thread",
                         choices=["thread", "process"],
                         help="Loader workers: threads, or forked processes for GIL-bound "
@@ -152,15 +187,10 @@ _UNPORTED = (
     ("use_mesh", False, "the scale-out slice"),
     ("pp_stages", 0, "the scale-out slice"),
     ("fsdp", False, "the scale-out slice"),
-    ("aspect_buckets", None, "the training-knobs slice: loader bucketing"),
-    ("text_buckets", None, "the training-knobs slice: loader bucketing"),
     ("pp_microbatches", 0, "the scale-out slice"),
     ("pp_virtual", 1, "the scale-out slice"),
     ("do_wandb_logging", False, "no network: W&B logging is not ported"),
-    ("remat", False, "the remat work of the training-knobs slice"),
-    ("fuse_qkv", False, "the training-knobs slice"),
     ("scan_unroll", 1, "the port runs the layers in a Python loop"),
-    ("auto_accum_token_budget", None, "grad-accum auto, once measured on the H100"),
     ("sharded_checkpoints", False, "the scale-out slice"),
     ("async_checkpoint", False, "the scale-out slice"),
     ("profile_dir", None, "chip_smoke.py's torch.profiler phase stands in"),
@@ -175,13 +205,6 @@ def reject_unported(args):
         if value != ported and not (flag == "pp_stages" and value in (0, 1)):
             raise NotImplementedError(
                 f"--{flag} {value!r} is not ported to climb_tpu_torch yet ({later})")
-    if args.attn_impl == "xla_ckpt":
-        raise NotImplementedError(
-            "--attn_impl xla_ckpt is not ported to climb_tpu_torch yet (the remat work)")
-    if str(getattr(args, "grad_accum_steps", 1)) in ("auto", "sweep"):
-        raise NotImplementedError(
-            f"--grad_accum_steps {args.grad_accum_steps} is not ported to climb_tpu_torch yet "
-            "(its token budget was measured on a TPU v5e; it waits for an H100 measurement)")
 
 
 def apply_task_config_overrides(task_configs: dict, spec: str) -> dict:

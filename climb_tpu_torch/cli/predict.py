@@ -3,9 +3,11 @@
 Loads a Phase I checkpoint in the reference torch layout (with its adapters
 and the task's adapter active for ``--cl_algorithm adapter``), runs a task's eval
 split (from the CLiMB data root, or ``--synthetic``) through the serving
-forward batch by batch, with the task trainer's eval loader and the batches
-copied ahead to the card, and writes per-example predictions
-(``predictions[i]`` is example i's), the task metric and the measured
+forward batch by batch, with the task trainer's eval loader (bucketed by
+``--aspect_buckets`` and ``--text_buckets``) and the batches copied ahead to
+the card, and writes per-example predictions in dataset order
+(``predictions[i]`` is example i's, the bucketed order inverted), the task
+metric and the measured
 throughput in the JAX CLI's output JSON. Runs on the card unless ``--device
 cpu`` is given.
 
@@ -141,6 +143,9 @@ def main(argv=None):
 
 
 def _predict_dataset(args, loader, eval_step, device):
+    # bucketing permutes the batch stream; the emission order puts the
+    # predictions back in dataset order (predictions[i] is example i's)
+    order = loader.example_order() if loader.is_bucketed else None
     preds, total, count, n, n_timed = [], 0.0, 0.0, 0, 0
     t_start, t0 = time.perf_counter(), None
     for batch in device_prefetch(loader, device):
@@ -160,6 +165,13 @@ def _predict_dataset(args, loader, eval_step, device):
     now = time.perf_counter()
     ex_s = n_timed / (now - t0) if n_timed else n / max(now - t_start, 1e-9)
     score = 100.0 * total / max(count, 1.0)
+    if order is not None:
+        if len(order) != len(preds):
+            raise RuntimeError(f"{len(preds)} predictions for {len(order)} examples")
+        inverted = [0] * len(preds)
+        for pos, ds_idx in enumerate(order):
+            inverted[int(ds_idx)] = preds[pos]
+        preds = inverted
 
     out = {
         "task_key": args.task_key,

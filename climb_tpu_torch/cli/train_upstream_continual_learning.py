@@ -17,9 +17,14 @@ before the weights are drawn), adapter activation before each trained task
 (:323-325), and the
 post-task hooks (:345-361), also for a finished task that a rerun skips: an
 experience-replay buffer after each task; EWC's Fisher, and the
-distillation teacher, after each task but the last. The port installs no
-SIGTERM handler yet: a killed run resumes from its last epoch's train state
-and skips finished tasks.
+distillation teacher, after each task but the last. A SIGTERM during a
+task's training saves the full train state at the next step boundary and
+exits 143 (the trainer's handler); one that lands during a task's wrap-up
+(its eval, checkpoint, results, the CL hooks) is held by the driver's own
+handler and honoured at the task boundary, also with exit 143 (JAX driver
+:236-259, 368-378). The same command then resumes mid-epoch, or at the next
+task, and skips finished tasks; ``--no_sigterm_checkpoint`` installs neither
+handler.
 
 Usage (synthetic smoke run on the CPU; drop --synthetic and pass
 --vocab_path DATA/vocab.txt to train on the data root):
@@ -65,6 +70,7 @@ from climb_tpu_torch.evaluation.cl_eval import (
 )
 from climb_tpu_torch.train.model_factory import create_cl_model
 from climb_tpu_torch.train.trainers import get_task_trainer_class
+from climb_tpu_torch.utils import preemption
 from climb_tpu_torch.utils.seed import set_seed
 
 logger = logging.getLogger(__name__)
@@ -210,7 +216,16 @@ def main(argv=None):
     logger.info("Continual learner: %s | %d task heads (%s) | %.2fM params | algorithm=%s | %s",
                 args.encoder_name, len(args.ordered_cl_tasks), ",".join(args.ordered_cl_tasks),
                 n_params / 1e6, args.cl_algorithm, device)
-    return _run(args, configs, output_dir, results_file, model, device, cl, adapter_handler)
+    # the driver's handler stays installed over every task's wrap-up; the
+    # trainer nests its own over each train loop
+    driver_preempt = (not args.no_sigterm_checkpoint
+                      and preemption.install_preemption_handler())
+    try:
+        return _run(args, configs, output_dir, results_file, model, device, cl,
+                    adapter_handler)
+    finally:
+        if driver_preempt:
+            preemption.uninstall_preemption_handler()
 
 
 def _trainer(args, configs, device, task_key):
@@ -266,6 +281,13 @@ def _run(args, configs, output_dir, results_file, model, device, cl=None, adapte
                 _dump_json_atomic(results, results_file)
             task_trainers[task_key] = task_trainer
             _after_task(args, configs, cl, model, task_num, task_key, task_trainer)
+            if preemption.preemption_requested():
+                # a SIGTERM after the train loop's last poll: the task boundary is
+                # the resume point (finished tasks are skipped on the rerun)
+                logger.warning("Preemption requested during task %s wrap-up; exiting 143 at "
+                               "the task boundary", task_name)
+                preemption.clear_preemption()
+                raise SystemExit(143)
 
     eval_results = None
     if args.do_eval:

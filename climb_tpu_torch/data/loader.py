@@ -1,6 +1,6 @@
 """Fixed-shape host loader with background workers, and the copy ahead to the
 card (the port's copy of ``climb_tpu/data/loader.py``'s ``DataLoader`` and
-``device_prefetch``, without bucketing and host sharding).
+``device_prefetch``, with its aspect and text buckets, without host sharding).
 
 Batches are numpy dicts of static shape; the last partial batch is
 zero-padded and a ``valid`` {0,1} vector marks its real rows (``pad_batch``),
@@ -20,6 +20,16 @@ lists go in and numpy batches come out. The pool comes up under a deadline,
 and the loader falls back to threads if it does not. With ``pin_memory`` the
 producer thread copies each batch into page-locked host memory, so that
 ``device_prefetch`` only enqueues copies.
+
+With ``bucket_widths`` (``--aspect_buckets``) and ``text_bucket_lens``
+(``--text_buckets``) each batch holds only examples whose needed canvas width
+and real token count fit one bucket (the cross product of both), and its
+canvas and text arrays are cropped to that bucket: 4:3 photos stop paying for
+the 640-pixel canvas and short questions for the 40-token pad. The walk that
+forms the batches is the JAX loader's (``climb_tpu/data/loader.py:283-396``):
+the same shuffle, a batch emitted where its bucket fills, the partial
+buckets last in sorted key order, so the batches are JAX's bit for bit and
+``set_skip`` replays an epoch's suffix.
 
 ``device_prefetch`` copies batches ahead to the card on a side stream, which
 the compute stream waits on for each batch before it uses it.
@@ -81,12 +91,99 @@ def _try_create_fork_pool(state, num_workers, deadline=10.0):
     return result.get("pool")
 
 
-def _make_batch(dataset, collate_fn, batch_size, indices) -> dict:
-    return pad_batch(collate_fn([dataset[int(i)] for i in indices]), batch_size)
+def _make_batch(dataset, collate_fn, batch_size, task) -> dict:
+    indices, bucket_w, text_len = task
+    examples = [dataset[int(i)] for i in indices]
+    examples = crop_examples_to_bucket(examples, bucket_w)
+    examples = crop_examples_to_text_len(examples, text_len)
+    return pad_batch(collate_fn(examples), batch_size)
 
 
-def _process_worker_make_batch(indices):
-    return _make_batch(*_FORK_STATE, indices)
+def _process_worker_make_batch(task):
+    return _make_batch(*_FORK_STATE, task)
+
+
+def crop_examples_to_bucket(examples, bucket_w, patch_size: int = 32):
+    """Each example's pixel canvas cropped to ``bucket_w`` columns.
+
+    The canvas is anchored top-left, so the columns past every example's
+    valid patch width are padding, masked out of attention: dropping them
+    loses nothing. If an example needs more width than its bucket (a corrupt
+    image replaced by a full black canvas, say), the crop widens to the
+    width it needs instead of cutting valid pixels."""
+    if bucket_w is None:
+        return examples
+    needed = max(int(np.max(np.asarray(ex["patch_hw"])[..., 1])) * patch_size
+                 for ex in examples)
+    w = max(bucket_w, needed)
+    out = []
+    for ex in examples:
+        pv = np.asarray(ex["pixel_values"])
+        if pv.shape[-2] > w:
+            ex = dict(ex, pixel_values=np.ascontiguousarray(pv[..., :w, :]))
+        out.append(ex)
+    return out
+
+
+TEXT_KEYS = ("input_ids", "text_mask", "token_type_ids")
+
+
+def crop_examples_to_text_len(examples, text_len):
+    """Each example's text arrays cut to ``text_len`` tokens (the last axis).
+
+    Text is right-padded and the padding is masked out of attention, so the
+    cut loses nothing (the model slices its position table by the length it
+    is given). If an example holds more real tokens than its bucket, the cut
+    widens to that count rounded up to a multiple of 8 instead of cutting
+    live tokens."""
+    if text_len is None:
+        return examples
+    needed = max(int(np.asarray(ex["text_mask"]).sum(axis=-1).max()) for ex in examples)
+    needed = -(-needed // 8) * 8
+    full = int(np.asarray(examples[0]["input_ids"]).shape[-1])
+    length = min(max(text_len, needed), full)
+    if length == full:
+        return examples
+    out = []
+    for ex in examples:
+        ex = dict(ex)
+        for k in TEXT_KEYS:
+            if k in ex:
+                ex[k] = np.ascontiguousarray(np.asarray(ex[k])[..., :length])
+        out.append(ex)
+    return out
+
+
+def parse_text_buckets(value, max_text_len: int = 40):
+    """A ``--text_buckets`` value (None, 'auto', 'l1,l2,...' or a sequence of
+    ints) as an ascending tuple of token lengths capped at ``max_text_len``
+    and holding it, or None. 'auto' is {16, 24, max_text_len}."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        if value.strip() == "auto":
+            return tuple(sorted({n for n in (16, 24) if n < max_text_len} | {max_text_len}))
+        lens = tuple(int(n) for n in value.split(",") if n.strip())
+    else:
+        lens = tuple(int(n) for n in value)
+    if not lens:
+        return None
+    return tuple(sorted({min(n, max_text_len) for n in lens} | {max_text_len}))
+
+
+def parse_bucket_widths(value, canvas_width: int = 640, patch_size: int = 32):
+    """An ``--aspect_buckets`` value (None, 'auto', 'w1,w2,...' or a sequence
+    of ints) as a tuple of widths, or None. 'auto' is half, three quarters
+    and all of the canvas width, patch-aligned."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        if value.strip() == "auto":
+            p = patch_size
+            return tuple(sorted({max(p, canvas_width // 2 // p * p),
+                                 max(p, 3 * canvas_width // 4 // p * p), canvas_width}))
+        return tuple(int(w) for w in value.split(",") if w.strip()) or None
+    return tuple(int(w) for w in value) or None
 
 
 def pad_batch(batch: dict, target_bs: int) -> dict:
@@ -119,7 +216,8 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, collate_fn: Callable, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 2, epoch: int = 0, worker_mode: str = "thread",
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, bucket_widths: Optional[Sequence[int]] = None,
+                 text_bucket_lens: Optional[Sequence[int]] = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if worker_mode not in ("thread", "process"):
@@ -138,6 +236,43 @@ class DataLoader:
         self.worker_mode = worker_mode
         self.pin_memory = pin_memory
         self.skip = 0
+        self._len_cache = (None, 0)  # (epoch, bucketed batch count)
+        # each example goes to the smallest bucket that holds it (one wider or
+        # longer than the largest to the largest: the crops widen for it)
+        self.bucket_widths, self._bucket_ids = self._setup_buckets(
+            bucket_widths, "canvas_widths", "aspect bucketing")
+        self.text_bucket_lens, self._text_bucket_ids = self._setup_buckets(
+            text_bucket_lens, "text_lengths", "text-length bucketing")
+
+    def _setup_buckets(self, bounds, hint_attr: str, what: str):
+        if not bounds:
+            return None, None
+        bounds = tuple(sorted(int(b) for b in bounds))
+        get_hint = getattr(self.dataset, hint_attr, None)
+        need = None
+        if get_hint is not None:
+            try:
+                need = np.asarray(get_hint())
+            except (AttributeError, NotImplementedError):
+                need = None
+        if need is None:
+            logger.warning("%s requested but %s provides no %s(); running unbucketed",
+                           what, type(self.dataset).__name__, hint_attr)
+            return None, None
+        ids = np.searchsorted(np.asarray(bounds), np.minimum(need, bounds[-1])).astype(np.int64)
+        return bounds, ids
+
+    @property
+    def is_bucketed(self) -> bool:
+        return self.bucket_widths is not None or self.text_bucket_lens is not None
+
+    def example_order(self) -> np.ndarray:
+        """The dataset indices in the order this epoch's batches hold them
+        (valid rows only): bucketing permutes the stream, and a consumer that
+        must give per-example outputs in dataset order (predict) inverts it."""
+        if not len(self.dataset):
+            return np.zeros((0,), np.int64)
+        return np.concatenate([inds for inds, _, _ in self._index_batches()])
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -150,19 +285,49 @@ class DataLoader:
         self.skip = int(n_batches)
 
     def __len__(self):
+        if self.is_bucketed:
+            # without drop_last the count varies by epoch (the partial buckets
+            # depend on the shuffle); the walk is index arithmetic, kept per epoch
+            if self._len_cache[0] != self.epoch:
+                self._len_cache = (self.epoch, len(self._index_batches()))
+            return self._len_cache[1]
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _index_batches(self) -> list:
-        """This epoch's index lists, one per batch."""
+        """This epoch's batches: (indices, bucket width, text length), the
+        last two None without that bucketing."""
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
-        return [idx[i:i + self.batch_size] for i in range(0, stop, self.batch_size)]
+        if not self.is_bucketed:
+            stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+            return [(idx[i:i + self.batch_size], None, None)
+                    for i in range(0, stop, self.batch_size)]
+
+        def bounds(key):
+            wb, tb = key
+            w = None if self.bucket_widths is None else self.bucket_widths[wb]
+            t = None if self.text_bucket_lens is None else self.text_bucket_lens[tb]
+            return w, t
+
+        # walk the shuffled stream; a batch is emitted where its bucket fills
+        pending, batches = {}, []
+        for i in idx:
+            key = (0 if self._bucket_ids is None else int(self._bucket_ids[i]),
+                   0 if self._text_bucket_ids is None else int(self._text_bucket_ids[i]))
+            pending.setdefault(key, []).append(i)
+            if len(pending[key]) == self.batch_size:
+                batches.append((np.asarray(pending[key]),) + bounds(key))
+                pending[key] = []
+        if not self.drop_last:
+            for key in sorted(pending):
+                if pending[key]:
+                    batches.append((np.asarray(pending[key]),) + bounds(key))
+        return batches
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._index_batches()[self.skip:]

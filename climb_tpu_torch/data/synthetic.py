@@ -1,6 +1,7 @@
 """Synthetic vision-language examples (the port's copy of
 ``climb_tpu/data/synthetic.py``'s ``SyntheticVLDataset``, with its low-shot
-subsets, ``convert_to_low_shot`` and ``SubsetDataset``).
+subsets, ``convert_to_low_shot``, ``SubsetDataset`` and the bucketing hints
+``canvas_widths()`` and ``text_lengths()``, drawn without making an example).
 
 Deterministic per index and seed, and equal to the JAX package's examples for
 the same arguments, so both packages can serve the same synthetic split.
@@ -65,10 +66,21 @@ class SyntheticVLDataset:
             [1, 1], [gh + 1, gw + 1], size=(max(self.num_images, 1), 2)
         ).astype(np.int32)
 
+    def canvas_widths(self) -> np.ndarray:
+        """Needed canvas width (pixels) per example: the aspect-bucketing hint,
+        from the patch dims' own stream (no image is made)."""
+        return np.array(
+            [int(self._patch_hws(i)[:, 1].max()) * self.patch_size for i in range(self.size)],
+            np.int64)
+
     def _text_lens(self, i: int) -> np.ndarray:
         rng = np.random.RandomState(self.seed * 7919 + 2000003 + i)
         n = self.num_choices if self.model_type == "multi-choice" else 1
         return rng.randint(4, self.text_len, size=(n,))
+
+    def text_lengths(self) -> np.ndarray:
+        """Real token count per example: the text-bucketing hint."""
+        return np.array([int(self._text_lens(i).max()) for i in range(self.size)], np.int64)
 
     def _image(self, rng, label):
         h, w = self.canvas_hw
@@ -162,6 +174,12 @@ class SubsetDataset:
 
     def __getitem__(self, i):
         return self.base[int(self.indices[i])]
+
+    def canvas_widths(self):
+        return np.asarray(self.base.canvas_widths())[self.indices]
+
+    def text_lengths(self):
+        return np.asarray(self.base.text_lengths())[self.indices]
 
 
 class SyntheticTextDataset:

@@ -1,8 +1,11 @@
 """Static model configuration (counterpart of ``climb_tpu/models/model_config.py``).
 
 HF ``ViltConfig`` defaults for ``dandelin/vilt-b32-mlm`` plus the fixed image
-canvas, the compute dtype and the kernel switches. Both dropout rates keep the
-JAX defaults of 0.0; pipeline fields are not ported yet. ``AdapterSpec``
+canvas, the compute dtype and the kernel switches, with the JAX package's
+training knobs ``remat``, ``remat_policy`` and ``fuse_qkv``. Both dropout rates
+keep the JAX defaults of 0.0. ``scan_unroll`` is a knob of JAX's layer scan:
+the port runs a Python loop over the layers, so it has no such field, and the
+pipeline fields are not ported yet. ``AdapterSpec``
 describes the per-task adapters or LoRA deltas of the adapter algorithm.
 """
 
@@ -50,6 +53,9 @@ class ViltConfig:
     attn_impl: str = "xla"            # "xla" | "pallas" | "auto": one function;
                                       # "fused_block": the fused sublayer (ops/block.py)
     mlp_impl: str = "xla"             # "xla" | "pallas": one function
+    remat: bool = False               # recompute the encoder blocks in backward
+    remat_policy: str = "full"        # "full" | "dots" | "selective" (vilt_core.py)
+    fuse_qkv: bool = False            # one (D, 3D) product for q/k/v (same parameters)
 
     @property
     def head_dim(self) -> int:

@@ -26,16 +26,47 @@ the spec has neither an attention adapter nor LoRA, and the FFN kernel
 unless LoRA targets fc1 or fc2, when the FFN runs per op with the exact-erf
 GELU.
 
-Not ported yet: int8 dense layers, fused QKV, remat and the
-pipeline-parallel encoder.
+``fuse_qkv`` computes q, k and v as one (D, 3D) product of the concatenated
+q/k/v weights (JAX ``vilt_core.py:231-244``; the parameters keep their names
+and layout); ``fused_block`` ignores it, as in JAX, where the fused sublayer's
+rule comes first.
+
+``remat`` recomputes parts of each block in backward, by JAX's policies
+(``_remat_policy``, ``vilt_core.py:324-336``), through
+``torch.utils.checkpoint`` (non-reentrant):
+
+- ``full``: nothing inside a block is kept; backward reruns the block, its
+  kernels included (``nothing_saveable``).
+- ``dots``: runs as ``full``. JAX keeps the products of its XLA dots
+  (``dots_with_no_batch_dims_saveable``); on the port's kernel path those are
+  only the q, k, v and out-projections, and keeping them needs selective
+  checkpointing, a Python dispatch mode over every op of the step, which held
+  more memory than ``full`` at every step measured on the H100 and took more
+  time at most of them (PERF.md §6). The gradients are the same
+  either way: a recompute gives the forward's values.
+- ``selective``: everything is kept except the attention probabilities
+  (``save_anything_except_these_names("attn_probs")``), which the kernel path
+  never stores, so no block is checkpointed; with ``fused_block``, no hidden
+  dropout and no attention adapter or LoRA (``fused_self_remat``) only the
+  MLP sublayer is checkpointed (JAX ``vilt_core.py:146-161, 205-213``).
+
+The dropout masks are drawn from ``dropout_generator``, which
+``torch.utils.checkpoint`` does not restore (it restores the default
+generators only): ``remat_call`` puts the generator back to its state at the
+block's forward before the recompute and returns it to where it was after,
+so the recomputed masks are the forward's, as JAX's remat reuses its key.
+
+Not ported yet: int8 dense layers and the pipeline-parallel encoder.
 """
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from climb_tpu_torch.models import adapters
 from climb_tpu_torch.models.model_config import AdapterSpec, ViltConfig
@@ -106,6 +137,44 @@ def mlp_lora(spec: Optional[AdapterSpec]) -> bool:
     return spec is not None and spec.lora and bool({"fc1", "fc2"} & set(spec.lora_targets))
 
 
+REMAT_POLICIES = ("full", "dots", "selective")
+
+
+def fused_self_remat(cfg: ViltConfig, spec: Optional[AdapterSpec]) -> bool:
+    """JAX's ``ViltBlock.fused_self_remat``: the fused sublayer keeps its own
+    residuals, so under ``selective`` only the MLP sublayer is checkpointed."""
+    return fused_block_ok(cfg, spec) and cfg.remat and cfg.remat_policy == "selective"
+
+
+def block_remat(cfg: ViltConfig) -> bool:
+    """True when a whole block is checkpointed (``full`` and ``dots``)."""
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: choose one of {REMAT_POLICIES}")
+    return cfg.remat and cfg.remat_policy in ("full", "dots")
+
+
+def remat_call(fn, generator, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``, keeping nothing inside.
+    The recompute runs with ``generator`` set back to its state at this call,
+    and leaves it where the forward left it."""
+    state = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or state is None:
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+
+    return torch_checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                       preserve_rng_state=generator is None)
+
+
 class ViltBlock(nn.Module):
     """One pre-norm block: x -> LN1 -> MHA -> +x -> LN2 -> FFN(GELU) -> +x,
     with the per-task adapters of ``adapter_spec``, if any."""
@@ -129,18 +198,20 @@ class ViltBlock(nn.Module):
             {"q": (d, d), "k": (d, d), "v": (d, d), "attn_out": (d, d), "fc1": (d, f),
              "fc2": (f, d)})
 
+    def _lora(self, active_adapter, target, inp, out):
+        spec = self.adapter_spec
+        if spec is None or not spec.lora:
+            return out
+        return adapters.apply_task_lora(self, inp, out, target, spec, active_adapter,
+                                        self.cfg.compute_dtype)
+
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor, generator=None,
                 active_adapter: Optional[str] = None) -> torch.Tensor:
         cfg = self.cfg
         dtype = cfg.compute_dtype
         spec = self.adapter_spec
         b, s, d = x.shape
-
-        def lora(target, inp, out):
-            if spec is None or not spec.lora:
-                return out
-            return adapters.apply_task_lora(self, inp, out, target, spec, active_adapter, dtype)
-
+        lora = functools.partial(self._lora, active_adapter)
         if fused_block_ok(cfg, spec):
             # the whole sublayer (LN1 -> QKV -> MHA -> out-projection -> +x) as
             # one kernel entry; the parameters keep their names and layout
@@ -150,20 +221,37 @@ class ViltBlock(nn.Module):
                 self.v.weight.to(dtype), self.v.bias,
                 self.attn_out.weight.to(dtype), self.attn_out.bias,
                 mask_bias, num_heads=cfg.num_heads, eps=cfg.layer_norm_eps)
+            if fused_self_remat(cfg, spec) and torch.is_grad_enabled():
+                return remat_call(self._mlp_sublayer, generator, x, generator, active_adapter)
+            return self._mlp_sublayer(x, generator, active_adapter)
+        heads = (b, s, cfg.num_heads, cfg.head_dim)
+        h = layer_norm(self.ln1, x, dtype)
+        if cfg.fuse_qkv:
+            # one (D, 3D) product of the concatenated q/k/v weights
+            w = torch.cat([self.q.weight, self.k.weight, self.v.weight]).to(dtype)
+            bias = torch.cat([self.q.bias, self.k.bias, self.v.bias]).to(dtype)
+            qkv = F.linear(h, w, bias).view(b, s, 3, d)
+            q, k, v = (lora(n, h, qkv[:, :, i]).view(heads) for i, n in enumerate("qkv"))
         else:
-            heads = (b, s, cfg.num_heads, cfg.head_dim)
-            h = layer_norm(self.ln1, x, dtype)
             q = lora("q", h, dense(self.q, h, dtype)).view(heads)
             k = lora("k", h, dense(self.k, h, dtype)).view(heads)
             v = lora("v", h, dense(self.v, h, dtype)).view(heads)
-            ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
-            ctx = ctx.reshape(b, s, d)
-            attn_out = lora("attn_out", ctx, dense(self.attn_out, ctx, dtype))
-            attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
-            if spec is not None and spec.mh_adapter:
-                attn_out = adapters.apply_task_adapter(self, attn_out, "attn", active_adapter,
-                                                       dtype)
-            x = x + attn_out
+        ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
+        ctx = ctx.reshape(b, s, d)
+        attn_out = lora("attn_out", ctx, dense(self.attn_out, ctx, dtype))
+        attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
+        if spec is not None and spec.mh_adapter:
+            attn_out = adapters.apply_task_adapter(self, attn_out, "attn", active_adapter,
+                                                   dtype)
+        return self._mlp_sublayer(x + attn_out, generator, active_adapter)
+
+    def _mlp_sublayer(self, x: torch.Tensor, generator=None,
+                      active_adapter: Optional[str] = None) -> torch.Tensor:
+        """LN2 -> FFN (GELU) -> dropout [-> adapter] -> +x."""
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        spec = self.adapter_spec
+        lora = functools.partial(self._lora, active_adapter)
         h = layer_norm(self.ln2, x, dtype)
         mlp_in = h
         if mlp_lora(spec):
@@ -267,8 +355,12 @@ class ViltCore(nn.Module):
         x = torch.cat([t, img], dim=1).to(dtype)
         joint_mask = torch.cat([text_mask.to(f32), img_mask], dim=1)
         mask_bias = attention.mask_to_bias(joint_mask, dtype=f32)
+        remat = block_remat(cfg) and torch.is_grad_enabled()
         for layer in self.encoder:
-            x = layer(x, mask_bias, gen, self.active_adapter)
+            if remat:
+                x = remat_call(layer, gen, x, mask_bias, gen, self.active_adapter)
+            else:
+                x = layer(x, mask_bias, gen, self.active_adapter)
 
         x = layer_norm(self.final_layernorm, x, dtype)
         pooled = torch.tanh(dense(self.pooler, x[:, 0], dtype))

@@ -22,7 +22,11 @@ NEG_INF = -1e9  # large-negative mask bias; exp() underflows to exactly 0 in f32
 # Every value computes the same function; on the card each runs the kernel.
 # 'fused_block' reaches this module only where the fused sublayer
 # (ops/block.py) does not apply (hidden dropout on), as in the JAX package.
-ATTN_IMPLS = ("xla", "pallas", "auto", "fused_block")
+# 'xla_ckpt' is JAX's einsum attention under jax.checkpoint: it keeps only q,
+# k and v and recomputes the S x S probabilities in backward. FlashAttention
+# already keeps only q, k, v and the bias, and csrc/attention_bwd.cu
+# recomputes P, so 'xla_ckpt' takes the same kernels as 'pallas'.
+ATTN_IMPLS = ("xla", "xla_ckpt", "pallas", "auto", "fused_block")
 
 KERNEL_HEAD_DIM = 64
 
@@ -214,14 +218,12 @@ class FlashAttention(torch.autograd.Function):
 
 
 def multi_head_attention(q, k, v, bias, impl: str = "auto"):
-    """Dispatch by ``impl``. The JAX package's 'xla' and 'pallas' paths compute
-    one function, so every value goes through ``attention_fwd``, and through
-    ``FlashAttention`` when a gradient is to flow back."""
+    """Dispatch by ``impl``. The JAX package's 'xla', 'xla_ckpt' and 'pallas'
+    paths compute one function, so every value goes through ``attention_fwd``,
+    and through ``FlashAttention`` when a gradient is to flow back (which keeps
+    only q, k, v and the bias, as 'xla_ckpt' does)."""
     if impl not in ATTN_IMPLS:
-        raise NotImplementedError(
-            f"attn_impl {impl!r} is not ported yet (xla_ckpt comes with the remat "
-            f"work); choose one of {ATTN_IMPLS}"
-        )
+        raise NotImplementedError(f"attn_impl {impl!r} is not ported; choose one of {ATTN_IMPLS}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, bias)
     return attention_fwd(q, k, v, bias)

@@ -9,9 +9,11 @@ caller gives one, zeroes the AdamW updates of the frozen parameters.
 
 The batches come from the prefetching loader (``--num_workers`` workers;
 pinned in host memory on the card) and are copied ahead to the card by
-``device_prefetch``, for training and both evals, as in the Phase I trainer.
-
-The aspect and text buckets are not ported: they raise.
+``device_prefetch``, for training and both evals, as in the Phase I trainer. ``--aspect_buckets`` and ``--text_buckets`` bucket
+the train loader, as JAX ``downstream.py:85-99`` does (the evals stay
+unbucketed, and the schedule's length is ``len(train loader)`` at epoch 0
+times the epochs, JAX's count); a dataset with no hint for a bucketing runs
+without it, with a warning.
 """
 
 import json
@@ -29,7 +31,7 @@ from climb_tpu_torch.train.eval_step import make_eval_step
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_state import TrainState
 from climb_tpu_torch.train.train_step import make_train_step
-from climb_tpu_torch.train.trainers import to_device
+from climb_tpu_torch.train.trainers import loader_buckets, to_device
 
 logger = logging.getLogger(__name__)
 
@@ -85,17 +87,13 @@ def train_downstream(args, model, task_config, datasets, loss_type, device, extr
     best_epoch, best parameters as a host state dict). ``extra_batch`` (numpy
     arrays, e.g. the shared mean image) is copied to the device once and merged
     into every batch."""
-    for flag in ("aspect_buckets", "text_buckets"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag} is not ported to climb_tpu_torch yet (the training-knobs slice: loader "
-                "bucketing)")
     train_ds, val_ds, test_ds = datasets
     num_epochs = task_config["num_epochs"]
     num_workers = getattr(args, "num_workers", 2)
     train_loader = DataLoader(train_ds, args.batch_size, stack_collate, shuffle=True,
                               seed=args.seed, num_workers=num_workers,
-                              pin_memory=torch.device(device).type == "cuda")
+                              pin_memory=torch.device(device).type == "cuda",
+                              **loader_buckets(args))
     tx = make_optimizer(
         [n for n, _ in model.named_parameters()], lr=task_config["lr"],
         total_steps=len(train_loader) * num_epochs, warmup_ratio=task_config["warmup_ratio"],

@@ -53,6 +53,9 @@ def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
         dtype=getattr(args, "compute_dtype", "float32"),
         attn_impl=getattr(args, "attn_impl", "xla"),
         mlp_impl=getattr(args, "mlp_impl", "xla"),
+        remat=getattr(args, "remat", False),
+        remat_policy=getattr(args, "remat_policy", "full"),
+        fuse_qkv=getattr(args, "fuse_qkv", False),
     )
     if getattr(args, "tiny", False):
         kw.update(
@@ -76,7 +79,8 @@ def _resolve(table: dict, encoder_name: str):
 
 def load_pretrained(model: ViltContinualLearner, path: str):
     """Load a reference-layout checkpoint file over the model's weights (a
-    flax msgpack file raises: it needs flax). A ViLT file loads ViLT-BERT's
+    flax msgpack file raises: it is read as a task checkpoint, not as base
+    weights). A ViLT file loads ViLT-BERT's
     ViLT side, and a ViLT-BERT file a ViLT learner's encoder."""
     sd = with_encoder_key(load_reference_checkpoint(path), model.encoder_key)
     mod = next(k for k in model.state_dict() if k.endswith("modality_type_embeddings.weight"))
@@ -122,7 +126,8 @@ def _encoder_state_dict(path: str, encoder_name: str = "vilt") -> dict:
     names (``ViltCore``, or ``ViltBertCore``: ``vilt.*`` and ``bert.*``): the
     reference torch layout (an encoder or a full-model file) or the port's
     own format (a ``torch.save`` of a model's or an encoder's state dict by
-    its port names). The layouts of JAX ``model_factory.py:225-240``: a
+    its port names) or the JAX package's msgpack file (a task ``model`` or
+    ``encoder`` tree). The layouts of JAX ``model_factory.py:225-240``: a
     ViLT-BERT file gives a ViLT encoder its ViLT side, and a ViLT file gives
     ViLT-BERT's ViLT side (BERT then keeps its weights)."""
     sd = load_state_dict(path)

@@ -116,6 +116,56 @@ def teacher_features(model: torch.nn.Module, task_key: str, batch: dict,
         model.train(was_training)
 
 
+# The auto policy's microbatch token budget, in encoder tokens. chip_smoke.py's
+# phase knobs sweeps --grad_accum_steps at nine shapes, from 32 x 281 to
+# 512 x 281 and 64 x 1057 tokens (PERF.md §6). On an H100 80GB HBM3 at 700 W no
+# split won at any of them: each microbatch adds its host dispatch, and even
+# at the largest step accum 2 cost 2% more and accum 16 20%. So the budget is
+# the largest step swept, 512 x 281, whose peak was 43.22 GB; auto splits only
+# larger steps, where the split guards the card's memory. The JAX package's 8000 is a TPU
+# v5e number and is not used here.
+AUTO_ACCUM_TOKEN_BUDGET = 143872
+
+
+def auto_grad_accum(seq_len: int, n_seqs: int, token_budget: Optional[int] = None) -> int:
+    """grad_accum_steps for a batch of ``n_seqs`` encoder sequences of
+    ``seq_len`` tokens (JAX ``train_step.py:169-183``): the smallest
+    power-of-2 divisor of ``n_seqs`` whose microbatch holds at most
+    ``token_budget`` tokens, else the largest power-of-2 divisor. Any value
+    gives the same trajectory; this only picks the schedule."""
+    if token_budget is None:  # read at call time, so the constant can be patched
+        token_budget = AUTO_ACCUM_TOKEN_BUDGET
+    accum = 1
+    while (n_seqs // accum) * seq_len > token_budget and n_seqs % (accum * 2) == 0:
+        accum *= 2
+    return accum
+
+
+def batch_shape_signature(batch: dict, patch_size: int):
+    """(per-pass sequence length, encoder sequences with the fold, batch
+    size that splits) of a concrete, possibly bucketed batch: the shape
+    facts every accum policy keys on (JAX ``train_step.py:186-200``)."""
+    ids, pv = batch["input_ids"], batch["pixel_values"]
+    seq_len = ids.shape[-1] + 1 + (pv.shape[-3] // patch_size) * (pv.shape[-2] // patch_size)
+    n_seqs = ids.shape[0]
+    if ids.ndim == 3:  # multiple-choice fold (B, C, L)
+        n_seqs *= ids.shape[1]
+    elif pv.ndim == 5:  # image-pair fold (B, 2, H, W, 3)
+        n_seqs *= pv.shape[1]
+    return seq_len, n_seqs, ids.shape[0]
+
+
+def auto_grad_accum_for_batch(batch: dict, patch_size: int,
+                              token_budget: Optional[int] = None) -> int:
+    """``auto_grad_accum`` of a concrete batch; accum splits the batch axis,
+    so it is halved until it divides the batch size."""
+    seq_len, n_seqs, bs = batch_shape_signature(batch, patch_size)
+    accum = auto_grad_accum(seq_len, n_seqs, token_budget)
+    while bs % accum:
+        accum //= 2
+    return max(1, accum)
+
+
 def _grads(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Each parameter's gradient; zeros for one the loss does not reach (the
     other tasks' heads), as JAX differentiates every leaf, so AdamW's weight
@@ -137,13 +187,13 @@ def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: 
     contributes its masked loss sum divided by the whole batch's valid count,
     computed before the loop, so the summed gradients equal the whole-batch
     step's exactly (up to float summation order) even when padding leaves the
-    microbatches unequal valid counts. 'auto' and 'sweep' rest on a token
-    budget measured on the TPU and raise until they are measured on the H100.
+    microbatches unequal valid counts. 'auto' and 'sweep' pick k per batch
+    shape: the trainer's ``make_step_dispatcher`` calls this once per k.
     """
     if str(grad_accum_steps) in ("auto", "sweep"):
-        raise NotImplementedError(
-            f"--grad_accum_steps {grad_accum_steps} is not ported to climb_tpu_torch yet: its "
-            "token budget was measured on a TPU v5e and must be measured on the H100 first")
+        raise ValueError(
+            f"grad_accum_steps {grad_accum_steps!r} is picked per batch shape by the trainer "
+            "(trainers.make_step_dispatcher); make_train_step takes an integer")
     accum = int(grad_accum_steps)
     if accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")

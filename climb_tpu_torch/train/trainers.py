@@ -33,7 +33,16 @@ drawn from ``--seed``), evaluate only at the config's ``eval_epochs``, and,
 when training ends before any of them, keep the final parameters and score
 those.
 
-Not ported yet: mid-epoch SIGTERM checkpoints.
+The training knobs (JAX ``trainers.py:88-90, 120-170, 211-280, 330-420``):
+``--aspect_buckets`` and ``--text_buckets`` bucket both loaders (a bucketed
+epoch's batch count varies, so the schedule's length is the sum over the
+epochs); ``--grad_accum_steps auto|sweep`` picks the microbatch count per
+batch shape, with one step function per value (``make_step_dispatcher``);
+with the elastic state on and without ``--no_sigterm_checkpoint``, a SIGTERM
+handler is installed for the train loop, polled at every step boundary, and a
+request saves the full state with ``steps_into_epoch`` and exits 143; the
+rerun skips the steps done (``set_skip``) and restores the dropout generator
+and Python's ``random``, so it ends on the uninterrupted run's parameters.
 """
 
 import logging
@@ -53,13 +62,20 @@ from climb_tpu_torch.ckpt.checkpoint import (
     save_train_state,
 )
 from climb_tpu_torch.data.collation import stack_collate
-from climb_tpu_torch.data.loader import DataLoader, device_prefetch
+from climb_tpu_torch.data.loader import (
+    DataLoader,
+    device_prefetch,
+    parse_bucket_widths,
+    parse_text_buckets,
+)
 from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
 from climb_tpu_torch.data.visionlanguage import build_vl_datasets
+from climb_tpu_torch.train import accum_tune
 from climb_tpu_torch.train.eval_step import LOSS_TYPES, make_eval_step
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_state import TrainState
-from climb_tpu_torch.train.train_step import make_train_step
+from climb_tpu_torch.train.train_step import auto_grad_accum_for_batch, make_train_step
+from climb_tpu_torch.utils import preemption
 
 logger = logging.getLogger(__name__)
 
@@ -82,6 +98,60 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 def _host_copy(model: torch.nn.Module) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+
+def loader_buckets(args) -> dict:
+    """The loader's bucket arguments from ``--aspect_buckets`` and
+    ``--text_buckets``."""
+    return dict(
+        bucket_widths=parse_bucket_widths(getattr(args, "aspect_buckets", None),
+                                          canvas_width=getattr(args, "image_width", 640)),
+        text_bucket_lens=parse_text_buckets(getattr(args, "text_buckets", None),
+                                            max_text_len=getattr(args, "max_text_len", 40)))
+
+
+def _py_random_state() -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(pickle.dumps(py_random.getstate()),
+                                          dtype=np.uint8).copy())
+
+
+def make_step_dispatcher(model: torch.nn.Module, task_key, loss_type: str, grad_accum_steps,
+                         token_budget=None):
+    """``step(state, batch, ewc_ref=None, fd_ref=None) -> metrics`` honouring
+    ``--grad_accum_steps``: an integer gives one step function; 'auto' picks
+    the count per batch shape by the token budget, 'sweep' times every
+    candidate on the card the first time a shape is seen
+    (``accum_tune.AccumTuner``); one step function is kept per count.
+    Every count gives the same trajectory, so this only picks the schedule."""
+    make = lambda a: make_train_step(model, task_key, loss_type, model.cfg.compute_dtype, a)
+    if str(grad_accum_steps) not in ("auto", "sweep"):
+        return make(int(grad_accum_steps))
+    steps = {}
+
+    def cached(a):
+        if a not in steps:
+            steps[a] = make(a)
+        return steps[a]
+
+    patch = model.cfg.patch_size
+    if str(grad_accum_steps) == "auto":
+        def dispatch(state, batch, ewc_ref=None, fd_ref=None):
+            a = auto_grad_accum_for_batch(batch, patch, token_budget)
+            return cached(a)(state, batch, ewc_ref, fd_ref)
+        return dispatch
+
+    tuner = accum_tune.AccumTuner(
+        patch, accum_tune.device_kind(next(model.parameters()).device),
+        config_sig=accum_tune.step_config_signature(model.cfg))
+
+    def dispatch(state, batch, ewc_ref=None, fd_ref=None):
+        a = tuner.get(batch, ewc_ref, fd_ref)
+        if a is None:
+            a = tuner.tune(cached, state, model, batch, ewc_ref, fd_ref)
+        return cached(a)(state, batch, ewc_ref, fd_ref)
+
+    dispatch.tuner = tuner
+    return dispatch
 
 
 class VLTaskTrainer:
@@ -111,7 +181,18 @@ class VLTaskTrainer:
         self.eval_epochs = None  # every epoch; the low-shot variants name theirs
         self.best_epoch = -1
         self._build_datasets()
-        self.max_steps = len(self.train_dataloader) * self.num_epochs
+        loader = self.train_dataloader
+        if loader.is_bucketed and not loader.drop_last:
+            # a bucketed epoch's batch count depends on its shuffle: the sum
+            # puts the schedule's decay tail on the true last step
+            saved = loader.epoch
+            self.max_steps = 0
+            for e in range(1, self.num_epochs + 1):
+                loader.set_epoch(e)
+                self.max_steps += len(loader)
+            loader.set_epoch(saved)
+        else:
+            self.max_steps = len(loader) * self.num_epochs
 
     # -- data ----------------------------------------------------------------
     def _build_datasets(self):
@@ -133,7 +214,8 @@ class VLTaskTrainer:
             self._convert_low_shot()
         loader_args = dict(num_workers=getattr(args, "num_workers", 2),
                            worker_mode=getattr(args, "worker_mode", "thread"),
-                           pin_memory=torch.device(self.device).type == "cuda")
+                           pin_memory=torch.device(self.device).type == "cuda",
+                           **loader_buckets(args))
         self.train_dataloader = DataLoader(self.train_dataset, self.batch_size, stack_collate,
                                            shuffle=True, seed=args.seed, **loader_args)
         eval_bs = args.eval_batch_size
@@ -173,8 +255,9 @@ class VLTaskTrainer:
         """Train on this task; returns (best_score, model holding the best parameters)."""
         args = self.args
         state = TrainState.create(model, self.make_tx(model))
-        train_step = make_train_step(model, self.task_key, self.loss_type,
-                                     model.cfg.compute_dtype, args.grad_accum_steps)
+        train_step = make_step_dispatcher(model, self.task_key, self.loss_type,
+                                          args.grad_accum_steps,
+                                          getattr(args, "auto_accum_token_budget", None))
         replay_freq = int(getattr(args, "replay_frequency", 100))
         generator = torch.Generator(device=self.device).manual_seed(int(args.seed))
         model.encoder.dropout_generator = generator
@@ -183,7 +266,7 @@ class VLTaskTrainer:
         save_every = int(args.save_state_epochs or 0)
         state_path = os.path.join(ckpt_dir, "train_state") if ckpt_dir else None
         best_path = os.path.join(ckpt_dir, "best_model") if ckpt_dir else None
-        start_epoch, global_step, best_score, best_params = 1, 0, -1.0, None
+        start_epoch, resume_skip, global_step, best_score, best_params = 1, 0, 0, -1.0, None
         self.best_epoch = -1
         if state_path and save_every and os.path.exists(state_path):
             initial = _host_copy(model)
@@ -191,6 +274,7 @@ class VLTaskTrainer:
             try:
                 meta = load_train_state(state, state_path)
                 start_epoch = int(meta["epoch"]) + 1
+                resume_skip = int(meta.get("steps_into_epoch", 0))
                 global_step = int(meta["global_step"])
                 best_score = float(meta["best_score"])
                 self.best_epoch = int(meta["best_epoch"])
@@ -199,9 +283,9 @@ class VLTaskTrainer:
                     py_random.setstate(pickle.loads(meta["py_random"].numpy().tobytes()))
                 if self.best_epoch > 0 and os.path.exists(best_path):
                     best_params = load_state_dict(best_path)
-                logger.info("task=%s: resuming from epoch %d (step %d, best %.2f @ epoch %d)",
-                            self.task_key, start_epoch, global_step, best_score,
-                            self.best_epoch)
+                logger.info("task=%s: resuming from epoch %d (step %d, skip %d, best %.2f @ "
+                            "epoch %d)", self.task_key, start_epoch, global_step, resume_skip,
+                            best_score, self.best_epoch)
             except Exception as e:
                 # a truncated or stale elastic checkpoint restarts the task, as
                 # the JAX trainer does, instead of ending the experiment
@@ -211,12 +295,42 @@ class VLTaskTrainer:
                 state = TrainState.create(model, self.make_tx(model))
                 generator.manual_seed(int(args.seed))
                 py_random.setstate(py_rng_before)
-                start_epoch, global_step, best_score, best_params = 1, 0, -1.0, None
+                start_epoch, resume_skip, global_step, best_score, best_params = \
+                    1, 0, 0, -1.0, None
                 self.best_epoch = -1
 
+        # a SIGTERM saves the full state at the next step boundary and exits
+        # 143; the handler is scoped to this loop
+        preempt = bool(state_path and save_every) and not getattr(
+            args, "no_sigterm_checkpoint", False)
+        preempt = preempt and preemption.install_preemption_handler()
+        try:
+            best_score, best_params = self._epoch_loop(
+                model, state, train_step, generator, replay_memory, ewc, distill, replay_freq,
+                start_epoch, resume_skip, global_step, best_score, best_params, preempt,
+                save_every, state_path, best_path)
+        finally:
+            if preempt:
+                preemption.uninstall_preemption_handler()
+
+        if best_params is None:  # no eval epoch was hit: keep the final parameters
+            best_params, best_score = _host_copy(model), self.eval(model)
+        if state_path and os.path.exists(state_path):
+            os.remove(state_path)  # the task checkpoint supersedes it
+        model.load_state_dict(best_params)
+        model.encoder.dropout_generator = None
+        return best_score, model
+
+    def _epoch_loop(self, model, state, train_step, generator, replay_memory, ewc, distill,
+                    replay_freq, start_epoch, resume_skip, global_step, best_score, best_params,
+                    preempt, save_every, state_path, best_path):
         fd_ref = distill.ref() if distill is not None and distill.has_teacher() else None
         for epoch in range(start_epoch, self.num_epochs + 1):
             self.train_dataloader.set_epoch(epoch)
+            steps_this_epoch = 0
+            if resume_skip and epoch == start_epoch:
+                self.train_dataloader.set_skip(resume_skip)
+                steps_this_epoch, resume_skip = resume_skip, 0
             t0, seen = time.time(), 0
             for batch in device_prefetch(self.train_dataloader, self.device):
                 ewc_ref = ewc.sample_ref() if ewc is not None and ewc.has_tasks() else None
@@ -226,12 +340,25 @@ class VLTaskTrainer:
                 if replay_memory is not None and replay_memory.do_replay() \
                         and global_step % replay_freq == 0:
                     replay_memory.run_replay_step(model)
+                steps_this_epoch += 1
                 if global_step % LOG_FREQ == 0:
                     extra = "".join(f" {k}={float(metrics[k]):.4f}"
                                     for k in ("ewc_loss", "distill_loss") if k in metrics)
                     logger.info("task=%s step %d: loss=%.4f%s (%.1f ex/s)", self.task_key,
                                 global_step, float(metrics["loss"]), extra,
                                 seen / max(time.time() - t0, 1e-9))
+                if preempt and preemption.preemption_requested():
+                    save_train_state(state, {
+                        "epoch": epoch - 1,  # the rerun enters this epoch again...
+                        "steps_into_epoch": steps_this_epoch,  # ...past the steps done
+                        "global_step": global_step, "best_score": best_score,
+                        "best_epoch": self.best_epoch, "generator": generator.get_state(),
+                        "py_random": _py_random_state()}, state_path)
+                    logger.warning("task=%s: preempted at epoch %d step %d; train state saved "
+                                   "to %s; exiting 143", self.task_key, epoch,
+                                   steps_this_epoch, state_path)
+                    preemption.clear_preemption()  # acted on: a later loop is not preempted
+                    raise SystemExit(143)
             dt = time.time() - t0
             if self.eval_epochs is None or epoch in self.eval_epochs:
                 score = self.eval(model)
@@ -246,17 +373,8 @@ class VLTaskTrainer:
                 save_train_state(state, {
                     "epoch": epoch, "global_step": global_step, "best_score": best_score,
                     "best_epoch": self.best_epoch, "generator": generator.get_state(),
-                    "py_random": torch.from_numpy(np.frombuffer(
-                        pickle.dumps(py_random.getstate()), dtype=np.uint8).copy()),
-                }, state_path)
-
-        if best_params is None:  # no eval epoch was hit: keep the final parameters
-            best_params, best_score = _host_copy(model), self.eval(model)
-        if state_path and os.path.exists(state_path):
-            os.remove(state_path)  # the task checkpoint supersedes it
-        model.load_state_dict(best_params)
-        model.encoder.dropout_generator = None
-        return best_score, model
+                    "py_random": _py_random_state()}, state_path)
+        return best_score, best_params
 
     # -- evaluation ----------------------------------------------------------
     def eval(self, model: torch.nn.Module, params: dict = None) -> float:

@@ -366,9 +366,9 @@ def test_language_driver_matches_jax(run, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--no_synthetic"], "imdb_train.jsonl"),
     (["--pretrained_model_name", "dandelin/vilt-b32-mlm"], "not ported"),
-    (["--text_buckets", "16,40"], "not ported"),
-    (["--remat"], "not ported"),
-    (["--attn_impl", "xla_ckpt"], "not ported"),
+    (["--scan_unroll", "2"], "not ported"),  # the training knobs run: later slices raise
+    (["--use_mesh"], "not ported"),
+    (["--dense_impl", "int8"], "not ported"),
 ])
 def test_unported_language_flags_raise(flags, match, tmp_path):
     argv = _argv(tmp_path, "sst2") + ["--device", "cpu"]

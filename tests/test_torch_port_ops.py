@@ -69,10 +69,10 @@ def test_attention_dispatch_on_cpu_is_plain(impl):
 
 
 def test_attention_unported_impl_raises():
-    q, k, v, mask = _qkv(s=8)
-    with pytest.raises(NotImplementedError, match="xla_ckpt"):
+    q, k, v, mask = _qkv(s=8)  # xla_ckpt is ported: it is in ATTN_IMPLS
+    with pytest.raises(NotImplementedError, match="not ported"):
         attention.multi_head_attention(_t(q), _t(k), _t(v), attention.mask_to_bias(_t(mask)),
-                                       impl="xla_ckpt")
+                                       impl="splash")
 
 
 def _ffn(seed=0, rows=(2, 37), d=64, f=128):

@@ -79,10 +79,10 @@ def test_predict_matches_jax_cli(task, checkpoint, tmp_path, monkeypatch):
     ["--export_model", "model.bin"],
     ["--from_export", "model.bin"],
     ["--dense_impl", "int8"],
-    ["--attn_impl", "xla_ckpt"],
-    ["--remat"],  # --cl_algorithm adapter is ported (tests/test_torch_cl_drivers_adapter.py)
+    ["--scan_unroll", "2"],  # xla_ckpt, remat and the buckets are ported
+    ["--fsdp"],  # --cl_algorithm adapter is ported (tests/test_torch_cl_drivers_adapter.py)
     ["--use_mesh"],
-    ["--aspect_buckets", "384,512"],
+    ["--async_checkpoint"],
     ["--pretrained_model_name", "dandelin/vilt-b32-mlm"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
@@ -115,9 +115,13 @@ IMPORT_CHECKED = ["climb_tpu_torch.cli.predict",
                   "climb_tpu_torch.models.bert",
                   "climb_tpu_torch.models.viltbert",
                   "climb_tpu_torch.models.hf_import",
-                  "climb_tpu_torch.train.model_factory"]
-# nor transformers: the card's machine does not have it
-FORBIDDEN = JAX_MODULES + ("transformers",)
+                  "climb_tpu_torch.train.model_factory",
+                  "climb_tpu_torch.train.accum_tune",
+                  "climb_tpu_torch.utils.preemption",
+                  "climb_tpu_torch.ckpt.checkpoint"]
+# nor transformers, msgpack or ml_dtypes: the card's machine has none of them
+# (the port reads flax's msgpack checkpoints with its own decoder)
+FORBIDDEN = JAX_MODULES + ("transformers", "msgpack", "ml_dtypes")
 
 
 @pytest.fixture(scope="module")
@@ -167,7 +171,9 @@ def test_port_sources_import_no_jax_package():
             "climb_tpu_torch/cli/train_vision.py", "climb_tpu_torch/data/vision/datasets.py",
             "climb_tpu_torch/data/language/text_processors.py",
             "climb_tpu_torch/data/language/text_dataset.py", "climb_tpu_torch/models/bert.py",
-            "climb_tpu_torch/models/viltbert.py", "climb_tpu_torch/models/hf_import.py"} <= scanned
+            "climb_tpu_torch/models/viltbert.py", "climb_tpu_torch/models/hf_import.py",
+            "climb_tpu_torch/train/accum_tune.py", "climb_tpu_torch/utils/preemption.py",
+            "climb_tpu_torch/ckpt/checkpoint.py"} <= scanned
     bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
            if root in FORBIDDEN}
     assert not bad
