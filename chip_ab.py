@@ -8,12 +8,13 @@ a commit, unpacked). The trees run in the order parent, change, change,
 parent, each run a fresh process started in its tree: it builds that tree's
 kernels into the tree's own ``build/`` and calls that tree's ``chip_smoke.py``
 phase functions (``run_train``: the Phase I driver at full ViLT-B/32 width;
-``run_language``: the Phase II language driver at S = 1057; ``compare_paths``
-with ``--attn_impl pallas`` and ``fused_block``: the serving eval step of one
-batch of 64). Their JSON lines are printed with the tree and run added, then
-one summary line per step: each run's step ms by CUDA events, and for the
-drivers the step ms on the host and examples/sec, in run order. The card's
-``nvidia-smi`` name and power limit come last.
+``run_language``: the Phase II language driver at S = 1057), then the
+serving eval step of one batch of 64 with ``--attn_impl pallas`` and
+``fused_block``: EVAL_STEPS steps back to back after five, each between two
+CUDA events, their median. Their JSON lines are printed with the tree and run
+added, then one summary line per step: each run's step ms by CUDA events, and
+for the drivers the step ms on the host and examples/sec, in run order. The
+card's ``nvidia-smi`` name and power limit come last.
 
 Exits non-zero if a run fails; every number comes from this call, so parent
 and change share the card, its clocks and its power limit.
@@ -24,6 +25,8 @@ import json
 import os
 import subprocess
 import sys
+
+EVAL_STEPS = 50  # serving eval steps timed a run
 
 CHILD = """
 import sys, torch
@@ -36,18 +39,41 @@ from climb_tpu_torch.kernels import build
 build.load_library()
 chip_smoke.run_train(torch)
 chip_smoke.run_language(torch)
-chip_smoke.compare_paths(torch)
-chip_smoke.compare_paths(torch, "fused_block")
-"""
+import json
+from climb_tpu_torch.cli import predict
+from climb_tpu_torch.configs.task_configs import task_configs
+from climb_tpu_torch.train.eval_step import make_eval_step
+from climb_tpu_torch.train.model_factory import create_cl_model
+from climb_tpu_torch.train.trainers import to_device
+dev = torch.device("cuda")
+for impl in ("pallas", "fused_block"):
+    args = predict.build_parser().parse_args(chip_smoke.predict_argv("unused", "bfloat16", impl))
+    args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+    model = create_cl_model(args, task_configs, dev)
+    step = make_eval_step(model, "snli-ve", "ce", model.cfg.compute_dtype)
+    batch = to_device(next(iter(predict.build_eval_loader(args))), dev)
+    for _ in range(5):
+        step(batch)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(%d)]
+    for start, end in events:
+        start.record()
+        step(batch)
+        end.record()
+    torch.cuda.synchronize()
+    ms = sorted(start.elapsed_time(end) for start, end in events)
+    print(json.dumps({"phase": "eval_steps", "attn_impl": impl, "batch": chip_smoke.BATCH,
+                      "step_ms_events_median": ms[len(ms) // 2], "step_ms_events": ms}))
+    del model, step, batch
+""" % EVAL_STEPS
 
 
 def step_numbers(row):
     """{what: (events ms, host ms, examples/sec)} of one phase row; a serving
-    eval step (phase ``paths``) has its bf16 kernel path's ms by CUDA events
-    and None for the other two."""
-    if row["phase"] == "paths":
-        return {f"eval_step {row['attn_impl']}": (row["bfloat16"]["batch_ms_kernel_path"], None,
-                                                  None)}
+    eval step (phase ``eval_steps``) has its median ms by CUDA events and None
+    for the other two."""
+    if row["phase"] == "eval_steps":
+        return {f"eval_step {row['attn_impl']}": (row["step_ms_events_median"], None, None)}
     if row["phase"] == "language":
         return {"language": (row["step_ms_events_median"], row["step_ms_host_median"],
                              row["train_examples_per_sec"])}
@@ -86,7 +112,7 @@ def main(argv=None) -> int:
     summary = {}
     for index, label in enumerate(("parent", "change", "change", "parent")):
         for row in run(trees[label], label, index):
-            if row.get("phase") in ("train", "language", "paths"):
+            if row.get("phase") in ("train", "language", "eval_steps"):
                 for what, (events, host, rate) in step_numbers(row).items():
                     summary.setdefault(what, []).append(
                         {"run": index, "tree": label, "step_ms_events": events,

@@ -87,6 +87,37 @@ Phases, each printing one JSON line as soon as it ends:
      predict_real: predict.main on the root's snli-ve dev split from that
               checkpoint: launch counts, the predictions' count and example
               order, ex/s beside phase predict's.
+     serve:   the serving stack on phase real_data's snli-ve checkpoint, bf16,
+              over 512 raw JSONL rows of the predict root's photos (half as
+              paths, half as base64 bytes), eight batches of 64. serve_jsonl:
+              predict --input_jsonl (exact launches, ex/s over batches 2-8,
+              the eval step's ms by CUDA events, the processor's host ms a row
+              by path and by base64) and one batch's f32 logits, kernel path
+              against plain path.
+              serve_int8: predict with --dense_impl int8 and int8_static (8
+              calibration batches of 8) on the first 64 rows with exact
+              launches; each one's argmax
+              agreement with the bf16 predictions (floor 0.75) and logits
+              correlation (floor 0.98) on the batch of 64 and its step ms by
+              events beside the bf16 step's, also with the FFN in int8
+              (--mlp_impl xla); torch._int_mm against bf16 F.linear at
+              17,984 x 768 x 768 and x 3072. serve_export: --export_model for
+              the card, per-op with --export_batch_sizes 8,64
+              --export_canvas_widths 512,640 (four programs), fused_block and
+              int8 with one each; --from_export (per-op, fused_block) gives
+              eager predict's predictions and metric with exact launches
+              through the exported programs; export seconds and artifact bytes
+              against parameter bytes (under 1.2x); each artifact's batch-64
+              step against the eager step by events and on the host, also
+              through torch's module as loaded. dispatch_cost: host us a call
+              of each forward kernel's dispatcher op against its wrapper
+              called directly, and per eager step.
+              serve_http: create_server on loopback, 16 client threads x 8
+              requests of 1-4 rows of the first 64; every row's logits within
+              SERVE_LOGITS_TOL of --from_export's and its prediction equal
+              (but at a tie), exact launches (warmup of every program, then
+              each batch), requests/s, p50/p99 latency, mean batch fill,
+              programs used.
      Phases train and predict report the same host split.
      knobs:   the training knobs at full width, bf16. knobs_remat: one snli-ve
               train step at batch 32 per --remat_policy (none, full, dots,
@@ -233,6 +264,23 @@ LOWSHOT_NLVR2_EPOCHS, LOWSHOT_VCR_SIZE, LOWSHOT_VCR_EPOCHS = 6, 320, 2
 PIQA_TRAIN, PIQA_VALID, PIQA_SHOTS, PIQA_EPOCHS, PIQA_SEQ = 400, 100, 64, 2, 97
 # phase viltbert: predict's nlvr2 batches from the Phase I run's checkpoint
 VILTBERT_PREDICT_BATCHES = 16
+# phase serve: raw JSONL rows over the predict root's photos (half as paths,
+# half as base64 bytes), served eagerly at batch SERVE_BATCH (eight batches, so
+# that the rate excludes the first), with int8 dense layers at
+# SERVE_INT8_BATCH (int8_static calibrated on SERVE_CALIBRATION_BATCHES), from
+# three exported artifacts (the per-op one with a 2 x 2 ladder, fused_block,
+# int8) and over HTTP by SERVE_CLIENTS threads of SERVE_REQUESTS requests of
+# 1-4 rows each (of the first batch's rows); SERVE_STEPS interleaved rounds
+# time each eager and exported step
+SERVE_BATCH, SERVE_INT8_BATCH = 64, 8
+SERVE_ROWS, SERVE_CALIBRATION_BATCHES = 8 * SERVE_BATCH, 8
+SERVE_BATCH_LADDER, SERVE_WIDTH_LADDER = (8, 64), (512, 640)
+SERVE_CLIENTS, SERVE_REQUESTS = 16, 8
+SERVE_STEPS = 30
+DISPATCH_CALLS = 500  # host calls timed per kernel, through its op and directly
+INT8_ARGMAX_FLOOR = 0.75  # tests/test_quant.py's floor for int8 against the float forward
+INT8_CORR_FLOOR = 0.98  # tests/test_quant.py's floor for int8_static logits
+INT_MM_SHAPES = ((BATCH * SEQ, HIDDEN, HIDDEN), (BATCH * SEQ, HIDDEN, FFN))  # (M, K, N)
 WORDS = tuple("""
 a an the man woman person people child children boy girl dog dogs cat cats horse bird
 group crowd player team worker street road park beach water snow grass field building
@@ -285,6 +333,13 @@ TOLERANCES.update({
                                       "normalized P"),
 })
 LOGITS_TOL = (1e-3, 1e-3, "12 layers of f32 sums in another order, ~1e-5 each")
+# the server's bf16 logits (programs of the batch and width ladders) against
+# --from_export's (the (64, 640) program) for the same rows
+SERVE_LOGITS_TOL = (5e-2, 5e-2, "bf16 through 12 layers: the cropped 512 canvas moves the valid "
+                    "patches to other key tiles of the attention kernel (another order of the "
+                    "same f32 sums, P rounded to bf16 per tile), and cuBLAS may pick another "
+                    "algorithm for another row count; a prediction may differ only where the "
+                    "reference's top two logits lie within this tolerance")
 # kernel path against plain path over three f32 train steps of one batch
 LOSS_TOL = (1e-5, 1e-4, "12 layers of f32 sums in another order, forward and backward")
 GRAD_REL_TOL = (1e-3, 1e-5, "per parameter, ||g_kernel - g_plain|| <= 1e-3 ||g_plain|| + "
@@ -2103,6 +2158,514 @@ def run_predict_real(torch, root, ckpt, predict_out):
     return launches
 
 
+def write_serve_rows(root, path, n=SERVE_ROWS, seed=REAL_SEED + 4):
+    """``n`` JSONL rows of snli-ve over the predict root's Flickr30k photos:
+    the even rows name the photo's path, the odd ones carry its bytes as
+    {"b64": ...}; a sentence of WORDS and a label each. Returns the rows."""
+    import base64
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    images = os.path.join(root, "flickr30k", "flickr30k_images")
+    rows = []
+    for i in range(n):
+        photo_path = os.path.join(images, f"{1 + rng.randint(FLICKR_IMAGES)}.jpg")
+        if i % 2:
+            with open(photo_path, "rb") as f:
+                image = {"b64": base64.b64encode(f.read()).decode()}
+        else:
+            image = photo_path
+        rows.append({"text": sentence(rng), "image": image, "label": int(rng.randint(3))})
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    return rows
+
+
+def serve_argv(root, ckpt, rows_path, out_dir, name, batch=SERVE_BATCH, *extra):
+    return ["--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve,nlvr2",
+            "--task_key", "snli-ve", "--checkpoint", ckpt, "--input_jsonl", rows_path,
+            "--vocab_path", os.path.join(root, "vocab.txt"), "--batch_size", str(batch),
+            "--compute_dtype", "bfloat16", "--attn_impl", "pallas", "--mlp_impl", "pallas",
+            "--seed", "0", "--device", "cuda", "--output_dir", out_dir,
+            "--output_file", os.path.join(out_dir, f"{name}.json"), *extra]
+
+
+def latency_summary(seconds):
+    """p50, p99 and mean of request latencies (s), in ms (nearest rank)."""
+    xs = sorted(seconds)
+    rank = lambda q: xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+    return {"p50_ms": 1e3 * rank(0.50), "p99_ms": 1e3 * rank(0.99),
+            "mean_ms": 1e3 * sum(xs) / len(xs), "n": len(xs)}
+
+
+def int8_agreement(ref_logits, logits):
+    """(share of rows whose argmax equals the reference's, Pearson correlation
+    of all logits) of two (rows, labels) float arrays."""
+    import numpy as np
+
+    ref, got = np.asarray(ref_logits, np.float64), np.asarray(logits, np.float64)
+    agree = float((ref.argmax(-1) == got.argmax(-1)).mean())
+    return agree, float(np.corrcoef(ref.ravel(), got.ravel())[0, 1])
+
+
+def tie_rows(ref_logits, atol):
+    """Rows whose top two reference logits lie within ``atol``: where noise of
+    that size may change the argmax."""
+    import numpy as np
+
+    top = np.sort(np.asarray(ref_logits, np.float64), axis=-1)
+    return set(np.nonzero(top[:, -1] - top[:, -2] <= atol)[0].tolist())
+
+
+def serve_clients(url, rows, clients=SERVE_CLIENTS, requests=SERVE_REQUESTS, seed=REAL_SEED + 5):
+    """``clients`` threads, each posting ``requests`` requests of 1-4 rows
+    (drawn from ``rows``) with their logits asked for. Returns the wall seconds
+    and, per request, (row indices, latency s, response)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    plans = [[rng.choice(len(rows), rng.randint(1, 5), replace=False).tolist()
+              for _ in range(requests)] for _ in range(clients)]
+    done = [[] for _ in range(clients)]
+    errors = []
+
+    def client(c):
+        try:
+            for idx in plans[c]:
+                body = json.dumps({"instances": [{"text": rows[i]["text"],
+                                                  "image": rows[i]["image"]} for i in idx],
+                                   "return_logits": True}).encode()
+                req = urllib.request.Request(url, data=body,
+                                             headers={"Content-Type": "application/json"})
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    out = json.loads(r.read())
+                done[c].append((idx, time.perf_counter() - t, out))
+        except Exception as e:  # reported after the join; the phase fails on it
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"serve clients failed: {errors[:3]}")
+    return wall, [r for per in done for r in per]
+
+
+def step_times(torch, fns, rounds=SERVE_STEPS, warmup=3):
+    """Median ms a step of each of ``fns`` (name -> callable), by CUDA events
+    and on the host. The steps are interleaved, one of each a round, so that
+    a drift of the host's speed reaches all of them alike, and each starts on
+    an idle card: the events span its launches, the host clock the time to
+    enqueue them. Where the two agree the host sets the pace."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {name: ([], []) for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            times[name][0].append(start.elapsed_time(end))
+            times[name][1].append(host_ms)
+    return {name: {"events_ms": median(ev), "host_ms": median(host)}
+            for name, (ev, host) in times.items()}
+
+
+def dispatch_cost(torch, calls=DISPATCH_CALLS, rounds=5):
+    """Host microseconds a call of each forward kernel through its dispatcher
+    op and through its CUDA wrapper called directly, bf16 at shapes small
+    enough that the card never holds the host back: rounds of ``calls``
+    calls, op and direct alternated, the least of each. Returns {kernel: {op,
+    direct, added}}."""
+    from climb_tpu_torch.ops import attention, block, image_ops, mlp
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def r(*shape, dtype=bf16):
+        return torch.randn(*shape, device="cuda").to(dtype)
+
+    q, x, w, row = r(1, 16, 1, 64), r(1, 64, 64), r(64, 64), r(64, dtype=f32)
+    cases = {
+        "attention_fwd": (attention.attention_fwd_op, attention._attention_fwd_cuda,
+                          (q, q, q, torch.zeros(1, 1, 1, 16, device="cuda"))),
+        "mlp_fwd": (mlp.fused_mlp_op, mlp._fused_mlp_cuda,
+                    (x, r(128, 64), r(128), r(64, 128), r(64))),
+        "normalize_u8": (image_ops.normalize_u8, image_ops._normalize_cuda,
+                         (torch.zeros(1, 32, 32, 3, dtype=torch.uint8, device="cuda"), bf16)),
+        "fused_block_fwd": (block.fused_attention_sublayer_op, block._sublayer_cuda,
+                            (x, row, row, w, row, w, row, w, row, w, row,
+                             torch.zeros(1, 1, 1, 64, device="cuda"), 1, 1e-6)),
+    }
+
+    def host_us(fn, args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for name, (op, direct, args) in cases.items():
+        times = {"op": [], "direct": []}
+        for _ in range(rounds):
+            times["op"].append(host_us(op, args))
+            times["direct"].append(host_us(direct, args))
+        op_us, direct_us = min(times["op"]), min(times["direct"])
+        out[name] = {"op_us": op_us, "direct_us": direct_us, "added_us": op_us - direct_us}
+    return out
+
+
+def run_serve(torch, root, ckpt, work):
+    """Phase serve on phase real_data's snli-ve checkpoint and the predict
+    root's photos, full ViLT-B/32 width, bf16: (a) predict --input_jsonl, (b)
+    int8 and int8_static, (c) three exported artifacts, two served by
+    --from_export, each exported step timed against the eager one, and the
+    dispatcher ops' host cost, (d) the HTTP server. Each reading is one JSON
+    line with the card beside it. Returns {path: launch counts}."""
+    import io
+    import itertools
+    import zlib
+
+    import numpy as np
+
+    from climb_tpu_torch.ckpt.checkpoint import load_model_file
+    from climb_tpu_torch.ckpt.convert import partial_load
+    from climb_tpu_torch.cli import predict
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.data.processor import ViltInputProcessor, build_raw_batch
+    from climb_tpu_torch.data.tokenization import load_tokenizer
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.ops import quant
+    from climb_tpu_torch.serve.export import (ExportedModel, load_artifact, model_state,
+                                              serving_module)
+    from climb_tpu_torch.serve.server import create_server
+    from climb_tpu_torch.train.eval_step import calibrate_quant_scales, make_eval_step
+    from climb_tpu_torch.train.model_factory import create_cl_model
+
+    card = nvidia_smi()
+    dev = torch.device("cuda")
+    out_dir = os.path.join(work, "serve")
+    os.makedirs(out_dir)
+    rows_path = os.path.join(out_dir, "rows.jsonl")
+    rows = write_serve_rows(root, rows_path)
+    n_batches = SERVE_ROWS // SERVE_BATCH
+    launches = {}
+
+    def run(argv):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = predict.main(argv)
+        return out, dict(LAUNCHES), time.perf_counter() - t0
+
+    def model_for(dtype, **flags):
+        args = predict.build_parser().parse_args(serve_argv(root, ckpt, rows_path, out_dir, "x")
+                                                 + ["--compute_dtype", dtype])
+        for k, v in flags.items():
+            setattr(args, k, v)
+        args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+        model = create_cl_model(args, task_configs, dev)
+        partial_load(model, load_model_file(ckpt))
+        return args, model
+
+    def batches(args, model, batch, n):
+        """The first ``n`` batches of the rows at ``batch``."""
+        args.batch_size = batch
+        src = predict._jsonl_batches(args, model, dev)
+        out = [b for _, b in itertools.islice(src, n)]
+        src.close()
+        return out
+
+    # (a) predict --input_jsonl, then one batch through the kernel and plain paths in f32
+    eager, launches["serve_jsonl"], seconds = run(serve_argv(root, ckpt, rows_path, out_dir,
+                                                             "eager"))
+    expected = expected_launches(False, n_batches, 0, n_batches)
+    preds = eager["predictions"]
+    if launches["serve_jsonl"] != expected or len(preds) != SERVE_ROWS or \
+            not set(preds) <= {0, 1, 2} or eager["metric"] is None:
+        raise AssertionError(f"serve jsonl: launches {launches['serve_jsonl']} (expected "
+                             f"{expected}), {len(preds)} predictions, metric {eager['metric']}")
+    args, model = model_for("bfloat16")
+    batch = batches(args, model, SERVE_BATCH, 1)[0]
+    step = make_eval_step(model, "snli-ve", "ce", torch.bfloat16)
+    bf16_logits = step(batch)[0].float().cpu().numpy()
+    if bf16_logits.argmax(-1).tolist() != preds[:SERVE_BATCH]:
+        raise AssertionError("serve jsonl: the eval step's argmax differs from predict's")
+    bf16_ms = time_ms(torch, lambda: step(batch), iters=10)
+    # the host's share of a batch: the processor on the first batch's rows,
+    # the photos given by path and by base64 bytes apart
+    proc = ViltInputProcessor(load_tokenizer("bert-base-uncased",
+                                             os.path.join(root, "vocab.txt")),
+                              TEXT, CANVAS[:2], model.cfg.patch_size)
+    processor_ms = {}
+    for kind, part in (("path", rows[0:SERVE_BATCH:2]), ("b64", rows[1:SERVE_BATCH:2])):
+        t0 = time.perf_counter()
+        build_raw_batch(proc, "classification", 1, part)
+        processor_ms[kind] = 1e3 * (time.perf_counter() - t0) / len(part)
+    args32, model32 = model_for("float32")
+    batch32 = batches(args32, model32, SERVE_BATCH, 1)[0]
+    step32 = make_eval_step(model32, "snli-ve", "ce", torch.float32)
+    reset_launch_counts()
+    kernel_logits = step32(batch32)[0]
+    with contextlib.ExitStack() as patches:
+        for patch in plain_path():
+            patches.enter_context(patch)
+        plain_logits = step32(batch32)[0]
+    atol, rtol, reason = LOGITS_TOL
+    err = (kernel_logits - plain_logits).abs().max().item()
+    if not torch.allclose(kernel_logits, plain_logits, atol=atol, rtol=rtol):
+        raise AssertionError(f"serve jsonl f32 logits: kernel vs plain path max abs err {err:.3e}")
+    del model32, batch32, step32
+    emit({"phase": "serve_jsonl", "card": card, "config": "ViLT-B/32 from phase real_data's "
+          f"snli-ve checkpoint, {SERVE_ROWS} raw JSONL rows (photos of the predict root, half "
+          f"as paths, half as base64 bytes), {n_batches} batches of {SERVE_BATCH}, bf16",
+          "seconds": seconds, "examples_per_sec": eager["examples_per_sec"],
+          "examples_per_sec_over": f"batches 2-{n_batches} (the first, with its warm-up, "
+                                   "excluded)",
+          "metric": eager["metric"], "launches": launches["serve_jsonl"],
+          "step_ms_events": bf16_ms, "step_examples_per_sec": SERVE_BATCH / bf16_ms * 1e3,
+          "processor_ms_per_row": processor_ms,
+          "f32_logits_kernel_vs_plain_max_abs_err": err,
+          "tolerance": {"atol": atol, "rtol": rtol, "reason": reason}})
+
+    # (b) int8 and int8_static: the CLI's launches on the first batch's rows
+    # (eight batches of 8), then logits and step times in process
+    int8_rows = {}
+    int8_path = os.path.join(out_dir, "rows_int8.jsonl")
+    with open(int8_path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows[:SERVE_BATCH])
+    n_int8 = SERVE_BATCH // SERVE_INT8_BATCH
+    for impl, n_forwards in (("int8", n_int8), ("int8_static",
+                                                SERVE_CALIBRATION_BATCHES + n_int8)):
+        out, got, seconds = run(serve_argv(
+            root, ckpt, int8_path, out_dir, impl, SERVE_INT8_BATCH, "--dense_impl", impl,
+            "--quant_calibration_batches", str(SERVE_CALIBRATION_BATCHES)))
+        launches[f"serve_{impl}"] = got
+        expected = expected_launches(False, n_forwards, 0, n_forwards)
+        if got != expected or len(out["predictions"]) != SERVE_BATCH:
+            raise AssertionError(f"serve {impl}: launches {got} (expected {expected}), "
+                                 f"{len(out['predictions'])} predictions")
+        int8_rows[impl] = {"seconds": seconds, "examples_per_sec": out["examples_per_sec"],
+                           "metric": out["metric"], "launches": got,
+                           "argmax_agreement_cli": float(np.mean(np.asarray(
+                               out["predictions"]) == np.asarray(preds[:SERVE_BATCH])))}
+    for impl, mlp_impl in (("int8", "pallas"), ("int8_static", "pallas"), ("int8", "xla")):
+        _, qmodel = model_for("bfloat16", dense_impl=impl, mlp_impl=mlp_impl)
+        if impl == "int8_static":
+            scales = calibrate_quant_scales(
+                qmodel, "snli-ve", batches(args, qmodel, SERVE_INT8_BATCH,
+                                           SERVE_CALIBRATION_BATCHES), torch.bfloat16)
+        qstep = make_eval_step(qmodel, "snli-ve", "ce", torch.bfloat16)
+        logits = qstep(batch)[0].float().cpu().numpy()
+        agree, corr = int8_agreement(bf16_logits, logits)
+        key = impl if mlp_impl == "pallas" else f"{impl}_ffn_int8"
+        row = int8_rows.setdefault(key, {})
+        row.update(argmax_agreement=agree, logits_corr=corr, mlp_impl=mlp_impl,
+                   step_ms_events=time_ms(torch, lambda: qstep(batch), iters=10))
+        if impl == "int8_static":
+            row["scales"] = len(scales)
+        if agree < INT8_ARGMAX_FLOOR or corr <= INT8_CORR_FLOOR:
+            raise AssertionError(f"serve {key}: argmax agreement {agree} (floor "
+                                 f"{INT8_ARGMAX_FLOOR}), logits corr {corr} (floor "
+                                 f"{INT8_CORR_FLOOR}) against bf16")
+        del qmodel, qstep
+    int_mm = []
+    for m, k, n in INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev)
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        int_mm.append({"m": m, "k": k, "n": n,
+                       "int_mm_ms": time_ms(torch, lambda: quant.int_mm(a, w.t())),
+                       "linear_bf16_ms": time_ms(torch, lambda: torch.nn.functional.linear(ab, wb))})
+    emit({"phase": "serve_int8", "card": card, "bf16_step_ms_events": bf16_ms,
+          "batch": SERVE_BATCH, "calibration_batches": SERVE_CALIBRATION_BATCHES,
+          "floors": {"argmax_agreement": INT8_ARGMAX_FLOOR, "logits_corr": INT8_CORR_FLOOR},
+          "runs": int8_rows, "int_mm_vs_linear_bf16": int_mm})
+
+    # (c) three artifacts: per-op with a 2 x 2 ladder, fused_block and int8 with none
+    param_bytes = sum(t.numel() * t.element_size() for t in model_state(model).values())
+    del model, step
+    exports = {}
+    for name, flags in (
+            ("per_op", ["--export_batch_sizes", ",".join(map(str, SERVE_BATCH_LADDER)),
+                        "--export_canvas_widths", ",".join(map(str, SERVE_WIDTH_LADDER))]),
+            ("fused_block", ["--attn_impl", "fused_block"]),
+            ("int8", ["--dense_impl", "int8"])):
+        path = os.path.join(out_dir, f"snli-ve_{name}.pt2")
+        fused = name == "fused_block"
+        meta, _, export_s = run(serve_argv(
+            root, ckpt, rows_path, out_dir, f"export_{name}", SERVE_BATCH, "--export_model",
+            path, "--export_platforms", "cuda", *flags))
+        programs = len(SERVE_BATCH_LADDER) * len(SERVE_WIDTH_LADDER) if name == "per_op" else 1
+        exports[name] = {"path": path, "export_s": export_s, "programs": programs,
+                         "artifact_bytes": os.path.getsize(path), "param_bytes": param_bytes,
+                         "bytes_over_params": os.path.getsize(path) / param_bytes}
+        if exports[name]["bytes_over_params"] >= 1.2 or \
+                len(meta["batch_sizes"]) * len(meta.get("canvas_widths") or [0]) != programs:
+            raise AssertionError(f"serve export {name}: {exports[name]['artifact_bytes']} bytes "
+                                 f"for {param_bytes} bytes of parameters, meta {meta}")
+        if name == "int8":  # its programs are timed below, not served by the CLI
+            continue
+        ref = eager
+        if fused:
+            ref, launches["serve_jsonl_fused"], _ = run(serve_argv(
+                root, ckpt, rows_path, out_dir, "eager_fused", SERVE_BATCH, *flags))
+            if launches["serve_jsonl_fused"] != expected_launches(True, n_batches, 0, n_batches):
+                raise AssertionError(f"serve jsonl fused_block: launches "
+                                     f"{launches['serve_jsonl_fused']}")
+        served, got, seconds = run(serve_argv(
+            root, ckpt, rows_path, out_dir, f"from_export_{name}", SERVE_BATCH,
+            "--from_export", path))
+        launches["serve_from_export_fused" if fused else "serve_from_export"] = got
+        expected = expected_launches(fused, n_batches, 0, n_batches)
+        if got != expected or served["predictions"] != ref["predictions"] or \
+                served["metric"] != ref["metric"] or served["checkpoint"] != path:
+            raise AssertionError(f"serve from_export {name}: launches {got} (expected "
+                                 f"{expected}), predictions equal "
+                                 f"{served['predictions'] == ref['predictions']}, metric "
+                                 f"{served['metric']} vs {ref['metric']}")
+        exports[name].update(from_export_seconds=seconds,
+                             from_export_examples_per_sec=served["examples_per_sec"],
+                             eager_examples_per_sec=ref["examples_per_sec"],
+                             launches=got, predictions_equal_eager=True)
+
+    # each artifact's widest batch-64 program against the eager step on the
+    # batch of (a), by events and on the host: ExportedModel's call; torch's
+    # module as loaded (its input check and the metadata asserts); the same by
+    # forward (the asserts only)
+    atol = SERVE_LOGITS_TOL[0]
+    for name, flags in (("per_op", {}), ("fused_block", {"attn_impl": "fused_block"}),
+                        ("int8", {"dense_impl": "int8"})):
+        _, emodel = model_for("bfloat16", **flags)
+        estep = make_eval_step(emodel, "snli-ve", "ce", torch.bfloat16)
+        exported = ExportedModel(exports[name]["path"], dev)
+        blob = load_artifact(exports[name]["path"])["programs"][
+            f"{dev.type}:{SERVE_BATCH}:{max(exported.canvas_widths)}"]
+        ep = torch.export.load(io.BytesIO(zlib.decompress(blob)))
+        stock = ep.module()
+        sig = exported.validate_batch(batch)
+        ref_logits = estep(batch)[0].float().cpu().numpy()
+        got_logits = exported(batch)[0].float().cpu().numpy()
+        differ = set(np.nonzero(ref_logits.argmax(-1) != got_logits.argmax(-1))[0].tolist())
+        if differ - tie_rows(ref_logits, atol):
+            raise AssertionError(f"serve export {name}: the exported step's argmax differs from "
+                                 f"the eager step's at rows {sorted(differ)} away from a tie")
+        fns = {"eager": lambda: estep(batch), "exported": lambda: exported(batch),
+               "torch_module": lambda: stock(exported.params, sig),
+               "torch_module_forward": lambda: stock.forward(exported.params, sig)}
+        step = step_times(torch, fns)
+        exports[name].update(
+            step_ms=step, exported_over_eager=step["exported"]["events_ms"]
+            / step["eager"]["events_ms"],
+            logits_max_abs_err_vs_eager=float(np.abs(got_logits - ref_logits).max()),
+            graph_ops=sum(n.op == "call_function" for n in stock.graph.nodes),
+            graph_ops_served=sum(n.op == "call_function"
+                                 for n in serving_module(ep).graph.nodes))
+        del emodel, estep, exported, ep, stock
+    emit({"phase": "serve_export", "card": card, "platforms": ["cuda"],
+          "batch_ladder": SERVE_BATCH_LADDER, "width_ladder": SERVE_WIDTH_LADDER,
+          "timed": f"the ({SERVE_BATCH}, {CANVAS[1]}) program of each artifact and the eager "
+                   f"step on one batch: medians of {SERVE_STEPS} rounds of one step each, "
+                   "interleaved, each started on an idle card; events ms spans its launches, "
+                   "host ms the time to enqueue them", "artifacts": exports})
+
+    # the dispatcher ops' host cost against the wrappers called directly, per
+    # call and per eager step (LAYERS attention or sublayer calls and FFN
+    # calls, one normalize)
+    cost = dispatch_cost(torch)
+    added = {k: v["added_us"] for k, v in cost.items()}
+    per_step = {"per_op": LAYERS * (added["attention_fwd"] + added["mlp_fwd"])
+                + added["normalize_u8"],
+                "fused_block": LAYERS * (added["fused_block_fwd"] + added["mlp_fwd"])
+                + added["normalize_u8"]}
+    emit({"phase": "dispatch_cost", "card": card, "calls_per_round": DISPATCH_CALLS,
+          "per_call": cost,
+          "per_eager_step_ms": {k: v / 1e3 for k, v in per_step.items()},
+          "share_of_eager_step": {k: v / 1e3 / exports[k]["step_ms"]["eager"]["events_ms"]
+                                  for k, v in per_step.items()}})
+
+    # (d) the HTTP server on loopback over the per-op artifact, with the first batch's rows
+    path = exports["per_op"]["path"]
+    exported = ExportedModel(path, dev)
+    ref_logits = exported(batch)[0].float().cpu().numpy()
+    if ref_logits.argmax(-1).tolist() != preds[:SERVE_BATCH]:
+        raise AssertionError("serve: the artifact's (64, 640) program disagrees with "
+                             "--from_export's predictions")
+    del exported
+    reset_launch_counts()
+    tokenizer = load_tokenizer("bert-base-uncased", os.path.join(root, "vocab.txt"))
+    server = create_server(path, port=0, max_wait_ms=5.0, tokenizer=tokenizer, device="cuda")
+    warm = dict(LAUNCHES)
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        host, port = server.server_address[:2]
+        wall, results = serve_clients(f"http://{host}:{port}/v1/predict", rows[:SERVE_BATCH])
+        with server.service.batcher._lock:
+            stats = json.loads(json.dumps(server.service.batcher.stats))
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.service.close()
+    launches["serve_http"] = dict(LAUNCHES)
+    n_programs = len(SERVE_BATCH_LADDER) * len(SERVE_WIDTH_LADDER)
+    if warm != expected_launches(False, n_programs, 0, n_programs):
+        raise AssertionError(f"serve http warmup launches {warm}")
+    expected = expected_launches(False, n_programs + stats["batches"], 0,
+                                  n_programs + stats["batches"])
+    if launches["serve_http"] != expected or stats["errors"] or stats["rejected"]:
+        raise AssertionError(f"serve http: launches {launches['serve_http']} (expected "
+                             f"{expected}), stats {stats}")
+    atol, rtol, reason = SERVE_LOGITS_TOL
+    ties = tie_rows(ref_logits, atol)
+    err, mismatched = 0.0, []
+    for idx, _, out in results:
+        if out["n"] != len(idx):
+            raise AssertionError(f"serve http: {out['n']} answers for {len(idx)} rows")
+        for i, p, logit in zip(idx, out["predictions"], out["logits"]):
+            diff = np.abs(np.asarray(logit) - ref_logits[i])
+            err = max(err, float(diff.max()))
+            if (diff > atol + rtol * np.abs(ref_logits[i])).any():
+                raise AssertionError(f"serve http row {i}: logits {logit} vs {ref_logits[i]} "
+                                     f"({reason})")
+            if p != preds[i]:
+                mismatched.append(i)
+    if set(mismatched) - ties:
+        raise AssertionError(f"serve http: predictions of rows {sorted(set(mismatched))} differ "
+                             f"from --from_export's away from a tie")
+    n_requests = len(results)
+    emit({"phase": "serve_http", "card": card, "clients": SERVE_CLIENTS,
+          "requests_per_client": SERVE_REQUESTS, "requests": n_requests,
+          "instances": sum(len(i) for i, _, _ in results), "wall_s": wall,
+          "requests_per_sec": n_requests / wall,
+          "instances_per_sec": sum(len(i) for i, _, _ in results) / wall,
+          "latency": latency_summary([t for _, t, _ in results]),
+          "batches": stats["batches"], "mean_batch_fill": stats["batched_examples"]
+          / max(stats["batches"], 1) / SERVE_BATCH, "programs_used": stats["programs"],
+          "launches": launches["serve_http"], "logits_max_abs_err_vs_from_export": err,
+          "tolerance": {"atol": atol, "rtol": rtol, "reason": reason},
+          "predictions_differing_at_ties": sorted(set(mismatched)), "tie_rows": sorted(ties)})
+    return launches
+
+
 def write_vocab(path):
     """The vocab.txt of WORDS (with "this is an image ." in it)."""
     vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ",", "?", "!"] + list(WORDS)
@@ -3335,6 +3898,7 @@ def main() -> int:
             torch, root, os.path.join(work, "out"))
         predict_root = fabricate_predict_root(root, os.path.join(work, "predict_data"))
         launches["predict_real"] = run_predict_real(torch, predict_root, ckpt, predict_out)
+        launches.update(run_serve(torch, predict_root, ckpt, work))
         launches.update(run_knobs(torch, root, work, real_row))
         launches.update(run_lowshot(torch, root, os.path.join(work, "out")))
         vision_root = os.path.join(work, "vision_data")

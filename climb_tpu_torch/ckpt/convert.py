@@ -26,6 +26,11 @@ under the stacked encoder) across; the reference layout has no adapters, so
 ``reference_from_state_dict`` leaves them out, as ``climb_tpu``'s
 ``torch_import.py`` does. The JAX package's flax msgpack files reach
 ``state_dict_from_jax`` through ``ckpt/checkpoint.read_flax_msgpack``.
+- ``quant_from_jax(tree)`` / ``quant_to_jax(scales)``: the int8_static
+  calibration scales, between JAX's ``quant`` collection (``<name>_amax``
+  leaves, stacked with a leading layer axis under each scanned ``encoder``)
+  and the port's buffers of the same names, one scalar per block
+  (``vilt.encoder.3.q_amax``).
 """
 
 import logging
@@ -153,6 +158,46 @@ def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
         else:
             _linear_from_jax(sd, f"{name}.fc", p["fc"])
     return sd
+
+
+def quant_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX's ``quant`` collection -> {buffer name: f32 scalar}: each stacked
+    ``encoder`` leaf split into one scalar per block."""
+    out = {}
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            out.update(quant_from_jax(v, f"{prefix}{name}."))
+            continue
+        arr = _np(v).astype(np.float32)
+        if prefix.split(".")[-2:-1] == ["encoder"] and arr.ndim == 1:
+            for i, x in enumerate(arr):
+                out[f"{prefix}{i}.{name}"] = torch.tensor(x)
+        else:
+            out[f"{prefix}{name}"] = torch.from_numpy(arr.copy())
+    return out
+
+
+def quant_to_jax(scales: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``quant_from_jax``: the blocks' scalars stacked along a
+    leading layer axis under each ``encoder``, numpy float32 leaves."""
+    tree, stacked = {}, {}
+    for name, v in scales.items():
+        parts = name.split(".")
+        value = np.float32(v.detach().to("cpu", torch.float32).item())
+        if len(parts) >= 3 and parts[-3] == "encoder" and parts[-2].isdigit():
+            key = tuple(parts[:-2]) + (parts[-1],)
+            stacked.setdefault(key, {})[int(parts[-2])] = value
+        else:
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(value, np.float32)
+    for key, layers in stacked.items():
+        node = tree
+        for p in key[:-1]:
+            node = node.setdefault(p, {})
+        node[key[-1]] = np.asarray([layers[i] for i in range(len(layers))], np.float32)
+    return tree
 
 
 def _task_key(name: str) -> str:

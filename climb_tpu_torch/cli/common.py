@@ -55,7 +55,14 @@ def add_device_args(parser: argparse.ArgumentParser):
                              "FFN kernel (csrc/mlp.cu).")
     parser.add_argument("--dense_impl", type=str, default="xla",
                         choices=["xla", "int8", "int8_static"],
-                        help="Dense layers; the int8 modes are not ported yet.")
+                        help="Dense layers of eval-mode forwards (eval, predict): 'int8' "
+                             "runs the encoder's products as int8 x int8 -> int32 "
+                             "(torch._int_mm on the card) with per-channel weight and "
+                             "dynamic per-row activation scales; 'int8_static' uses "
+                             "calibrated per-tensor activation scales (predict calibrates, "
+                             "--quant_calibration_batches). Training steps always run the "
+                             "float dense; an int8_static forward with no calibration (the "
+                             "evals inside a training run) runs dynamic 'int8'.")
     parser.add_argument("--eval_batch_size", type=int, default=None,
                         help="Eval batch size (global, before the per-task fold "
                              "divisor); defaults to --batch_size.")
@@ -182,7 +189,6 @@ def add_device_args(parser: argparse.ArgumentParser):
 
 # (flag, value that is ported, later slice that brings the rest)
 _UNPORTED = (
-    ("dense_impl", "xla", "the int8 serving slice"),
     ("n_model", 1, "the scale-out slice"),
     ("use_mesh", False, "the scale-out slice"),
     ("pp_stages", 0, "the scale-out slice"),

@@ -17,6 +17,10 @@ Parameters are named as the JAX tree (``word_embeddings``,
 ``encoder.{i}.{q,k,v,attn_out,attn_ln,fc1,fc2,mlp_ln}``) and drawn as flax
 draws them by ``models.vilt_core.init_weights_``. HF ``BertModel`` weights map
 onto them through ``models.hf_import``.
+
+With ``dense_impl`` 'int8' or 'int8_static' every dense layer takes the int8
+products of ``ops/quant.py`` in every forward, training included: JAX runs
+its frozen BERT deterministic always (``viltbert.py:60``).
 """
 
 import dataclasses
@@ -27,7 +31,7 @@ from torch import nn
 
 from climb_tpu_torch.models.model_config import ViltConfig, torch_dtype
 from climb_tpu_torch.models.vilt_core import dense, layer_norm
-from climb_tpu_torch.ops import attention
+from climb_tpu_torch.ops import attention, quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +46,7 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     dtype: str = "float32"
+    dense_impl: str = "xla"  # "int8" | "int8_static": every forward (BERT is frozen)
 
     @property
     def head_dim(self) -> int:
@@ -57,7 +62,8 @@ def bert_config_for(cfg: ViltConfig) -> BertConfig:
     (JAX ``ViltBertCore.setup``, viltbert.py:39-49)."""
     return BertConfig(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
                       num_layers=cfg.num_layers, num_heads=cfg.num_heads,
-                      intermediate_size=cfg.intermediate_size, dtype=cfg.dtype)
+                      intermediate_size=cfg.intermediate_size, dtype=cfg.dtype,
+                      dense_impl=cfg.dense_impl)
 
 
 class BertLayer(nn.Module):
@@ -76,18 +82,26 @@ class BertLayer(nn.Module):
         self.fc2 = nn.Linear(f, d)
         self.mlp_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
 
+    def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        layer = getattr(self, name)
+        if cfg.dense_impl in quant.INT8_IMPLS:
+            return quant.module_int8_dense(self, x, layer.weight, layer.bias, name,
+                                           cfg.dense_impl, cfg.compute_dtype)
+        return dense(layer, x, cfg.compute_dtype)
+
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b, s, d = x.shape
         heads = (b, s, cfg.num_heads, cfg.head_dim)
-        q = dense(self.q, x, dtype).view(heads)
-        k = dense(self.k, x, dtype).view(heads)
-        v = dense(self.v, x, dtype).view(heads)
+        q = self._dense("q", x).view(heads)
+        k = self._dense("k", x).view(heads)
+        v = self._dense("v", x).view(heads)
         ctx = attention.mha_plain(q, k, v, mask_bias).reshape(b, s, d)
-        x = layer_norm(self.attn_ln, x + dense(self.attn_out, ctx, dtype), dtype)
-        h = F.gelu(dense(self.fc1, x, dtype), approximate="none")
-        return layer_norm(self.mlp_ln, x + dense(self.fc2, h, dtype), dtype)
+        x = layer_norm(self.attn_ln, x + self._dense("attn_out", ctx), dtype)
+        h = F.gelu(self._dense("fc1", x), approximate="none")
+        return layer_norm(self.mlp_ln, x + self._dense("fc2", h), dtype)
 
 
 class BertCore(nn.Module):

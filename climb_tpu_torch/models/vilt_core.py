@@ -56,7 +56,18 @@ generators only): ``remat_call`` puts the generator back to its state at the
 block's forward before the recompute and returns it to where it was after,
 so the recomputed masks are the forward's, as JAX's remat reuses its key.
 
-Not ported yet: int8 dense layers and the pipeline-parallel encoder.
+``dense_impl`` 'int8' or 'int8_static' routes the encoder's dense layers
+(q, k, v, the out-projection, fc1, fc2 and the patch projection) through
+``ops/quant.py`` in eval mode only, as JAX does in its deterministic
+forwards: with 'int8', LN1's output is quantized once for q, k and v (not
+with ``fuse_qkv``, whose fused product stays float, as in JAX); the FFN runs
+per op with the int8 products unless ``mlp_impl`` is 'pallas', when the FFN
+kernel keeps it in the compute dtype (JAX ``vilt_core.py:295-303``); the
+fused attention sublayer, the pooler and the heads stay float. Train mode
+always runs the float dense. The calibrated scales of 'int8_static' are
+buffers ``<name>_amax`` of each block and of the core (``ops/quant.py``).
+
+Not ported yet: the pipeline-parallel encoder.
 """
 
 import functools
@@ -70,7 +81,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from climb_tpu_torch.models import adapters
 from climb_tpu_torch.models.model_config import AdapterSpec, ViltConfig
-from climb_tpu_torch.ops import attention, block, mlp
+from climb_tpu_torch.ops import attention, block, mlp, quant
 from climb_tpu_torch.ops.patch_embed import patch_grid_mask, patchify
 
 
@@ -108,6 +119,22 @@ def interpolate_visual_pos_embed(grid: torch.Tensor, patch_hw: torch.Tensor, gri
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def int8_active(cfg, module: nn.Module) -> bool:
+    """True where ``dense_impl`` takes the int8 products: an int8 mode and the
+    module in eval mode (JAX's ``deterministic``)."""
+    return cfg.dense_impl in quant.INT8_IMPLS and not module.training
+
+
+def routed_dense(module: nn.Module, layer: nn.Linear, name: str, x: torch.Tensor,
+                 cfg) -> torch.Tensor:
+    """``dense``, or ``quant.module_int8_dense`` under ``int8_active`` (JAX's
+    ``ViltBlock._dense``); the scales are buffers of ``module``."""
+    if int8_active(cfg, module):
+        return quant.module_int8_dense(module, x, layer.weight, layer.bias, name,
+                                       cfg.dense_impl, cfg.compute_dtype)
+    return dense(layer, x, cfg.compute_dtype)
 
 
 def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -226,19 +253,25 @@ class ViltBlock(nn.Module):
             return self._mlp_sublayer(x, generator, active_adapter)
         heads = (b, s, cfg.num_heads, cfg.head_dim)
         h = layer_norm(self.ln1, x, dtype)
-        if cfg.fuse_qkv:
+        if cfg.dense_impl == "int8" and not cfg.fuse_qkv and int8_active(cfg, self):
+            # LN1's output quantized once for the three products
+            hq, hs = quant.quantize_per_row(h)
+            q, k, v = (lora(n, h, quant.int8_dense_prequant(hq, hs, layer.weight, layer.bias,
+                                                            dtype)).view(heads)
+                       for n, layer in (("q", self.q), ("k", self.k), ("v", self.v)))
+        elif cfg.fuse_qkv:
             # one (D, 3D) product of the concatenated q/k/v weights
             w = torch.cat([self.q.weight, self.k.weight, self.v.weight]).to(dtype)
             bias = torch.cat([self.q.bias, self.k.bias, self.v.bias]).to(dtype)
             qkv = F.linear(h, w, bias).view(b, s, 3, d)
             q, k, v = (lora(n, h, qkv[:, :, i]).view(heads) for i, n in enumerate("qkv"))
         else:
-            q = lora("q", h, dense(self.q, h, dtype)).view(heads)
-            k = lora("k", h, dense(self.k, h, dtype)).view(heads)
-            v = lora("v", h, dense(self.v, h, dtype)).view(heads)
+            q = lora("q", h, routed_dense(self, self.q, "q", h, cfg)).view(heads)
+            k = lora("k", h, routed_dense(self, self.k, "k", h, cfg)).view(heads)
+            v = lora("v", h, routed_dense(self, self.v, "v", h, cfg)).view(heads)
         ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
         ctx = ctx.reshape(b, s, d)
-        attn_out = lora("attn_out", ctx, dense(self.attn_out, ctx, dtype))
+        attn_out = lora("attn_out", ctx, routed_dense(self, self.attn_out, "attn_out", ctx, cfg))
         attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
         if spec is not None and spec.mh_adapter:
             attn_out = adapters.apply_task_adapter(self, attn_out, "attn", active_adapter,
@@ -254,10 +287,10 @@ class ViltBlock(nn.Module):
         lora = functools.partial(self._lora, active_adapter)
         h = layer_norm(self.ln2, x, dtype)
         mlp_in = h
-        if mlp_lora(spec):
-            h = lora("fc1", h, dense(self.fc1, h, dtype))
+        if mlp_lora(spec) or (int8_active(cfg, self) and cfg.mlp_impl != "pallas"):
+            h = lora("fc1", h, routed_dense(self, self.fc1, "fc1", h, cfg))
             h = F.gelu(h, approximate="none")  # HF 'gelu' is the exact erf GELU
-            h = lora("fc2", h, dense(self.fc2, h, dtype))
+            h = lora("fc2", h, routed_dense(self, self.fc2, "fc2", h, cfg))
         else:
             h = mlp.mlp(
                 h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),
@@ -332,8 +365,8 @@ class ViltCore(nn.Module):
         # visual embeddings on the fixed grid of this canvas
         grid_h = pixel_values.shape[1] // cfg.patch_size
         grid_w = pixel_values.shape[2] // cfg.patch_size
-        proj = dense(self.patch_projection, patchify(pixel_values.to(dtype), cfg.patch_size),
-                     dtype)
+        proj = routed_dense(self, self.patch_projection, "patch_projection",
+                            patchify(pixel_values.to(dtype), cfg.patch_size), cfg)
         vis_pos = self.visual_position_embeddings
         pos_grid = vis_pos[1:].reshape(cfg.pos_grid, cfg.pos_grid, -1)
         pos = interpolate_visual_pos_embed(pos_grid, patch_hw, grid_h, grid_w)

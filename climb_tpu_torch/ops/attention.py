@@ -4,8 +4,10 @@ Counterpart of ``climb_tpu/ops/attention.py`` (the XLA numerics, ``_mha_core``)
 and ``climb_tpu/ops/pallas_attention.py`` (the TPU kernels ``_fwd_kernel`` and
 ``_bwd_kernel`` under the custom VJP ``flash_attention``). Layouts are the JAX
 package's: q, k, v and the output are (B, S, H, D); the mask bias is
-(B, 1, 1, S) float32. ``FlashAttention`` is the autograd form: its forward
-launches ``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu`` for
+(B, 1, 1, S) float32. The forward is the dispatcher op
+``climb_tpu_torch::attention_fwd`` (``kernels.define_op``), so that
+``torch.export`` traces it. ``FlashAttention`` is the autograd form: its
+forward launches ``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu`` for
 CUDA tensors; for CPU tensors both run the plain versions. In bf16 both
 kernels run on the tensor cores, in f32 on the CUDA cores.
 """
@@ -14,7 +16,7 @@ import math
 
 import torch
 
-from climb_tpu_torch.kernels import LAUNCHES
+from climb_tpu_torch.kernels import LAUNCHES, define_op
 from climb_tpu_torch.kernels import build
 
 NEG_INF = -1e9  # large-negative mask bias; exp() underflows to exactly 0 in f32
@@ -143,15 +145,8 @@ def _check_kernel_args(what, q, k, v, bias, *more):
     return key_bias if key_bias.stride(1) == 1 else key_bias.contiguous()
 
 
-def attention_fwd(q, k, v, bias):
-    """Masked attention; ``csrc/attention.cu`` for CUDA tensors.
-
-    q, k, v: (B, S, H, 64) float32 or bfloat16, last axis contiguous (any
-    strides on B, S, H). bias: (B, 1, 1, S) float32. Returns (B, S, H, D)
-    contiguous in q's dtype.
-    """
-    if q.device.type == "cpu":
-        return mha_plain(q, k, v, bias)
+def _attention_fwd_cuda(q, k, v, bias):
+    """``csrc/attention.cu`` on CUDA tensors: checks, launch, count."""
     key_bias = _check_kernel_args("attention_fwd", q, k, v, bias)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -167,6 +162,24 @@ def attention_fwd(q, k, v, bias):
     )
     LAUNCHES["attention_fwd"] += 1
     return out
+
+
+attention_fwd_op = define_op(
+    "attention_fwd(Tensor q, Tensor k, Tensor v, Tensor bias) -> Tensor",
+    mha_plain, _attention_fwd_cuda, lambda q, k, v, bias: q.new_empty(q.shape))
+
+
+def attention_fwd(q, k, v, bias):
+    """Masked attention through the op ``climb_tpu_torch::attention_fwd``:
+    ``csrc/attention.cu`` for CUDA tensors, ``mha_plain`` for CPU tensors.
+
+    q, k, v: (B, S, H, 64) float32 or bfloat16, last axis contiguous (any
+    strides on B, S, H). bias: (B, 1, 1, S) float32. Returns (B, S, H, D)
+    contiguous in q's dtype.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention_fwd: unsupported device {q.device}")
+    return attention_fwd_op(q, k, v, bias)
 
 
 def attention_bwd(q, k, v, bias, do):

@@ -1,7 +1,8 @@
 """The fused pre-norm attention sublayer: ``x + Wo.MHA(LN1(x))``.
 
 Counterpart of ``climb_tpu/ops/pallas_block.py`` (the TPU kernel ``_kernel``
-under the custom VJP ``_fused``). ``fused_attention_sublayer`` launches
+under the custom VJP ``_fused``). ``fused_attention_sublayer`` calls the
+dispatcher op ``climb_tpu_torch::fused_attention_sublayer``, which launches
 ``csrc/block.cu`` for CUDA tensors and runs ``fused_attention_sublayer_plain``
 (``_ref_compose``, cast for cast) for CPU tensors. ``FusedAttentionSublayer``
 is the autograd form: the forward saves x, h = LN1(x), q, k, v and the
@@ -24,7 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from climb_tpu_torch.kernels import LAUNCHES
+from climb_tpu_torch.kernels import LAUNCHES, define_op
 from climb_tpu_torch.kernels import build
 from climb_tpu_torch.ops import attention
 from climb_tpu_torch.ops.mlp import check_gemm_operands
@@ -101,19 +102,16 @@ def fused_attention_sublayer_bwd_plain(x, h, q, k, v, ctx, ln_scale, wq, wk, wv,
             gsum(dv), dwo, gsum(g))
 
 
-def fused_attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias, *,
-                             num_heads, eps=1e-12):
-    """x: (B, S, D) float32 or bfloat16; wq, wk, wv, wo: (D, D) in x's dtype;
-    ln_scale, ln_bias, bq, bk, bv, bo: (D,) float32; mask_bias: (B, 1, 1, S)
-    float32. Returns (out, h, q, k, v, ctx), each (B, S, D) in x's dtype, with
-    out = x + the attention sublayer's output. ``csrc/block.cu`` (four
-    launches, counted as one) for CUDA tensors, the plain version for CPU
-    tensors."""
-    params = (ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
-    if x.device.type == "cpu":
-        return fused_attention_sublayer_plain(x, *params, mask_bias, num_heads=num_heads, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_sublayer: unsupported device {x.device}")
+def _sublayer_cpu(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias, num_heads,
+                  eps):
+    return fused_attention_sublayer_plain(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                                          mask_bias, num_heads=num_heads, eps=eps)
+
+
+def _sublayer_cuda(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias, num_heads,
+                   eps):
+    """``csrc/block.cu`` on CUDA tensors (four launches, counted as one):
+    checks, launch, count."""
     b, s, d = x.shape
     weights, rows_f32 = (wq, wk, wv, wo), (ln_scale, ln_bias, bq, bk, bv, bo)
     if d != num_heads * attention.KERNEL_HEAD_DIM:
@@ -151,6 +149,27 @@ def fused_attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, b
     )
     LAUNCHES["fused_block_fwd"] += 1
     return out, h, q, k, v, ctx
+
+
+fused_attention_sublayer_op = define_op(
+    "fused_attention_sublayer(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor wq, Tensor bq, "
+    "Tensor wk, Tensor bk, Tensor wv, Tensor bv, Tensor wo, Tensor bo, Tensor mask_bias, "
+    "int num_heads, float eps) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _sublayer_cpu, _sublayer_cuda, lambda x, *rest: tuple(x.new_empty(x.shape) for _ in range(6)))
+
+
+def fused_attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, mask_bias, *,
+                             num_heads, eps=1e-12):
+    """x: (B, S, D) float32 or bfloat16; wq, wk, wv, wo: (D, D) in x's dtype;
+    ln_scale, ln_bias, bq, bk, bv, bo: (D,) float32; mask_bias: (B, 1, 1, S)
+    float32. Returns (out, h, q, k, v, ctx), each (B, S, D) in x's dtype, with
+    out = x + the attention sublayer's output, through the op
+    ``climb_tpu_torch::fused_attention_sublayer``: ``csrc/block.cu`` for CUDA
+    tensors, the plain version for CPU tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_attention_sublayer: unsupported device {x.device}")
+    return fused_attention_sublayer_op(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                                       mask_bias, num_heads, float(eps))
 
 
 class FusedAttentionSublayer(torch.autograd.Function):

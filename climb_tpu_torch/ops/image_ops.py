@@ -2,20 +2,20 @@
 
 Counterpart of ``climb_tpu/ops/image_ops.py`` (the plain expression) and
 ``climb_tpu/ops/pallas_image.py`` (the TPU kernel). ``normalize_images``
-launches ``csrc/normalize.cu`` for a CUDA tensor and runs the plain version
-for a CPU tensor; both equal the JAX package's ``normalize_images`` bit for
+calls the dispatcher op ``climb_tpu_torch::normalize_u8``, which launches
+``csrc/normalize.cu`` for a CUDA tensor and runs the plain version for a CPU
+tensor; both equal the JAX package's ``normalize_images`` bit for
 bit in float32 and bfloat16.
 """
 
 import torch
 
-from climb_tpu_torch.kernels import LAUNCHES
+from climb_tpu_torch.kernels import LAUNCHES, define_op
 from climb_tpu_torch.kernels import build
 
 # ViltImageProcessor defaults: image_mean = image_std = [0.5, 0.5, 0.5].
 VILT_MEAN = 0.5
 VILT_STD = 0.5
-
 
 
 def normalize_images_plain(pixels_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -30,12 +30,8 @@ def normalize_images_plain(pixels_u8: torch.Tensor, dtype=torch.float32) -> torc
     return (x - VILT_MEAN) / VILT_STD
 
 
-def normalize_images(pixels_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """Any-shape uint8 canvas -> ``dtype``; the CUDA kernel for a CUDA tensor."""
-    if pixels_u8.device.type == "cpu":
-        return normalize_images_plain(pixels_u8, dtype)
-    if pixels_u8.device.type != "cuda":
-        raise ValueError(f"normalize_images: unsupported device {pixels_u8.device}")
+def _normalize_cuda(pixels_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``csrc/normalize.cu`` on a CUDA tensor: checks, launch, count."""
     if pixels_u8.dtype != torch.uint8:
         raise TypeError(f"normalize_images: expected uint8, got {pixels_u8.dtype}")
     if dtype not in build.DTYPES:
@@ -53,3 +49,17 @@ def normalize_images(pixels_u8: torch.Tensor, dtype=torch.float32) -> torch.Tens
     )
     LAUNCHES["normalize_u8"] += 1
     return out
+
+
+normalize_u8 = define_op(
+    "normalize_u8(Tensor pixels, ScalarType dtype) -> Tensor",
+    normalize_images_plain, _normalize_cuda,
+    lambda pixels, dtype: pixels.new_empty(pixels.shape, dtype=dtype))
+
+
+def normalize_images(pixels_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Any-shape uint8 canvas -> ``dtype`` through the op ``normalize_u8``: the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if pixels_u8.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"normalize_images: unsupported device {pixels_u8.device}")
+    return normalize_u8(pixels_u8, dtype)

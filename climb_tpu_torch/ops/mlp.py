@@ -1,9 +1,10 @@
 """Transformer FFN (Dense -> bias -> exact GELU -> Dense -> bias).
 
 Counterpart of ``climb_tpu/ops/pallas_mlp.py``. Weights are in
-``torch.nn.Linear``'s (out, in) layout. ``fused_mlp`` launches
-``csrc/mlp.cu`` (two GEMM launches with fused epilogues) for CUDA tensors
-and runs the plain version for CPU tensors. ``FusedMLP`` is the autograd form
+``torch.nn.Linear``'s (out, in) layout. ``fused_mlp`` calls the dispatcher
+op ``climb_tpu_torch::fused_mlp``, which launches ``csrc/mlp.cu`` (two GEMM
+launches with fused epilogues) for CUDA tensors and runs the plain version
+for CPU tensors. ``FusedMLP`` is the autograd form
 (``_fused_mlp_vjp``): the kernel forward, and ``_fused_mlp_bwd``'s math as the
 backward, which recomputes the (rows, F) intermediate instead of storing it.
 That backward is XLA in the JAX package, not a Pallas kernel, so its four
@@ -13,7 +14,7 @@ products stay PyTorch matmuls (cuBLAS on the card).
 import torch
 import torch.nn.functional as F
 
-from climb_tpu_torch.kernels import LAUNCHES
+from climb_tpu_torch.kernels import LAUNCHES, define_op
 from climb_tpu_torch.kernels import build
 
 # Both values compute the same function; on the card each runs the kernel.
@@ -89,12 +90,8 @@ def _linear(lib, x2, w, b, out, gelu: bool):
     )
 
 
-def fused_mlp(x, w1, b1, w2, b2):
-    """x: (..., D); w1: (F, D); b1: (F,); w2: (D, F); b2: (D,). Returns (..., D)."""
-    if x.device.type == "cpu":
-        return fused_mlp_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+def _fused_mlp_cuda(x, w1, b1, w2, b2):
+    """``csrc/mlp.cu`` on CUDA tensors: checks, the two GEMM launches, count."""
     d = x.shape[-1]
     f = w1.shape[0]
     if w1.shape != (f, d) or b1.shape != (f,) or w2.shape != (d, f) or b2.shape != (d,):
@@ -114,10 +111,24 @@ def fused_mlp(x, w1, b1, w2, b2):
     lib = build.load_library()
     h = torch.empty((rows, f), dtype=x.dtype, device=x.device)
     _linear(lib, x2, w1, b1, h, gelu=True)
-    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
-    _linear(lib, h, w2, b2, out, gelu=False)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _linear(lib, h, w2, b2, out.view(rows, d), gelu=False)
     LAUNCHES["mlp_fwd"] += 1
-    return out.reshape(x.shape)
+    return out
+
+
+fused_mlp_op = define_op(
+    "fused_mlp(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    fused_mlp_plain, _fused_mlp_cuda, lambda x, w1, b1, w2, b2: x.new_empty(x.shape))
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+    """x: (..., D); w1: (F, D); b1: (F,); w2: (D, F); b2: (D,). Returns (..., D),
+    through the op ``climb_tpu_torch::fused_mlp``: ``csrc/mlp.cu`` for CUDA
+    tensors, ``fused_mlp_plain`` for CPU tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    return fused_mlp_op(x, w1, b1, w2, b2)
 
 
 class FusedMLP(torch.autograd.Function):

@@ -56,6 +56,7 @@ def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
         remat=getattr(args, "remat", False),
         remat_policy=getattr(args, "remat_policy", "full"),
         fuse_qkv=getattr(args, "fuse_qkv", False),
+        dense_impl=getattr(args, "dense_impl", "xla"),
     )
     if getattr(args, "tiny", False):
         kw.update(

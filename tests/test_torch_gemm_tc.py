@@ -102,7 +102,6 @@ def test_gemm_operands_reject_misaligned_or_strided_tensors():
 
 
 def test_chip_ab_reads_the_serving_eval_step():
-    paths = {"phase": "paths", "attn_impl": "fused_block",
-             "float32": {"batch_ms_kernel_path": 90.0},
-             "bfloat16": {"batch_ms_kernel_path": 14.5, "batch_ms_plain_path": 120.0}}
-    assert chip_ab.step_numbers(paths) == {"eval_step fused_block": (14.5, None, None)}
+    steps = {"phase": "eval_steps", "attn_impl": "fused_block", "batch": 64,
+             "step_ms_events_median": 14.5, "step_ms_events": [14.1, 14.5, 30.2]}
+    assert chip_ab.step_numbers(steps) == {"eval_step fused_block": (14.5, None, None)}

@@ -368,7 +368,7 @@ def test_language_driver_matches_jax(run, tmp_path, monkeypatch):
     (["--pretrained_model_name", "dandelin/vilt-b32-mlm"], "not ported"),
     (["--scan_unroll", "2"], "not ported"),  # the training knobs run: later slices raise
     (["--use_mesh"], "not ported"),
-    (["--dense_impl", "int8"], "not ported"),
+    (["--n_model", "2"], "not ported"),  # --dense_impl int8 runs (test_torch_serve_quant.py)
 ])
 def test_unported_language_flags_raise(flags, match, tmp_path):
     argv = _argv(tmp_path, "sst2") + ["--device", "cpu"]

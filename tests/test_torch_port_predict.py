@@ -75,10 +75,6 @@ def test_predict_matches_jax_cli(task, checkpoint, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--input_jsonl", "rows.jsonl"],
-    ["--export_model", "model.bin"],
-    ["--from_export", "model.bin"],
-    ["--dense_impl", "int8"],
     ["--scan_unroll", "2"],  # xla_ckpt, remat and the buckets are ported
     ["--fsdp"],  # --cl_algorithm adapter is ported (tests/test_torch_cl_drivers_adapter.py)
     ["--use_mesh"],
@@ -118,7 +114,12 @@ IMPORT_CHECKED = ["climb_tpu_torch.cli.predict",
                   "climb_tpu_torch.train.model_factory",
                   "climb_tpu_torch.train.accum_tune",
                   "climb_tpu_torch.utils.preemption",
-                  "climb_tpu_torch.ckpt.checkpoint"]
+                  "climb_tpu_torch.ckpt.checkpoint",
+                  "climb_tpu_torch.data.processor",
+                  "climb_tpu_torch.ops.quant",
+                  "climb_tpu_torch.serve.export",
+                  "climb_tpu_torch.serve.server",
+                  "climb_tpu_torch.cli.serve"]
 # nor transformers, msgpack or ml_dtypes: the card's machine has none of them
 # (the port reads flax's msgpack checkpoints with its own decoder)
 FORBIDDEN = JAX_MODULES + ("transformers", "msgpack", "ml_dtypes")
@@ -173,7 +174,9 @@ def test_port_sources_import_no_jax_package():
             "climb_tpu_torch/data/language/text_dataset.py", "climb_tpu_torch/models/bert.py",
             "climb_tpu_torch/models/viltbert.py", "climb_tpu_torch/models/hf_import.py",
             "climb_tpu_torch/train/accum_tune.py", "climb_tpu_torch/utils/preemption.py",
-            "climb_tpu_torch/ckpt/checkpoint.py"} <= scanned
+            "climb_tpu_torch/ckpt/checkpoint.py", "climb_tpu_torch/data/processor.py",
+            "climb_tpu_torch/ops/quant.py", "climb_tpu_torch/serve/export.py",
+            "climb_tpu_torch/serve/server.py", "climb_tpu_torch/cli/serve.py"} <= scanned
     bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
            if root in FORBIDDEN}
     assert not bad

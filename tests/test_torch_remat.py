@@ -141,21 +141,28 @@ def test_remat_matches_jax_value_and_grad(policy, impl, start):
         np.testing.assert_allclose(g.numpy(), ref[n].numpy(), atol=ATOL, rtol=RTOL, err_msg=n)
 
 
+# the kernels' dispatcher ops hold their dense products: under a dispatch mode
+# an op's plain version runs as one call, so its products count here
+_OP_PRODUCTS = {torch.ops.climb_tpu_torch.fused_mlp.default: 2,
+                torch.ops.climb_tpu_torch.fused_attention_sublayer.default: 4}
+
+
 class _CountDots(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.n = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+        self.n += _OP_PRODUCTS.get(
+            func, func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
         return func(*args, **(kwargs or {}))
 
 
 # per layer: the kernels' forwards in one train step (the backward's recompute
-# included), and the dense products (aten mm/addmm) that the backward runs
-# beyond the no-remat backward's. On the CPU the kernels' plain versions run
-# their products through aten: the FFN's two, the fused sublayer's q, k, v and
-# out-projection; 'dots' runs as 'full' on the port.
+# included), and the dense products (aten mm/addmm, and those inside the
+# kernels' ops: the FFN's two, the fused sublayer's q, k, v and
+# out-projection) that the backward runs beyond the no-remat backward's;
+# 'dots' runs as 'full' on the port.
 RECOMPUTE = {
     # (impl, policy): (attention forwards, FFN forwards, fused sublayers, extra products)
     ("pallas", None): (1, 1, 0, 0),

@@ -188,7 +188,7 @@ def test_device_cuda_without_card_raises(tmp_path, monkeypatch):
     ["--scan_unroll", "2"],
     ["--use_mesh"],
     ["--async_checkpoint"],
-    ["--dense_impl", "int8"],
+    ["--pp_stages", "2"],  # --dense_impl int8 runs (tests/test_torch_serve_quant.py)
     ["--do_wandb_logging"],
     ["--sharded_checkpoints"],
     ["--fsdp"],
