@@ -28,7 +28,11 @@ Phases, each printing one JSON line as soon as it ends:
               GEMM's column tail (N % 128 != 0): the FFN at D 64 / F 128 and
               D 192 / F 768 and the fused sublayer at D 192, 3 heads. Each row
               carries previous_ms, the kernel's time before its last
-              redesign at its shape.
+              redesign at its shape. Then tensor parallelism's local shapes
+              at n = 2 and 4 model ranks: the attention forward and backward
+              at (32, 281, 12/n, 64), the FFN at F 3072/n on 8,992 and 17,984
+              rows, and the fused sublayer at 6 of 12 heads as the first rank
+              runs it (residual and bias) and as another rank does (neither).
   4. predict: ``climb_tpu_torch.cli.predict.main`` at full ViLT-B/32 width on
               a synthetic snli-ve split through the prefetching loader, with
               the launch counts, step times and host split of that run;
@@ -40,6 +44,24 @@ Phases, each printing one JSON line as soon as it ends:
               bf16, one epoch each, with train and eval: the exact launch
               counts of that run, results.json and eval_results.json, and
               the steady-state step time and examples/sec.
+     scaleout: (a) the probe: cards, NCCL's version, whether NCCL takes two
+              ranks on one card, which collectives a two-rank gloo group
+              takes for CUDA tensors (DP and TP need all_reduce and
+              broadcast; the phase fails without them). (b) one NCCL rank
+              launched as torchrun launches it: the Phase I driver as phase
+              train with --use_mesh --fsdp --sharded_checkpoints
+              --async_checkpoint --save_state_epochs 1, then again with
+              --n_model 1 --pp_stages 1: launch counts equal phase train's,
+              results equal, the sharded task checkpoint read back bit-equal
+              to phase train's, predict --use_mesh on it equal to predict,
+              ring and Ulysses attention at (16, 1057, 12, 64) against the
+              single-device attention. (c) two ranks sharing the card
+              through gloo: three bf16 and three f32 train steps of one
+              snli-ve batch of 32 under DP 2 and TP 2 (and TP 2 with
+              fused_block in bf16) against one rank's, each rank's launches
+              exact at its local shapes. (d) with more cards, (c) over NCCL;
+              with one, a line saying why not. The ranks are this script
+              run as ``--child JOB RANK WORLD DIR``.
      train_fused: singletask_ft snli-ve with ``--attn_impl fused_block``.
   6. train_paths: three f32 train steps of one snli-ve batch through the
               kernel path and the plain path (losses and every parameter's
@@ -1076,8 +1098,11 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def run_train(torch, fused=False):
-    """The Phase I driver at full width, every train step timed."""
+def run_train(torch, fused=False, keep_dir=None):
+    """The Phase I driver at full width, every train step timed; with
+    ``keep_dir`` its results, eval results (``train_results.json``) and
+    last task checkpoint (``train_task1_model``) are kept there, for phase
+    scaleout's runs to equal."""
     from climb_tpu_torch.cli import train_upstream_continual_learning as driver
     from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from climb_tpu_torch.train import trainers
@@ -1101,6 +1126,13 @@ def run_train(torch, fused=False):
             results = json.load(f)
         with open(os.path.join(exp, "eval_results.json")) as f:
             eval_results = json.load(f)
+        if keep_dir is not None:
+            import shutil
+
+            shutil.copy(os.path.join(exp, "checkpoints", "task1_nlvr2", "model"),
+                        os.path.join(keep_dir, "train_task1_model"))
+            with open(os.path.join(keep_dir, "train_results.json"), "w") as f:
+                json.dump({"results": results, "eval_results": eval_results}, f)
     # per task: train steps, eval batches (one epoch's eval; snli-ve's again
     # for the forgetting eval after nlvr2)
     n_steps = {"snli-ve": math.ceil(size / TRAIN_BATCH),
@@ -3754,6 +3786,692 @@ def run_knobs(torch, root, work, unbucketed):
     return launches
 
 
+# -- scale-out -------------------------------------------------------------------
+
+# tensor parallelism's local shapes: n model ranks hold H/n heads and F/n FFN columns
+TP_WIDTHS = (2, 4)
+SCALEOUT_STEPS = 3  # train steps of one snli-ve batch per layout in phase scaleout (c)
+# (name, data ranks, model ranks, --attn_impl, --fsdp, dtypes) of the two ranks
+# sharing the card
+SCALEOUT_LAYOUTS = (("dp2", 2, 1, "pallas", False, ("bfloat16", "float32")),
+                    ("tp2", 1, 2, "pallas", False, ("bfloat16", "float32")),
+                    ("tp2_fused", 1, 2, "fused_block", False, ("bfloat16", "float32")),
+                    ("fsdp2", 2, 1, "pallas", True, ("float32",)))
+SCALEOUT_TIMEOUT = 240  # seconds a group of child ranks may take before it is killed
+TRAIN_EXP = "vilt-sequential_ft-task0_snli-ve-task1_nlvr2"
+# two ranks against one rank over three train steps of one batch
+SCALEOUT_LOSS_TOL = {
+    "float32": (1e-5, 1e-4, "f32 sums in another order: the loss over the ranks' rows, the "
+                            "partial outputs of the ranks' heads and FFN columns"),
+    "bfloat16": (2e-2, 2e-2, "bf16: under TP each rank's partial output is rounded to bf16 "
+                             "before the f32 sum (n + 1 roundings where one rank rounds once), "
+                             "under DP the rows' batch statistics are the same but the GEMM "
+                             "tiles see another row count"),
+}
+# every parameter's distance from the single rank's after the steps, in units of
+# the task's lr (AdamW moves an element by about lr a step whatever its gradient's size)
+SCALEOUT_PARAM_STEPS = {
+    "float32": (0.5, "f32 gradients that agree to rounding: an element whose gradient is near "
+                     "its rounding noise moves by a fraction of a step more or less, AdamW "
+                     "dividing by sqrt(v) + eps. The same single rank with its batch in two "
+                     "accumulated halves (the rounding spread, reported beside) shows the "
+                     "size of that; the key biases (SCALEOUT_NOISE_DOMINATED) are held to "
+                     "the sound bound, two trajectories each moving at most 1.5 lr a step"),
+    "bfloat16": (None, "bf16 gradients differ by roundings that AdamW's normalization "
+                       "magnifies where a gradient is small: held to the sound bound, "
+                       "two trajectories each moving at most 1.5 lr a step, which only "
+                       "catches a diverged run; the f32 rows of every layout are the check"),
+}
+# parameters whose exact gradient is 0 (the softmax cancels a shift shared by all
+# keys), so AdamW moves them on rounding noise alone
+SCALEOUT_NOISE_DOMINATED = SHIFT_INVARIANT
+SP_TOLERANCES = {  # ring / Ulysses at world 1 against the single-device attention
+    "float32": ("attention_fwd", "against the f32 kernel (attention_fwd)"),
+    "bfloat16": ("attention_fwd", "against mha_plain: both round the scores to bf16; the "
+                                  "ring rounds the unnormalized P, its row sum and output"),
+}
+
+
+def check_tp_kernels(torch, results):
+    """The kernels at tensor parallelism's local shapes, against their plain
+    versions in f32 and bf16 at the kernels' tolerances: the attention forward
+    and backward at (32, 281, H/n, 64), the FFN at F/n columns on the train
+    (8,992) and serving (17,984) row counts, and the fused sublayer at 6 heads
+    of a 768-wide layer, as the first rank runs it (residual and bias) and as
+    another rank does (neither)."""
+    from climb_tpu_torch.kernels import LAUNCHES
+    from climb_tpu_torch.ops import attention, block, mlp
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    for n in TP_WIDTHS:
+        heads = HEADS // n
+        _, _, _, bias = attention_inputs(torch, g, TRAIN_BATCH, dev)
+        shape = (TRAIN_BATCH, SEQ, heads, HEAD_DIM)
+        q32, k32, v32, do32 = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+        f = FFN // n
+        x32 = torch.randn((BATCH * SEQ, HIDDEN), generator=g, device=dev)
+        w1_32 = torch.randn((f, HIDDEN), generator=g, device=dev) / math.sqrt(HIDDEN)
+        b1_32 = torch.randn((f,), generator=g, device=dev) * 0.02
+        w2_32 = torch.randn((HIDDEN, f), generator=g, device=dev) / math.sqrt(f)
+        b2_32 = torch.randn((HIDDEN,), generator=g, device=dev) * 0.02
+        pairs = TRAIN_BATCH * heads * SEQ * SEQ * HEAD_DIM
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            el = torch.tensor([], dtype=dtype).element_size()
+            peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+            q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+            at = f"tensor parallel n={n}"
+            with torch.no_grad():
+                before = LAUNCHES["attention_fwd"]
+                out = attention.attention_fwd(q, k, v, bias)
+                torch.cuda.synchronize()
+                err, tol = compare(torch, "attention_fwd", dn, out,
+                                   attention.mha_plain(q, k, v, bias))
+                del out
+                row = {"phase": "kernel", "name": "attention_fwd", "dtype": dn, "at": at,
+                       "shape": f"q/k/v {shape} {dn}", "max_abs_err": err, "tolerance": tol,
+                       "kernel_ms": time_ms(torch, lambda: attention.attention_fwd(
+                           q, k, v, bias), iters=10),
+                       "plain_ms": time_ms(torch, lambda: attention.mha_plain(q, k, v, bias),
+                                           iters=3, warmup=1),
+                       "launches": LAUNCHES["attention_fwd"] - before}
+                row["bound_ms"], row["bound_by"] = bound(
+                    4 * q.numel() * el + TRAIN_BATCH * SEQ * 4, 4 * pairs, peak)
+                emit(row)
+                results[("attention_fwd", dn, at)] = row
+                before = LAUNCHES["attention_bwd"]
+                grads = attention.attention_bwd(q, k, v, bias, do)
+                torch.cuda.synchronize()
+                errs = [compare(torch, "attention_bwd", dn, o, r) for o, r in
+                        zip(grads, attention.attention_bwd_plain(q, k, v, bias, do))]
+                del grads
+                row = {"phase": "kernel", "name": "attention_bwd", "dtype": dn, "at": at,
+                       "shape": f"q/k/v/dO {shape} {dn}", "max_abs_err": max(e for e, _ in errs),
+                       "tolerance": errs[0][1],
+                       "kernel_ms": time_ms(torch, lambda: attention.attention_bwd(
+                           q, k, v, bias, do), iters=10),
+                       "plain_ms": time_ms(torch, lambda: attention.attention_bwd_plain(
+                           q, k, v, bias, do), iters=3, warmup=1),
+                       "launches": LAUNCHES["attention_bwd"] - before}
+                row["bound_ms"], row["bound_by"] = bound(
+                    7 * q.numel() * el + TRAIN_BATCH * SEQ * 4, 10 * pairs, peak)
+                emit(row)
+                results[("attention_bwd", dn, at)] = row
+                w1, b1, w2, b2 = (t.to(dtype) for t in (w1_32, b1_32, w2_32, b2_32))
+                for rows in (TRAIN_BATCH * SEQ, BATCH * SEQ):
+                    xr = x32[:rows].to(dtype)
+                    before = LAUNCHES["mlp_fwd"]
+                    out = mlp.fused_mlp(xr, w1, b1, w2, b2)
+                    torch.cuda.synchronize()
+                    err, tol = compare(torch, "mlp_fwd", dn, out,
+                                       mlp.fused_mlp_plain(xr, w1, b1, w2, b2))
+                    del out
+                    row = {"phase": "kernel", "name": "mlp_fwd", "dtype": dn, "at": at,
+                           "shape": f"x ({rows},{HIDDEN}) {dn}, {HIDDEN} -> {f} -> {HIDDEN}",
+                           "max_abs_err": err, "tolerance": tol,
+                           "kernel_ms": time_ms(torch, lambda: mlp.fused_mlp(
+                               xr, w1, b1, w2, b2), iters=10),
+                           "plain_ms": time_ms(torch, lambda: mlp.fused_mlp_plain(
+                               xr, w1, b1, w2, b2), iters=3, warmup=1),
+                           "launches": LAUNCHES["mlp_fwd"] - before}
+                    row["bound_ms"], row["bound_by"] = bound(
+                        (2 * rows * HIDDEN + 2 * HIDDEN * f + f + HIDDEN) * el,
+                        4 * rows * HIDDEN * f, peak)
+                    emit(row)
+                    results[("mlp_fwd", dn, at, rows)] = row
+            del q, k, v, do
+        torch.cuda.synchronize()
+    check_tp_fused_block(torch, results)
+
+
+def check_tp_fused_block(torch, results):
+    """csrc/block.cu at one of two model ranks' shapes: x (64, 281, 768), the
+    rank's 6 heads (q, k, v, ctx 384 wide, wq/wk/wv (384, 768), wo (768,
+    384)); the first rank adds the residual and bo, another rank neither."""
+    from climb_tpu_torch.kernels import LAUNCHES
+    from climb_tpu_torch.ops import block
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    heads = HEADS // 2
+    e = heads * HEAD_DIM
+    _, _, _, bias = attention_inputs(torch, g, BATCH, dev)
+    x32 = torch.randn((BATCH, SEQ, HIDDEN), generator=g, device=dev)
+    wqkv = [torch.randn((e, HIDDEN), generator=g, device=dev) / math.sqrt(HIDDEN)
+            for _ in range(3)]
+    wo32 = torch.randn((HIDDEN, e), generator=g, device=dev) / math.sqrt(e)
+    bqkv = [torch.randn((e,), generator=g, device=dev) * 0.02 for _ in range(3)]
+    bo = torch.randn((HIDDEN,), generator=g, device=dev) * 0.02
+    lns = 1.0 + 0.1 * torch.randn((HIDDEN,), generator=g, device=dev)
+    lnb = 0.1 * torch.randn((HIDDEN,), generator=g, device=dev)
+    n_rows = BATCH * SEQ
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        el = torch.tensor([], dtype=dtype).element_size()
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        x = x32.to(dtype)
+        wq, wk, wv = (w.to(dtype) for w in wqkv)
+        wo = wo32.to(dtype)
+        for first in (True, False):
+            b_out = bo if first else torch.zeros_like(bo)
+            args = (x, lns, lnb, wq, bqkv[0], wk, bqkv[1], wv, bqkv[2], wo, b_out, bias)
+            kw = dict(num_heads=heads, residual=first)
+            with torch.no_grad():
+                before = LAUNCHES["fused_block_fwd"]
+                out = block.fused_attention_sublayer(*args, **kw)
+                torch.cuda.synchronize()
+                ref = block.fused_attention_sublayer_plain(*args, **kw)
+                errs = [compare(torch, "fused_block_fwd", dn, o, r) for o, r in zip(out, ref)]
+                del out, ref
+                row = {"phase": "kernel", "name": "fused_block_fwd", "dtype": dn,
+                       "at": "tensor parallel n=2, " + ("first rank: residual and bo" if first
+                                                        else "other rank: no residual, no bo"),
+                       "shape": f"x ({BATCH},{SEQ},{HIDDEN}) {dn}, {heads} heads ({e} wide)",
+                       "max_abs_err": max(err for err, _ in errs), "tolerance": errs[0][1],
+                       "kernel_ms": time_ms(torch, lambda: block.fused_attention_sublayer(
+                           *args, **kw), iters=10),
+                       "plain_ms": time_ms(torch, lambda: block.fused_attention_sublayer_plain(
+                           *args, **kw), iters=3, warmup=1),
+                       "launches": LAUNCHES["fused_block_fwd"] - before}
+                row["bound_ms"], row["bound_by"] = bound(
+                    (2 * n_rows * HIDDEN + 4 * n_rows * e + 4 * HIDDEN * e) * el
+                    + (3 * e + 3 * HIDDEN) * 4 + n_rows * 4,
+                    8 * n_rows * HIDDEN * e + 4 * BATCH * heads * SEQ * SEQ * HEAD_DIM, peak)
+                emit(row)
+                results[("fused_block_fwd", dn, row["at"])] = row
+        del x, wq, wk, wv, wo
+    torch.cuda.synchronize()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(job, world, work, spec, timeout=SCALEOUT_TIMEOUT, torchrun=False):
+    """``world`` copies of this script as ``--child`` ranks of ``job`` with
+    ``spec`` (JSON); returns (return codes, each rank's result or None, the
+    last lines of each rank's log, seconds). A group that runs past
+    ``timeout`` is killed. ``torchrun`` sets the environment torchrun gives a
+    rank (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR/PORT);
+    otherwise the ranks meet through a file under ``work``."""
+    d = os.path.join(work, job)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ)
+        if torchrun:
+            env.update(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port))
+        logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", job, str(r), str(world), d],
+            env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() - t0 < timeout:
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    out, tails = [], []
+    for r in range(world):
+        path = os.path.join(d, f"result{r}.json")
+        out.append(json.load(open(path)) if os.path.exists(path) else None)
+        with open(os.path.join(d, f"rank{r}.log")) as f:
+            tails.append(f.read()[-2000:])
+    return [p.returncode for p in procs], out, tails, seconds
+
+
+def child_main(job, rank, world, d) -> int:
+    """A rank of phase scaleout's child groups: joins its group, runs ``job``
+    and writes ``result{rank}.json``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "spec.json")) as f:
+        spec = json.load(f)
+    result = globals()[f"child_{job}"](torch, rank, world, d, spec)
+    with open(os.path.join(d, f"result{rank}.json.tmp"), "w") as f:
+        json.dump(result, f)
+    os.replace(os.path.join(d, f"result{rank}.json.tmp"), os.path.join(d, f"result{rank}.json"))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _file_group(torch, backend, rank, world, d):
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method="file://" + os.path.join(d, "rendezvous"),
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    return dist
+
+
+def child_nccl_dup(torch, rank, world, d, spec):
+    """Two NCCL ranks on one card: does NCCL take them?"""
+    try:
+        dist = _file_group(torch, "nccl", rank, world, d)
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        return {"ran": True, "sum": t.tolist()}
+    except Exception as e:  # the answer is the refusal
+        return {"ran": False, "error": f"{type(e).__name__}: {str(e)[:300]}"}
+
+
+GLOO_CUDA_PROBES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all_single", "batch_isend_irecv")
+
+
+def child_gloo_probe(torch, rank, world, d, spec):
+    """Which collectives a gloo group takes for CUDA tensors: each is tried
+    in turn and its outcome written at once (a hang leaves the earlier ones)."""
+    dist = _file_group(torch, "gloo", rank, world, d)
+    out = {}
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "broadcast": lambda: dist.broadcast(t.clone(), src=0),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            t.new_empty(4 * world), t),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            t.new_empty(4 // world), t.clone()),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(t), t),
+        "batch_isend_irecv": lambda: [r.wait() for r in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, (rank + 1) % world),
+            dist.P2POp(dist.irecv, torch.empty_like(t), (rank - 1) % world)])],
+    }
+    for name in GLOO_CUDA_PROBES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+        with open(os.path.join(d, f"progress{rank}.json"), "w") as f:
+            json.dump(out, f)
+        try:
+            dist.barrier()
+        except Exception as e:  # the other rank died of the last probe
+            out["barrier_after_" + name] = f"{type(e).__name__}: {str(e)[:160]}"
+            break
+    return out
+
+
+def child_world1(torch, rank, world, d, spec):
+    """One NCCL rank launched as torchrun launches it: the Phase I driver on
+    the mesh paths (twice), predict --use_mesh against predict on the sharded
+    checkpoint, and ring and Ulysses attention at the language shape."""
+    import torch.distributed as dist
+
+    from climb_tpu_torch.ckpt.checkpoint import load_model_file
+    from climb_tpu_torch.cli import predict
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.ops import attention, sp_attention
+
+    out = {"runs": {}}
+    for name, extra in spec["runs"].items():
+        run_dir = os.path.join(d, name)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        driver.main(train_argv(run_dir) + extra)
+        torch.cuda.synchronize()
+        exp = os.path.join(run_dir, TRAIN_EXP)
+        with open(os.path.join(exp, "results.json")) as f:
+            results = json.load(f)
+        with open(os.path.join(exp, "eval_results.json")) as f:
+            eval_results = json.load(f)
+        out["runs"][name] = {"seconds": time.perf_counter() - t0, "launches": dict(LAUNCHES),
+                             "results": results, "eval_results": eval_results}
+    out["backend"] = dist.get_backend()
+    ckpt = os.path.join(d, "mesh", TRAIN_EXP, "checkpoints", "task1_nlvr2", "model")
+    sharded, ref = load_model_file(ckpt), load_model_file(spec["reference_checkpoint"])
+    out["sharded_files"] = sorted(os.listdir(ckpt))
+    out["sharded_bit_equal"] = set(sharded) == set(ref) and all(
+        torch.equal(sharded[k], ref[k]) for k in ref)
+    out["sharded_max_abs_diff"] = max(float((sharded[k] - ref[k]).abs().max())
+                                      for k in ref if k in sharded)
+    preds = {}
+    for name, extra in (("plain", []), ("use_mesh", ["--use_mesh"])):
+        pdir = os.path.join(d, f"predict_{name}")
+        argv = predict_argv(pdir, "bfloat16")
+        argv[argv.index("--ordered_cl_tasks") + 1] = "snli-ve,nlvr2"
+        argv[argv.index("--synthetic_train_size") + 1] = str(TRAIN_SIZE)
+        reset_launch_counts()
+        res = predict.main(argv + ["--checkpoint", ckpt] + extra)
+        preds[name] = {"launches": dict(LAUNCHES),
+                       **{k: v for k, v in res.items() if k != "examples_per_sec"}}
+    out["predict_equal"] = preds["plain"] == preds["use_mesh"]
+    out["predict"] = {k: {"launches": v["launches"], "metric": v["metric"],
+                          "n_examples": v["n_examples"]} for k, v in preds.items()}
+    # ring and Ulysses attention over the world of one, at the language shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (LONG_BATCH, LONG_SEQ, HEADS, HEAD_DIM)
+    q32, k32, v32 = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+    text_len = torch.randint(4, LONG_TEXT + 1, (LONG_BATCH, 1), generator=g, device="cuda")
+    mask = (torch.arange(LONG_SEQ, device="cuda")[None] < text_len).float()
+    mask[:, LONG_TEXT:] = 1.0
+    bias = attention.mask_to_bias(mask)
+    out["sp_attention"] = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            ref = (attention.attention_fwd(q, k, v, bias) if dtype == torch.float32
+                   else attention.mha_plain(q, k, v, bias))
+            for impl in ("ring", "ulysses"):
+                got = sp_attention.sequence_parallel_attention(q, k, v, mask, dist.group.WORLD,
+                                                               impl)
+                torch.cuda.synchronize()
+                err, tol = compare(torch, SP_TOLERANCES[dn][0], dn, got, ref)
+                out["sp_attention"][f"{impl}_{dn}"] = {
+                    "max_abs_err": err, "tolerance": dict(tol, against=SP_TOLERANCES[dn][1]),
+                    "ms": time_ms(torch, lambda: sp_attention.sequence_parallel_attention(
+                        q, k, v, mask, dist.group.WORLD, impl), iters=3, warmup=1)}
+    return out
+
+
+def _layout_model(torch, layout, dtype, mesh):
+    """The full-width learner of phase train_paths (snli-ve, seed 0) on
+    ``mesh``, and the trainer and one batch of 32 on the card."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.train.model_factory import create_cl_model
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = train_argv(out_dir)
+        argv[argv.index("--ordered_cl_tasks") + 1] = "snli-ve"
+        argv[argv.index("bfloat16")] = dtype
+        argv[argv.index("--attn_impl") + 1] = layout[3]
+        argv += ["--n_model", str(layout[2])] + (["--fsdp"] if layout[4] else [])
+        args = driver.build_parser().parse_args(argv)
+        args.ordered_cl_tasks = ["snli-ve"]
+        model = create_cl_model(args, task_configs, dev, mesh=mesh)
+        trainer, batch = train_batch_on_card(torch, args, dev)
+    return model, trainer, batch
+
+
+def _steps(torch, model, trainer, batch, n=SCALEOUT_STEPS, accum=1):
+    """The losses of ``n`` train steps on ``batch`` and the bytes this rank
+    holds of the parameters and the AdamW moments."""
+    from climb_tpu_torch.train.train_state import TrainState
+    from climb_tpu_torch.train.train_step import make_train_step
+
+    state = TrainState.create(model, trainer.make_tx(model))
+    step = make_train_step(model, "snli-ve", "ce", model.cfg.compute_dtype,
+                           grad_accum_steps=accum)
+    if model.parallel is not None:
+        batch = model.parallel.shard_rows(batch)
+    losses = [float(step(state, batch)["loss"]) for _ in range(n)]
+    held = sum(t.numel() * t.element_size() for d in (state.params, state.mu, state.nu)
+               for t in d.values())
+    return losses, held
+
+
+def _param_diffs(whole, ref_params, limit_steps, lr):
+    """Whether every parameter of ``whole`` lies within its limit of
+    ``ref_params``, and the worst against its limit, in lr units too."""
+    diffs = {n: float((whole[n] - ref_params[n]).abs().max()) for n in ref_params}
+    bound_all = 2 * 1.5 * SCALEOUT_STEPS * lr
+    limit = {n: (bound_all if limit_steps is None or n.endswith(SCALEOUT_NOISE_DOMINATED)
+                 else limit_steps * lr) for n in diffs}
+    worst = max(diffs, key=lambda n: diffs[n] / limit[n])
+    ok = all(diffs[n] <= limit[n] for n in diffs) and all(math.isfinite(x)
+                                                          for x in diffs.values())
+    return ok, {"name": worst, "diff": diffs[worst], "limit": limit[worst],
+                "in_lr_steps": diffs[worst] / lr}
+
+
+def child_pair(torch, rank, world, d, spec):
+    """Two ranks sharing the card through a gloo group: three train steps of
+    one snli-ve batch of 32 per layout (SCALEOUT_LAYOUTS) and dtype, against
+    the first rank's single-rank steps from the same weights and batch; each
+    rank's kernel launches and the shapes they saw, its peak device memory and
+    the bytes it holds of the parameters and moments."""
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.ops import attention, mlp
+    from climb_tpu_torch.parallel import distributed
+    from climb_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize_distributed(
+        "cuda", backend=spec["backend"], init_method="file://" + os.path.join(d, "rendezvous"),
+        world_size=world, rank=rank)
+    if spec["backend"] == "nccl":
+        torch.cuda.set_device(rank)
+    dist = torch.distributed
+    seen = {}
+
+    def recording(fn, key, shape_of):
+        def wrapped(*a, **kw):
+            seen.setdefault(key, set()).add(str(tuple(shape_of(*a))))
+            return fn(*a, **kw)
+        return wrapped
+
+    patches = [mock.patch.object(attention, "attention_fwd_op", recording(
+                   attention.attention_fwd_op, "attention_fwd", lambda q, *r: q.shape)),
+               mock.patch.object(attention, "attention_bwd", recording(
+                   attention.attention_bwd, "attention_bwd", lambda q, *r: q.shape)),
+               mock.patch.object(mlp, "fused_mlp_op", recording(
+                   mlp.fused_mlp_op, "mlp_fwd", lambda x, w1, *r: (x.numel() // x.shape[-1],
+                                                                  w1.shape[0])))]
+    out = {"backend": dist.get_backend(), "layouts": {}, "single_rank": {}}
+    for dtype in ("bfloat16", "float32"):
+        ref_losses, ref_params = None, None
+        steps, pwhy = SCALEOUT_PARAM_STEPS[dtype]
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            model, trainer, batch = _layout_model(
+                torch, ("single", 1, 1, "pallas", False), dtype, None)
+            ref_losses, held = _steps(torch, model, trainer, batch)
+            ref_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            lr = trainer.lr
+            single = {"losses": ref_losses, "held_bytes": held,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+            if dtype == "float32":
+                # the rounding spread: the same rank and batch in two accumulated
+                # halves, the same arithmetic summed in another order
+                del model, trainer, batch
+                model, trainer, batch = _layout_model(
+                    torch, ("single", 1, 1, "pallas", False), dtype, None)
+                single["accum2_losses"], _ = _steps(torch, model, trainer, batch, accum=2)
+                _, single["rounding_spread"] = _param_diffs(model.state_dict(), ref_params,
+                                                            steps, lr)
+            out["single_rank"][dtype] = single
+            del model, trainer, batch
+            torch.cuda.empty_cache()
+        dist.barrier()
+        for layout in SCALEOUT_LAYOUTS:
+            name, n_data, n_model, impl, fsdp, dtypes = layout
+            if dtype not in dtypes:
+                continue
+            mesh = make_mesh(n_data=n_data, n_model=n_model)
+            torch.cuda.reset_peak_memory_stats()
+            model, trainer, batch = _layout_model(torch, layout, dtype, mesh)
+            seen.clear()
+            reset_launch_counts()
+            with contextlib.ExitStack() as stack:
+                for p in patches:
+                    stack.enter_context(p)
+                losses, held = _steps(torch, model, trainer, batch)
+            torch.cuda.synchronize()
+            row = {"losses": losses, "launches": dict(LAUNCHES),
+                   "shapes": {k: sorted(v) for k, v in seen.items()}, "held_bytes": held,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            whole = model.state_dict()  # every rank's slices, gathered by every rank
+            if rank == 0:
+                ok, worst = _param_diffs(whole, ref_params, steps, trainer.lr)
+                atol, rtol, why = SCALEOUT_LOSS_TOL[dtype]
+                row["losses_single_rank"] = ref_losses
+                row["loss_ok"] = all(abs(a - b) <= atol + rtol * abs(b)
+                                     for a, b in zip(losses, ref_losses))
+                row["params_ok"], row["param_max_abs_diff"] = ok, worst
+                row["tolerance"] = {"loss": [atol, rtol, why],
+                                    "params_in_lr_steps": [steps, pwhy], "lr": trainer.lr}
+            out["layouts"][f"{name}_{dtype}"] = row
+            del model, trainer, batch, whole
+            torch.cuda.empty_cache()
+            dist.barrier()
+    return out
+
+
+def probe_gloo(work) -> dict:
+    """Each of GLOO_CUDA_PROBES with a two-rank gloo group's answer for CUDA
+    tensors: 'ok', its refusal, or, after a probe killed a rank, why the
+    rest went unanswered."""
+    rcs, res, tails, _ = run_children("gloo_probe", 2, work, {}, timeout=120)
+    gloo = res[0]
+    if gloo is None:  # rank 0's answers so far, then the dead rank's last words
+        path = os.path.join(work, "gloo_probe", "progress0.json")
+        gloo = json.load(open(path)) if os.path.exists(path) else {}
+        died = f"a rank died on it (rcs {rcs}): " + next(
+            (t[-300:] for t, rc in zip(tails, rcs) if rc), tails[0][-300:])
+        gloo.update({c: died for c in GLOO_CUDA_PROBES if c not in gloo})
+    return gloo
+
+
+def run_scaleout(torch, train_launches, work):
+    """Phase scaleout: (a) the probe, (b) a world of one NCCL rank through the
+    mesh paths, against phase train's run kept in ``work`` (``run_train``'s
+    ``keep_dir``), (c) two ranks sharing the card through gloo, (d) more
+    cards when there are any."""
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    probe = {"phase": "scaleout_probe", "device_count": n_cards,
+             "nccl_version": ".".join(map(str, torch.cuda.nccl.version()))}
+    rcs, res, tails, secs = run_children("nccl_dup", 2, work, {}, timeout=120)
+    probe["two_nccl_ranks_on_one_card"] = (
+        res if any(r is not None for r in res) else {"rcs": rcs, "killed_after_s": secs,
+                                                     "log": tails[0][-400:]})
+    probe["two_nccl_ranks_refused"] = not any(r and r.get("ran") for r in res)
+    gloo = probe_gloo(work)
+    probe["gloo_cuda_collectives"] = gloo
+    emit(probe)
+    # data and tensor parallelism need all_reduce (gradients, partial outputs,
+    # counts), broadcast (the starting weights, the accum pick) and
+    # all_gather_into_tensor (the whole parameters from the ranks' slices); FSDP
+    # also reduce_scatter_tensor (its gradients)
+    needed = [c for c in ("all_reduce", "broadcast", "all_gather_into_tensor",
+                          "reduce_scatter_tensor") if gloo.get(c) != "ok"]
+    if needed:
+        raise AssertionError(f"gloo refuses {needed} for CUDA tensors: phase scaleout (c) "
+                             f"cannot run ({gloo})")
+
+    mesh_flags = ["--use_mesh", "--fsdp", "--sharded_checkpoints", "--async_checkpoint",
+                  "--save_state_epochs", "1"]
+    spec = {"runs": {"mesh": mesh_flags,
+                     "mesh_n_model1_pp1": mesh_flags + ["--n_model", "1", "--pp_stages", "1"]},
+            "reference_checkpoint": os.path.join(work, "train_task1_model")}
+    with open(os.path.join(work, "train_results.json")) as f:
+        reference = json.load(f)
+    rcs, res, tails, secs = run_children("world1", 1, work, spec, torchrun=True)
+    if rcs != [0] or res[0] is None:
+        raise AssertionError(f"scaleout world of one failed (rc {rcs}): {tails[0]}")
+    w1 = res[0]
+    for name, run in w1["runs"].items():
+        if run["launches"] != train_launches:
+            raise AssertionError(f"scaleout {name}: launches {run['launches']} != phase "
+                                 f"train's {train_launches}")
+        if run["results"] != reference["results"] or \
+                run["eval_results"] != reference["eval_results"]:
+            raise AssertionError(f"scaleout {name}: results {run['results']} != the unsharded "
+                                 f"run's {reference['results']}")
+    if not w1["sharded_bit_equal"] or not w1["predict_equal"] or w1["backend"] != "nccl":
+        raise AssertionError(f"scaleout world of one: {w1}")
+    emit({"phase": "scaleout_world1", "backend": w1["backend"], "seconds": secs,
+          "flags": mesh_flags, "runs": w1["runs"], "results_equal_unsharded": "bit-equal",
+          "sharded_checkpoint": {"files": w1["sharded_files"], "bit_equal": True},
+          "predict_use_mesh_equal_predict": True, "predict": w1["predict"],
+          "sp_attention": w1["sp_attention"]})
+
+    rcs, res, tails, secs = run_children("pair", 2, work, {"backend": "gloo"})
+    if rcs != [0, 0] or res[0] is None:
+        raise AssertionError(f"scaleout pair failed (rc {rcs}): {tails}")
+    memory = check_pair(res, "gloo, two ranks on one card")
+    emit({"phase": "scaleout_pair", "backend": res[0]["backend"], "seconds": secs,
+          "what": f"{SCALEOUT_STEPS} train steps of one snli-ve batch of {TRAIN_BATCH} per "
+                  "layout, against the first rank's single-rank steps", "memory": memory,
+          "ranks": res})
+    more = {"phase": "scaleout_more_cards", "device_count": n_cards}
+    if n_cards > 1:
+        rcs, res, tails, secs = run_children("pair", 2, work, {"backend": "nccl"})
+        if rcs != [0, 0] or res[0] is None:
+            raise AssertionError(f"scaleout NCCL pair failed (rc {rcs}): {tails}")
+        check_pair(res, "nccl, two cards")
+        more.update(ran=True, backend="nccl", seconds=secs, ranks=res)
+    else:
+        more.update(ran=False, why="one card: NCCL ranks need a card each, so DP 2 and TP 2 "
+                                   "over NCCL and --pp_stages 2 wait for a machine with more")
+    emit(more)
+    emit({"phase": "scaleout", "seconds": time.perf_counter() - t_phase})
+
+
+def check_pair(res, what):
+    """Every layout matched the single rank, each rank launched every kernel
+    of its path once per layer and step at its local shapes, and under TP and
+    FSDP each rank held less of the parameters and moments than one rank
+    holds. Returns each layout's bytes held and peak device memory per rank
+    (MiB), the single rank's first."""
+    mib = lambda b: round(b / 2 ** 20, 1)
+    single = res[0]["single_rank"]
+    memory = {f"single_{dt}": [{"held_mib": mib(v["held_bytes"]),
+                                "peak_mib": mib(v["peak_bytes"])}] for dt, v in single.items()}
+    for name in res[0]["layouts"]:
+        memory[name] = [{"held_mib": mib(r["layouts"][name]["held_bytes"]),
+                         "peak_mib": mib(r["layouts"][name]["peak_bytes"])} for r in res]
+        alone = single[name.rsplit("_", 1)[1]]["held_bytes"]
+        held = [r["layouts"][name]["held_bytes"] for r in res]
+        if name.startswith(("tp2", "fsdp2")) and not all(h < alone for h in held):
+            raise AssertionError(f"{what} {name}: ranks hold {held} bytes of parameters and "
+                                 f"moments, one rank alone {alone}")
+    for rank, r in enumerate(res):
+        for name, row in r["layouts"].items():
+            fused = "fused" in name
+            n = SCALEOUT_STEPS
+            expected = expected_launches(fused, n, n, n)
+            if row["launches"] != expected:
+                raise AssertionError(f"{what} rank {rank} {name}: launches {row['launches']} "
+                                     f"!= {expected}")
+            if rank == 0 and not (row["loss_ok"] and row["params_ok"]):
+                raise AssertionError(f"{what} {name}: against the single rank {row}")
+            tp = name.startswith("tp2")
+            heads = HEADS // 2 if tp else HEADS
+            rows = TRAIN_BATCH if tp else TRAIN_BATCH // 2
+            want = {"attention_bwd": [str((rows, SEQ, heads, HEAD_DIM))],
+                    "mlp_fwd": [str((rows * SEQ, FFN // 2 if tp else FFN))]}
+            if not fused:
+                want["attention_fwd"] = want["attention_bwd"]
+            for k, v in want.items():
+                if row["shapes"].get(k) != v:
+                    raise AssertionError(f"{what} rank {rank} {name}: {k} saw "
+                                         f"{row['shapes'].get(k)}, expected {v}")
+    return memory
+
+
 def ptxas_resources(report):
     """{mangled kernel name: {"registers", "spill_bytes"}} from nvcc -Xptxas -v."""
     import re
@@ -3869,6 +4587,7 @@ def main() -> int:
         check_kernels(torch, results)
         check_fused_block(torch, results)
         check_gemm_tails(torch)
+        check_tp_kernels(torch, results)
     check_attention_bwd(torch, results)
     check_attention_long(torch, results)
     launches = {}
@@ -3876,7 +4595,10 @@ def main() -> int:
     compare_paths(torch)
     launches["predict_fused"], _ = run_predict(torch, "fused_block")
     compare_paths(torch, "fused_block")
-    launches["train"] = run_train(torch)
+    with tempfile.TemporaryDirectory() as work:
+        launches["train"] = run_train(torch, keep_dir=work)
+        torch.cuda.empty_cache()
+        run_scaleout(torch, launches["train"], work)
     launches["train_fused"] = run_train(torch, fused=True)
     step_ms = {impl: compare_train_paths(torch, impl) for impl in ("pallas", "fused_block")}
     emit({"phase": "fused_vs_per_op", "what": f"one bf16 snli-ve train step at batch "
@@ -3947,4 +4669,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--child":
+        sys.exit(child_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

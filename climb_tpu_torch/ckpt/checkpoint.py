@@ -31,12 +31,26 @@ them), and map the tree, its stacked ``encoder`` included, through
 ``ckpt/convert.state_dict_from_jax``. The JAX package's elastic
 ``train_state`` (its optax moments) is not read: ``load_train_state`` raises
 for one, and the run restarts the task.
+
+Scale-out (JAX ``checkpoint.py:41-110, 185``): ``sharded=True`` writes a
+task's ``model`` and ``encoder`` (and the elastic ``train_state``) as
+sharded-checkpoint directories (``ckpt/sharded.py``; the parameters in the
+JAX tree's layout, so that ``climb_tpu``'s ``load_params`` reads them, and
+the JAX package's sharded directories are read here), each rank writing only
+its slices; every reader here detects a directory. Without it, on a mesh,
+the first rank alone writes the files (the tensors gathered whole first:
+``model.state_dict()`` and ``TrainState.state_dict`` gather them).
+``AsyncCheckpointWriter`` moves the write of a host snapshot off the train
+loop: the snapshot (``.to("cpu")`` copies) is taken before the call
+returns, so a later in-place optimizer step cannot reach the saved state.
 """
 
 import logging
 import os
 import struct
-from typing import Dict
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -48,6 +62,7 @@ from climb_tpu_torch.ckpt.convert import (
     reference_from_state_dict,
     state_dict_from_jax,
 )
+from climb_tpu_torch.ckpt import sharded as sharded_ckpt
 from climb_tpu_torch.models.adapters import is_adapter_param
 
 logger = logging.getLogger(__name__)
@@ -56,7 +71,7 @@ __all__ = [
     "task_dir", "task_checkpoint_exists", "save_task_checkpoint", "load_task_checkpoint",
     "load_model_file", "read_flax_msgpack",
     "partial_load", "save_state_dict", "load_state_dict", "save_train_state",
-    "load_train_state",
+    "load_train_state", "AsyncCheckpointWriter",
 ]
 
 
@@ -65,6 +80,47 @@ def _save_atomic(obj, path: str):
     tmp = path + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def _is_writer(parallel) -> bool:
+    """True on the rank that writes host-gathered files (every rank without
+    a mesh is rank 0)."""
+    return parallel is None or parallel.mesh.rank == 0
+
+
+class AsyncCheckpointWriter:
+    """Serialization and the file write of host snapshots on one background
+    thread (JAX ``AsyncCheckpointWriter``). At most one write per path is in
+    flight: a new submit for a path first waits for the previous one, which
+    keeps the files' order and bounds host memory at about two snapshots.
+    Writes are tmp + rename. ``flush()`` waits for every write and re-raises
+    a writer's error; call it before reading the files back or exiting."""
+
+    def __init__(self):
+        self._executor = ThreadPoolExecutor(1, thread_name_prefix="ckpt-writer")
+        self._pending = {}
+        self._lock = threading.Lock()
+
+    def submit(self, obj, path: str):
+        with self._lock:
+            prev = self._pending.get(path)
+        if prev is not None:
+            prev.result()
+        fut = self._executor.submit(_save_atomic, obj, path)
+        with self._lock:
+            self._pending[path] = fut
+        return fut
+
+    def flush(self):
+        with self._lock:
+            pending = list(self._pending.values())
+            self._pending.clear()
+        for f in pending:
+            f.result()
+
+    def close(self):
+        self.flush()
+        self._executor.shutdown(wait=True)
 
 
 # flax's msgpack extension types (flax/serialization.py, _MsgpackExtType)
@@ -198,8 +254,14 @@ def read_flax_msgpack(path: str):
 
 
 def _load(path: str):
-    """A ``torch.save`` file of the port, or a JAX msgpack parameter tree as a
-    state dict by the port's names."""
+    """A ``torch.save`` file of the port, a sharded parameter directory (of
+    either package) or a JAX msgpack parameter tree as a state dict by the
+    port's names."""
+    if os.path.isdir(path):
+        if not sharded_ckpt.is_sharded_checkpoint(path):
+            raise FileNotFoundError(f"{path} is a directory without a sharded-checkpoint "
+                                    "manifest")
+        return sharded_ckpt.load_params_sharded(path)
     if is_torch_checkpoint(path):
         return torch.load(path, map_location="cpu", weights_only=True)
     tree = read_flax_msgpack(path)
@@ -215,15 +277,28 @@ def task_dir(output_dir: str, task_num: int, task_key: str) -> str:
 
 
 def task_checkpoint_exists(output_dir: str, task_num: int, task_key: str) -> bool:
-    return os.path.isfile(os.path.join(task_dir(output_dir, task_num, task_key), "model"))
+    path = os.path.join(task_dir(output_dir, task_num, task_key), "model")
+    return os.path.isfile(path) or sharded_ckpt.is_sharded_checkpoint(path)
 
 
 def save_task_checkpoint(output_dir: str, task_num: int, task_key: str,
-                         state_dict: Dict[str, torch.Tensor], encoder_key: str = "vilt"):
+                         state_dict: Dict[str, torch.Tensor], encoder_key: str = "vilt",
+                         sharded: bool = False, parallel=None):
     """The full model and its encoder (under ``encoder_key``) alone, in the
     reference torch layout, and the adapters, if the model has any, in the
-    port's ``adapters`` file."""
+    port's ``adapters`` file. ``sharded`` writes ``model`` and ``encoder`` as
+    sharded directories in the JAX tree's layout (adapters included, as in
+    JAX's tree); call it from every rank then. On a mesh without it only the
+    first rank writes."""
     d = task_dir(output_dir, task_num, task_key)
+    if sharded:
+        sharded_ckpt.save_params_sharded(state_dict, os.path.join(d, "model"), parallel)
+        enc = {k: v for k, v in state_dict.items() if k.split(".")[0] == encoder_key}
+        sharded_ckpt.save_params_sharded(enc, os.path.join(d, "encoder"), parallel, strip=1)
+        logger.info("Saved sharded checkpoint to %s", d)
+        return
+    if not _is_writer(parallel):
+        return
     for kind in ("model", "encoder"):
         _save_atomic(reference_from_state_dict(state_dict, kind, encoder_key),
                      os.path.join(d, kind))
@@ -234,10 +309,11 @@ def save_task_checkpoint(output_dir: str, task_num: int, task_key: str,
 
 
 def load_model_file(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-layout ``model`` file, or the JAX package's msgpack one, as
-    a port ``state_dict`` (CPU tensors), with the parameters of the
-    ``adapters`` file beside it, if any (a msgpack tree holds its adapters)."""
-    if not is_torch_checkpoint(path):
+    """A reference-layout ``model`` file, the JAX package's msgpack one, or a
+    sharded ``model`` directory of either package, as a port ``state_dict``
+    (CPU tensors), with the parameters of the ``adapters`` file beside it, if
+    any (a msgpack tree or a sharded directory holds its adapters)."""
+    if os.path.isdir(path) or not is_torch_checkpoint(path):
         return _load(path)
     sd = load_reference_checkpoint(path)
     adapters = os.path.join(os.path.dirname(path), "adapters")
@@ -251,9 +327,14 @@ def load_task_checkpoint(output_dir: str, task_num: int, task_key: str) -> Dict[
     return load_model_file(os.path.join(task_dir(output_dir, task_num, task_key), "model"))
 
 
-def save_state_dict(state_dict: Dict[str, torch.Tensor], path: str):
+def save_state_dict(state_dict: Dict[str, torch.Tensor], path: str,
+                    async_writer: Optional[AsyncCheckpointWriter] = None):
     """Parameters by their port names (the ``best_model`` file)."""
-    _save_atomic({k: v.detach().to("cpu") for k, v in state_dict.items()}, path)
+    host = {k: v.detach().to("cpu") for k, v in state_dict.items()}
+    if async_writer is not None:
+        async_writer.submit(host, path)
+        return
+    _save_atomic(host, path)
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -262,15 +343,73 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return _load(path)
 
 
-def save_train_state(state, meta: dict, path: str):
-    """Parameters, AdamW moments, update count and ``meta`` (plain values)."""
-    _save_atomic({"state": state.state_dict(), "meta": meta}, path)
+_STATE_SCALARS = ("step", "notfinite_count", "total_notfinite")
+
+
+def save_train_state(state, meta: dict, path: str,
+                     async_writer: Optional[AsyncCheckpointWriter] = None,
+                     sharded: bool = False):
+    """Parameters, AdamW moments, update count and ``meta`` (plain values and
+    tensors). Call from every rank of a mesh. ``sharded`` writes a directory
+    in which each rank stores its own slices of the parameters and moments
+    (each slice once); otherwise the first rank writes one file of whole
+    tensors (through ``async_writer`` when given: the host snapshot is taken
+    here, the write runs behind the next steps)."""
+    parallel = state.parallel
+    if sharded:
+        _save_train_state_sharded(state, meta, path)
+        return
+    payload = {"state": state.state_dict(), "meta": meta}  # host copies, taken now
+    if not _is_writer(parallel):
+        return
+    if async_writer is not None:
+        async_writer.submit(payload, path)
+        return
+    _save_atomic(payload, path)
+
+
+def _save_train_state_sharded(state, meta: dict, path: str):
+    parallel = state.parallel
+    rank = parallel.mesh.rank if parallel is not None else 0
+    entries = {}
+    for group, tensors in (("params", state.params), ("mu", state.mu), ("nu", state.nu)):
+        for n, t in tensors.items():
+            start, chunk, dtype = sharded_ckpt.local_chunk(n, t, parallel)
+            shape = parallel.shapes[n] if parallel is not None else tuple(t.shape)
+            entries[f"state/{group}/{n}"] = {
+                "shape": shape, "dtype": dtype,
+                "chunks": [] if chunk is None else [(start, chunk)]}
+    if rank == 0:
+        scalars = {k: getattr(state, k) for k in _STATE_SCALARS}
+        for key, value in list(scalars.items()) + [(f"meta/{k}", v) for k, v in meta.items()]:
+            arr, dtype = sharded_ckpt._to_numpy(value)
+            name = key if key.startswith("meta/") else f"state/{key}"
+            entries[name] = {"shape": arr.shape, "dtype": dtype,
+                             "chunks": [([0] * arr.ndim, arr)]}
+    sharded_ckpt.write_shards(entries, path, rank)
+
+
+def _load_train_state_sharded(path: str):
+    flat, _ = sharded_ckpt.load_sharded(path)
+    tree = sharded_ckpt.unflatten(flat)
+    as_tensor = lambda v: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+    st = tree["state"]
+    sd = {g: {n: as_tensor(v) for n, v in st[g].items()} for g in ("params", "mu", "nu")}
+    sd.update({k: int(np.asarray(st[k])) for k in _STATE_SCALARS})
+    meta = {k: (as_tensor(v) if np.asarray(v).ndim else np.asarray(v).item())
+            for k, v in tree.get("meta", {}).items()}
+    return sd, meta
 
 
 def load_train_state(state, path: str) -> dict:
-    """Restore ``state`` in place from ``save_train_state``'s file; returns
-    meta (``epoch``, ``steps_into_epoch`` after a preemption, ``global_step``,
-    the best score and epoch, the generator and Python ``random`` states)."""
+    """Restore ``state`` in place from ``save_train_state``'s file or
+    sharded directory; returns meta (``epoch``, ``steps_into_epoch`` after a
+    preemption, ``global_step``, the best score and epoch, the generator and
+    Python ``random`` states)."""
+    if os.path.isdir(path):
+        sd, meta = _load_train_state_sharded(path)
+        state.load_state_dict(sd)
+        return meta
     if not is_torch_checkpoint(path):
         raise NotImplementedError(
             f"{path}: a flax msgpack train_state of climb_tpu (its optax moments) is not read "

@@ -67,7 +67,7 @@ def _np(x) -> np.ndarray:
 
 
 def _tensor(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(_np(x), dtype=np.float32, copy=True))
+    return torch.from_numpy(np.array(_np(x), dtype=np.float32, copy=True, order="C"))
 
 
 def _linear_from_jax(out, prefix, p):
@@ -158,6 +158,33 @@ def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
         else:
             _linear_from_jax(sd, f"{name}.fc", p["fc"])
     return sd
+
+
+def jax_leaf(name: str, shape) -> tuple:
+    """Where the port's parameter ``name`` (of ``shape``) lives in the JAX
+    tree: (path tuple, layer index into the stacked leaf or None,
+    transposed), the inverse of ``state_dict_from_jax``'s naming. A 2-D
+    ``weight`` is a Dense ``kernel`` (transposed) unless its module is an
+    embedding table (the leaf is the module itself); a 1-D ``weight`` is a
+    LayerNorm ``scale``; ``encoder.<i>.`` is layer i of the stacked
+    ``encoder``."""
+    parts = name.split(".")
+    layer = None
+    for i in range(len(parts) - 1):
+        if parts[i] == "encoder" and parts[i + 1].isdigit():
+            layer = int(parts[i + 1])
+            parts = parts[:i + 1] + parts[i + 2:]
+            break
+    transposed = False
+    if parts[-1] == "weight":
+        if len(shape) == 1:
+            parts[-1] = "scale"
+        elif parts[-2].endswith("embeddings"):
+            parts = parts[:-1]
+        else:
+            parts[-1] = "kernel"
+            transposed = len(shape) == 2
+    return tuple(parts), layer, transposed
 
 
 def quant_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:

@@ -15,6 +15,9 @@ ewc.py:59-71). During later tasks every train step adds ``weight * sum F
 Fisher and anchor are about twice the encoder's size per task. They stay on
 the parameters' device unless ``--ewc_offload_to_host``, which keeps them in
 host memory and copies the drawn task's to the device each step.
+
+On a mesh the Fisher's gradients are the whole batch's (``make_grad_fn``
+reduces them) and the examples seen are counted over every rank.
 """
 
 import logging
@@ -69,8 +72,11 @@ class EWC:
                 _, grads = grad_fn(batch)
                 for n, f in fisher.items():
                     f.add_(grads[n] ** 2)
-                samples += (int(batch["valid"].sum()) if "valid" in batch
-                            else batch["input_ids"].shape[0])
+                valid = (batch["valid"].sum() if "valid" in batch
+                         else torch.tensor(float(batch["input_ids"].shape[0])))
+                if getattr(model, "parallel", None) is not None:  # every rank's rows
+                    valid = model.parallel.batch_sum(valid.to(self.device))
+                samples += int(valid)
                 if samples >= fisher_sample_size:
                     break
         finally:

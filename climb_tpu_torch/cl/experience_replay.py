@@ -24,6 +24,7 @@ import random
 from typing import Dict
 
 from climb_tpu_torch.data.loader import collate_from_indices
+from climb_tpu_torch.parallel.sharding import shard_batch
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_step import make_replay_step
 
@@ -148,7 +149,8 @@ class ExperienceReplayMemory:
         place and returns the step's loss (a device scalar)."""
         task_key = self.sample_replay_task()
         buf = self.memory_buffers[task_key]
-        batch = buf.task_trainer.put(buf.sample_replay_batch())
+        # drawn alike on every rank (Python's random), then this rank's rows
+        batch = buf.task_trainer.put(shard_batch(buf.sample_replay_batch(), model))
         loss = buf.replay_step_fn(model)(batch)
         logger.info("replay step on %s: loss=%.4f", task_key, float(loss))
         return loss

@@ -3,7 +3,8 @@
 The flags the serving and training paths read keep their JAX names and
 defaults. Flags of later slices are accepted where ``climb_tpu`` accepts them
 and raise ``NotImplementedError`` when set (``reject_unported``), so a run
-never silently ignores one.
+never silently ignores one. ``setup_mesh`` joins a ``torchrun`` world and
+builds the drivers' mesh.
 """
 
 import argparse
@@ -66,10 +67,24 @@ def add_device_args(parser: argparse.ArgumentParser):
     parser.add_argument("--eval_batch_size", type=int, default=None,
                         help="Eval batch size (global, before the per-task fold "
                              "divisor); defaults to --batch_size.")
-    parser.add_argument("--n_model", type=int, default=1, help="Not ported yet (mesh).")
-    parser.add_argument("--use_mesh", action="store_true", help="Not ported yet (mesh).")
-    parser.add_argument("--pp_stages", type=int, default=0, help="Not ported yet (mesh).")
-    parser.add_argument("--fsdp", action="store_true", help="Not ported yet (mesh).")
+    parser.add_argument("--n_model", type=int, default=1,
+                        help="Tensor-parallel width of the device mesh (data axis gets the "
+                             "rest).")
+    parser.add_argument("--use_mesh", action="store_true",
+                        help="Shard over all ranks of the torchrun world (DP x TP mesh, "
+                             "one process per card); a single process runs plain.")
+    parser.add_argument("--pp_stages", type=int, default=0,
+                        help="Pipeline-parallel stages: put the encoder's layers over a "
+                             "'pipe' mesh axis and stream microbatches through the GPipe "
+                             "schedule (remaining rank factor = data parallelism). Composes "
+                             "with DP only (not --fsdp/--n_model); num_layers must divide by "
+                             "stages*virtual. Trajectory matches plain DP.")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="Fully-sharded data parallelism (ZeRO-3): also shard "
+                             "parameters and AdamW moments over the 'data' mesh axis; each "
+                             "block all-gathers its weights just-in-time and reduce-scatters "
+                             "its gradients. Identical trajectory to plain DP (tested); "
+                             "param+optimizer memory / data-axis size.")
     parser.add_argument("--image_height", type=int, default=384)
     parser.add_argument("--image_width", type=int, default=640)
     parser.add_argument("--aspect_buckets", type=str, default=None,
@@ -168,8 +183,14 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="Loader workers: threads, or forked processes for GIL-bound "
                              "Python work (numpy-only children; pinning stays in the "
                              "parent).")
-    parser.add_argument("--pp_microbatches", type=int, default=0, help="Not ported yet (mesh).")
-    parser.add_argument("--pp_virtual", type=int, default=1, help="Not ported yet (mesh).")
+    parser.add_argument("--pp_microbatches", type=int, default=0,
+                        help="Microbatches per pipeline schedule (0 = one per stage). More "
+                             "microbatches shrink the fill/drain bubble: (P-1)/(M+P-1) of "
+                             "ticks.")
+    parser.add_argument("--pp_virtual", type=int, default=1,
+                        help="Virtual stages per device (circular/interleaved schedule): "
+                             "V>1 shrinks the bubble V-fold (stored layout stays "
+                             "canonical).")
     parser.add_argument("--adam_moments_dtype", type=str, default=None, choices=["bfloat16"],
                         help="Store AdamW's first moment in bf16 (optax's mu_dtype); the "
                              "second moment stays f32.")
@@ -178,9 +199,15 @@ def add_device_args(parser: argparse.ArgumentParser):
                              "moments and schedule untouched), up to N in a row; the "
                              "(N+1)-th is applied (optax.apply_if_finite). 0 disables.")
     parser.add_argument("--sharded_checkpoints", action="store_true",
-                        help="Not ported yet (scale-out slice).")
+                        help="Write task checkpoints (and the elastic train state) as sharded "
+                             "directories (each rank stores only its unique slices, in the "
+                             "JAX package's layout) instead of host-gathered files; restore "
+                             "reshards onto any world. All readers auto-detect the layout.")
     parser.add_argument("--async_checkpoint", action="store_true",
-                        help="Not ported yet (scale-out slice).")
+                        help="Overlap elastic-checkpoint serialization + disk I/O with "
+                             "training on a background writer thread (device->host snapshot "
+                             "stays synchronous; writes are tmp+rename atomic). Use with "
+                             "--save_state_epochs.")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="jax.profiler trace: not ported (chip_smoke.py profiles a step).")
     parser.add_argument("--memory_profile", type=str, default=None,
@@ -189,28 +216,52 @@ def add_device_args(parser: argparse.ArgumentParser):
 
 # (flag, value that is ported, later slice that brings the rest)
 _UNPORTED = (
-    ("n_model", 1, "the scale-out slice"),
-    ("use_mesh", False, "the scale-out slice"),
-    ("pp_stages", 0, "the scale-out slice"),
-    ("fsdp", False, "the scale-out slice"),
-    ("pp_microbatches", 0, "the scale-out slice"),
-    ("pp_virtual", 1, "the scale-out slice"),
     ("do_wandb_logging", False, "no network: W&B logging is not ported"),
     ("scan_unroll", 1, "the port runs the layers in a Python loop"),
-    ("sharded_checkpoints", False, "the scale-out slice"),
-    ("async_checkpoint", False, "the scale-out slice"),
     ("profile_dir", None, "chip_smoke.py's torch.profiler phase stands in"),
     ("memory_profile", None, "a later profiling PR"),
 )
 
 
-def reject_unported(args):
-    """Raise NotImplementedError for a flag value this slice does not run."""
-    for flag, ported, later in _UNPORTED:
+# the scale-out flags, which the Phase II drivers do not run: the JAX package's
+# Phase II drivers build no mesh either (they accept and ignore them)
+_SCALE_OUT = (("n_model", 1), ("use_mesh", False), ("pp_stages", 0), ("fsdp", False),
+              ("pp_microbatches", 0), ("pp_virtual", 1), ("sharded_checkpoints", False),
+              ("async_checkpoint", False))
+
+
+def reject_unported(args, scale_out: bool = True):
+    """Raise NotImplementedError for a flag value this slice does not run;
+    ``scale_out=False`` (the Phase II drivers) also for the scale-out flags."""
+    unported = _UNPORTED if scale_out else _UNPORTED + tuple(
+        (flag, value, "the Phase II drivers run one process (the JAX drivers build no "
+                      "mesh)") for flag, value in _SCALE_OUT)
+    for flag, ported, later in unported:
         value = getattr(args, flag, ported)
         if value != ported and not (flag == "pp_stages" and value in (0, 1)):
             raise NotImplementedError(
                 f"--{flag} {value!r} is not ported to climb_tpu_torch yet ({later})")
+
+
+def setup_mesh(args, device):
+    """Join the torchrun world and build the mesh where the JAX drivers do:
+    ``--use_mesh`` in a process group gives a ('data', 'model') mesh of
+    ``--n_model`` model ranks; ``--pp_stages > 1`` builds its own ('data',
+    'pipe') mesh in the model factory. Without ``--use_mesh`` the mesh
+    flags do nothing, and without a process group (one process, no
+    torchrun) the run is the plain one, as JAX's ``len(jax.devices()) > 1``
+    guard makes it. Returns the mesh or None."""
+    from climb_tpu_torch.parallel.distributed import initialize_distributed
+    from climb_tpu_torch.parallel.mesh import make_mesh
+
+    wants = getattr(args, "use_mesh", False) or int(getattr(args, "pp_stages", 0) or 0) > 1
+    if not wants or not initialize_distributed(device.type):
+        return None
+    if int(getattr(args, "pp_stages", 0) or 0) > 1:
+        return None  # the model factory builds the ('data', 'pipe') mesh
+    mesh = make_mesh(n_model=getattr(args, "n_model", 1))
+    logging.getLogger(__name__).info("Mesh: %s", mesh)
+    return mesh
 
 
 def apply_task_config_overrides(task_configs: dict, spec: str) -> dict:

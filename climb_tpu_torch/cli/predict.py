@@ -19,6 +19,11 @@ batches first; ``--export_model`` writes a ``torch.export`` artifact (with
 ``--export_canvas_widths``) and ``--from_export`` serves one, without the
 model code or a checkpoint (``serve/export.py``).
 
+Under ``torchrun`` with ``--use_mesh`` (JAX ``predict.py:148-157``) each
+data rank evaluates its share of every eval batch (``--n_model`` splits the
+blocks as in training) and the logits are gathered in order to the first
+rank, which writes the same JSON as a single-process run.
+
 Usage:
   python -m climb_tpu_torch.cli.predict --encoder_name vilt \\
       --ordered_cl_tasks snli-ve --task_key snli-ve --climb_data_dir DATA \\
@@ -43,6 +48,7 @@ from climb_tpu_torch.cli.common import (
     add_common_args,
     add_device_args,
     reject_unported,
+    setup_mesh,
     setup_logging,
 )
 from climb_tpu_torch.configs.task_configs import task_configs
@@ -168,6 +174,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.from_export:
         return _serve_from_export(args, device)
+    mesh = None
+    if not args.export_model and not args.input_jsonl:
+        mesh = setup_mesh(args, device)
+    args.mesh = mesh
     if args.export_model:
         # an artifact has one fixed input signature: a bucketed loader would
         # export whichever cropped shape its first batch has
@@ -180,9 +190,10 @@ def main(argv=None):
     adapter_handler = None
     if args.cl_algorithm == "adapter":
         adapter_handler = AdapterHandler(adapter_method=args.adapter_method, args=args)
-    model = create_cl_model(args, task_configs, device, adapter_handler=adapter_handler)
+    model = create_cl_model(args, task_configs, device, adapter_handler=adapter_handler,
+                            mesh=mesh)
     if args.checkpoint:
-        if not os.path.isfile(args.checkpoint):
+        if not os.path.exists(args.checkpoint):
             raise FileNotFoundError(args.checkpoint)
         loaded, missing = partial_load(model, load_model_file(args.checkpoint))
         logger.info("Checkpoint %s: %d tensors loaded, %d kept from init",
@@ -214,10 +225,16 @@ def main(argv=None):
                                model.cfg.compute_dtype)
     if args.input_jsonl:
         return _predict_from_jsonl(args, model, eval_step, device)
-    return _predict_dataset(args, build_eval_loader(args, device), eval_step, device)
+    loader = build_eval_loader(args, device)
+    if mesh is not None:
+        # every rank's share of one stream (not one stripe per node), so the
+        # gathered rows are the batch's in order
+        loader.host_id, loader.host_count = 0, 1
+        loader.shard = (mesh.batch_coord, mesh.batch_size)
+    return _predict_dataset(args, loader, eval_step, device, model.parallel)
 
 
-def _predict_dataset(args, loader, eval_step, device):
+def _predict_dataset(args, loader, eval_step, device, parallel=None):
     # bucketing permutes the batch stream; the emission order puts the
     # predictions back in dataset order (predictions[i] is example i's)
     order = loader.example_order() if loader.is_bucketed else None
@@ -225,11 +242,15 @@ def _predict_dataset(args, loader, eval_step, device):
     t_start, t0 = time.perf_counter(), None
     for batch in device_prefetch(loader, device):
         logits, s, c = eval_step(batch)
+        valid = batch["valid"]
+        if parallel is not None:  # every data rank's rows, in order
+            logits, valid = parallel.gather_rows(logits), parallel.gather_rows(valid)
+            s, c = parallel.batch_sum(s), parallel.batch_sum(c)
         # float() waits for the card; the first batch (kernel build and
         # warm-up) stays out of the throughput when later batches exist
         total += float(s)
         count += float(c)
-        valid = batch["valid"].bool()
+        valid = valid.bool()
         preds.extend(torch.argmax(logits, dim=-1)[valid].cpu().tolist())
         n_valid = int(valid.sum())
         n += n_valid
@@ -248,6 +269,8 @@ def _predict_dataset(args, loader, eval_step, device):
             inverted[int(ds_idx)] = preds[pos]
         preds = inverted
 
+    if parallel is not None and parallel.mesh.rank != 0:
+        return None
     out = _write_output(args, score, n, ex_s, preds)
     logger.info("task=%s: metric=%.2f over %d examples (%.1f ex/s) -> %s",
                 args.task_key, score, n, ex_s, args.output_file)

@@ -97,7 +97,7 @@ def build_parser():
 def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
-    reject_unported(args)
+    reject_unported(args, scale_out=False)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     set_seed(args)

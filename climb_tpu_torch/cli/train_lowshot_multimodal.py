@@ -116,7 +116,7 @@ def main(argv=None):
         args.image_height, args.image_width = 64, 96
     for task_key in args.ordered_cl_tasks:
         assert task_key in SUPPORTED_VL_TASKS
-    reject_unported(args)
+    reject_unported(args, scale_out=False)
     device = resolve_device(args.device)
     configs = task_configs
     if args.synthetic and args.synthetic_vqa_labels:

@@ -26,6 +26,14 @@ handler and honoured at the task boundary, also with exit 143 (JAX driver
 task, and skips finished tasks; ``--no_sigterm_checkpoint`` installs neither
 handler.
 
+Scale-out: under ``torchrun`` (one process per card) ``--use_mesh`` shards
+the run over every rank (``--n_model`` tensor parallelism, ``--fsdp``,
+``--pp_stages``), ``--sharded_checkpoints`` writes sharded task checkpoints
+and ``--async_checkpoint`` writes the elastic state behind training
+(``cli/common.setup_mesh``; JAX driver :194-220). ``--batch_size`` is a
+node's batch, split over its data ranks. Only the first rank writes the
+results and logs at INFO.
+
 Usage (synthetic smoke run on the CPU; drop --synthetic and pass
 --vocab_path DATA/vocab.txt to train on the data root):
   python -m climb_tpu_torch.cli.train_upstream_continual_learning \\
@@ -36,6 +44,7 @@ Usage (synthetic smoke run on the CPU; drop --synthetic and pass
 """
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -60,6 +69,7 @@ from climb_tpu_torch.cli.common import (
     apply_task_config_overrides,
     reject_unported,
     setup_logging,
+    setup_mesh,
 )
 from climb_tpu_torch.configs.model_configs import model_configs
 from climb_tpu_torch.configs.task_configs import SUPPORTED_VL_TASKS, task_configs
@@ -68,8 +78,9 @@ from climb_tpu_torch.evaluation.cl_eval import (
     catastrophic_forgetting_eval,
     upstream_knowledge_transfer_eval,
 )
+from climb_tpu_torch.parallel import distributed
 from climb_tpu_torch.train.model_factory import create_cl_model
-from climb_tpu_torch.train.trainers import get_task_trainer_class
+from climb_tpu_torch.train.trainers import any_rank, get_task_trainer_class
 from climb_tpu_torch.utils import preemption
 from climb_tpu_torch.utils.seed import set_seed
 
@@ -131,11 +142,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _dump_json_atomic(obj, path: str):
     """tmp + os.replace, so an interrupted write never leaves a truncated
-    results JSON for the rerun's resume logic to parse."""
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(obj, f)
-    os.replace(tmp, path)
+    results JSON for the rerun's resume logic to parse; the first rank
+    writes, and every rank waits for the file."""
+    if distributed.is_main_process():
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, path)
+    distributed.barrier()
 
 
 def experiment_name_for(args) -> str:
@@ -188,6 +202,9 @@ def main(argv=None):
     validate_algorithm_args(args)
     reject_unported(args)
     device = resolve_device(args.device)
+    mesh = setup_mesh(args, device)
+    if not distributed.is_main_process():
+        logging.getLogger().setLevel(logging.WARNING)
     os.makedirs(output_dir, exist_ok=True)
     set_seed(args)
     if args.visual_input_type is None:
@@ -205,7 +222,8 @@ def main(argv=None):
     elif args.cl_algorithm == "feature_distill":
         cl["distill"] = FeatureDistill(args)
 
-    model = create_cl_model(args, configs, device, adapter_handler=adapter_handler)
+    model = create_cl_model(args, configs, device, adapter_handler=adapter_handler, mesh=mesh)
+    args.mesh = model.parallel.mesh if model.parallel is not None else None
     if args.cl_algorithm == "freeze_encoder":
         model.trainable_mask = freeze_encoder_mask(model, model.encoder_key)
     elif args.cl_algorithm == "freeze_bottom_k_layers":
@@ -263,8 +281,7 @@ def _run(args, configs, output_dir, results_file, model, device, cl=None, adapte
                 logger.info("Found checkpoint for task %s: loading and skipping", task_name)
                 _, missing = partial_load(model, ckpt)
                 if missing:
-                    save_task_checkpoint(output_dir, task_num, task_key, model.state_dict(),
-                                         model.encoder_key)
+                    _save_task(args, output_dir, task_num, task_key, model)
             else:
                 if adapter_handler is not None:
                     logger.info("Activating adapters for task %s", task_name)
@@ -273,15 +290,14 @@ def _run(args, configs, output_dir, results_file, model, device, cl=None, adapte
                 best_eval_score, model = task_trainer.train(model, **cl)
                 logger.info("Best %s score = %.2f (epoch %d)", task_name, best_eval_score,
                             task_trainer.best_epoch)
-                save_task_checkpoint(output_dir, task_num, task_key, model.state_dict(),
-                                     model.encoder_key)
+                _save_task(args, output_dir, task_num, task_key, model)
                 results.append({"task_num": task_num, "task_key": task_key,
                                 "best_score": best_eval_score,
                                 "best_epoch": task_trainer.best_epoch})
                 _dump_json_atomic(results, results_file)
             task_trainers[task_key] = task_trainer
             _after_task(args, configs, cl, model, task_num, task_key, task_trainer)
-            if preemption.preemption_requested():
+            if any_rank(preemption.preemption_requested(), model):
                 # a SIGTERM after the train loop's last poll: the task boundary is
                 # the resume point (finished tasks are skipped on the rerun)
                 logger.warning("Preemption requested during task %s wrap-up; exiting 143 at "
@@ -306,6 +322,18 @@ def _run(args, configs, output_dir, results_file, model, device, cl=None, adapte
         _dump_json_atomic(eval_results, os.path.join(output_dir, "eval_results.json"))
         logger.info("Wrote %s", os.path.join(output_dir, "eval_results.json"))
     return eval_results
+
+
+def _save_task(args, output_dir, task_num, task_key, model):
+    """The task checkpoint: sharded by every rank from its own slices, or
+    gathered whole and written by the first."""
+    par = model.parallel
+    with par.local_view() if args.sharded_checkpoints and par is not None else \
+            contextlib.nullcontext():
+        state_dict = model.state_dict()
+    save_task_checkpoint(output_dir, task_num, task_key, state_dict, model.encoder_key,
+                         sharded=args.sharded_checkpoints, parallel=par)
+    distributed.barrier()
 
 
 def _after_task(args, configs, cl, model, task_num, task_key, task_trainer):

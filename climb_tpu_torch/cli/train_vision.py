@@ -93,7 +93,7 @@ class _MultiHotWrapper:
 def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
-    reject_unported(args)
+    reject_unported(args, scale_out=False)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     if args.tiny:

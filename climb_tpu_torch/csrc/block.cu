@@ -98,14 +98,16 @@ struct BiasF32 {
   }
 };
 
-// x[row][col] + (acc + bias[col]), summed in f32
+// x[row][col] + (acc + bias[col]), summed in f32; without x (a tensor-parallel
+// rank that does not hold the residual) acc + bias[col]
 template <typename T>
 struct BiasResidual {
   const float* bias;
   const T* x;
   int ld;
   __device__ __forceinline__ float operator()(int row, int col, float acc) const {
-    return to_float(x[static_cast<size_t>(row) * ld + col]) + (acc + bias[col]);
+    const float y = acc + bias[col];
+    return x != nullptr ? to_float(x[static_cast<size_t>(row) * ld + col]) + y : y;
   }
 };
 
@@ -133,17 +135,17 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
                           const __grid_constant__ CUtensorMap wq,
                           const __grid_constant__ CUtensorMap wk,
                           const __grid_constant__ CUtensorMap wv, Qkv<__nv_bfloat16> p, int M,
-                          int D, int tiles) {
+                          int D, int E, int tiles) {
   const int which = blockIdx.x / tiles;
   const CUtensorMap* w = which == 0 ? &wq : which == 1 ? &wk : &wv;
-  gemm_bf16_wgmma_tile(&h, w, p.output(which), M, D, D, blockIdx.y * kTileM,
+  gemm_bf16_wgmma_tile(&h, w, p.output(which), M, E, D, blockIdx.y * kTileM,
                        (blockIdx.x % tiles) * kTileN, BiasF32{p.bias(which)});
 }
 
 __global__ void __launch_bounds__(kSimtThreads)
-    qkv_f32_kernel(const float* __restrict__ h, Qkv<float> p, int M, int D, int tiles) {
+    qkv_f32_kernel(const float* __restrict__ h, Qkv<float> p, int M, int D, int E, int tiles) {
   const int which = blockIdx.x / tiles;
-  gemm_f32_simt_tile(h, p.weight(which), p.output(which), M, D, D, blockIdx.y * kSM,
+  gemm_f32_simt_tile(h, p.weight(which), p.output(which), M, E, D, blockIdx.y * kSM,
                      (blockIdx.x % tiles) * kSN, BiasF32{p.bias(which)});
 }
 
@@ -151,16 +153,16 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     out_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap ctx,
                           const __grid_constant__ CUtensorMap wo, const float* __restrict__ bo,
                           const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                          int M, int D) {
-  gemm_bf16_wgmma_tile(&ctx, &wo, out, M, D, D, blockIdx.y * kTileM, blockIdx.x * kTileN,
+                          int M, int D, int E) {
+  gemm_bf16_wgmma_tile(&ctx, &wo, out, M, D, E, blockIdx.y * kTileM, blockIdx.x * kTileN,
                        BiasResidual<__nv_bfloat16>{bo, x, D});
 }
 
 __global__ void __launch_bounds__(kSimtThreads)
     out_f32_kernel(const float* __restrict__ ctx, const float* __restrict__ wo,
                    const float* __restrict__ bo, const float* __restrict__ x,
-                   float* __restrict__ out, int M, int D) {
-  gemm_f32_simt_tile(ctx, wo, out, M, D, D, blockIdx.y * kSM, blockIdx.x * kSN,
+                   float* __restrict__ out, int M, int D, int E) {
+  gemm_f32_simt_tile(ctx, wo, out, M, D, E, blockIdx.y * kSM, blockIdx.x * kSN,
                      BiasResidual<float>{bo, x, D});
 }
 
@@ -170,9 +172,10 @@ template <typename T>
 int launch(const void* x, const float* lns, const float* lnb, const void* wq, const float* bq,
            const void* wk, const float* bk, const void* wv, const float* bv, const void* wo,
            const float* bo, const float* key_bias, void* out, void* h, void* q, void* k, void* v,
-           void* ctx, int B, int S, int D, int H, float eps, int dtype, cudaStream_t stream) {
+           void* ctx, int B, int S, int D, int H, bool residual, float eps, int dtype,
+           cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  const int M = B * S;
+  const int M = B * S, E = H * kHeadDim;
   const T* xt = static_cast<const T*>(x);
   T* ht = static_cast<T*>(h);
 
@@ -187,64 +190,69 @@ int launch(const void* x, const float* lns, const float* lnb, const void* wq, co
   p.b[0] = bq, p.b[1] = bk, p.b[2] = bv;
   p.out[0] = static_cast<T*>(q), p.out[1] = static_cast<T*>(k), p.out[2] = static_cast<T*>(v);
   const int bm = kBf16 ? kTileM : kSM, bn = kBf16 ? kTileN : kSN;
-  const int tiles = (D + bn - 1) / bn;
-  const dim3 qkv_grid(3 * tiles, (M + bm - 1) / bm), out_grid(tiles, (M + bm - 1) / bm);
+  const int tiles = (E + bn - 1) / bn, out_tiles = (D + bn - 1) / bn;
+  const dim3 qkv_grid(3 * tiles, (M + bm - 1) / bm), out_grid(out_tiles, (M + bm - 1) / bm);
   if constexpr (kBf16) {
     // the operands' addresses change from call to call: encode their maps here
     CUtensorMap h_map, w_map[3];
     err = encode_kmajor_bf16(&h_map, h, M, D, kTileK, kTileM);
     for (int i = 0; i < 3 && !err; ++i)
-      err = encode_kmajor_bf16(&w_map[i], p.w[i], D, D, kTileK, kTileN);
+      err = encode_kmajor_bf16(&w_map[i], p.w[i], E, D, kTileK, kTileN);
     if (!err) err = allow_gemm_smem(qkv_bf16_wgmma_kernel);
     if (err) return err;
     qkv_bf16_wgmma_kernel<<<qkv_grid, kGemmThreads, kGemmSmemBytes, stream>>>(
-        h_map, w_map[0], w_map[1], w_map[2], p, M, D, tiles);
+        h_map, w_map[0], w_map[1], w_map[2], p, M, D, E, tiles);
   } else {
-    qkv_f32_kernel<<<qkv_grid, kSimtThreads, 0, stream>>>(ht, p, M, D, tiles);
+    qkv_f32_kernel<<<qkv_grid, kSimtThreads, 0, stream>>>(ht, p, M, D, E, tiles);
   }
   err = last_error();
   if (err) return err;
 
-  // (B, S, D) read as (B, S, H, 64): element strides of the B, S and H axes
-  const long long strides[3] = {static_cast<long long>(S) * D, D, kHeadDim};
+  // (B, S, E) read as (B, S, H, 64): element strides of the B, S and H axes
+  const long long strides[3] = {static_cast<long long>(S) * E, E, kHeadDim};
   err = climb_attention_fwd(q, k, v, key_bias, ctx, B, S, H, kHeadDim, strides, strides, strides,
                             strides, S, 1.f / sqrtf(static_cast<float>(kHeadDim)), dtype, stream);
   if (err) return err;
 
   if constexpr (kBf16) {
     CUtensorMap ctx_map, wo_map;
-    err = encode_kmajor_bf16(&ctx_map, ctx, M, D, kTileK, kTileM);
-    if (!err) err = encode_kmajor_bf16(&wo_map, wo, D, D, kTileK, kTileN);
+    err = encode_kmajor_bf16(&ctx_map, ctx, M, E, kTileK, kTileM);
+    if (!err) err = encode_kmajor_bf16(&wo_map, wo, D, E, kTileK, kTileN);
     if (!err) err = allow_gemm_smem(out_bf16_wgmma_kernel);
     if (err) return err;
     out_bf16_wgmma_kernel<<<out_grid, kGemmThreads, kGemmSmemBytes, stream>>>(
-        ctx_map, wo_map, bo, xt, static_cast<T*>(out), M, D);
+        ctx_map, wo_map, bo, residual ? xt : nullptr, static_cast<T*>(out), M, D, E);
   } else {
     out_f32_kernel<<<out_grid, kSimtThreads, 0, stream>>>(
-        static_cast<const T*>(ctx), static_cast<const T*>(wo), bo, xt, static_cast<T*>(out), M, D);
+        static_cast<const T*>(ctx), static_cast<const T*>(wo), bo, residual ? xt : nullptr,
+        static_cast<T*>(out), M, D, E);
   }
   return last_error();
 }
 
 }  // namespace
 
-// x, out, h, q, k, v, ctx: (B, S, D) contiguous in one dtype; wq, wk, wv, wo:
-// (D, D) in that dtype, torch.nn.Linear's (out, in) layout; lns, lnb, bq, bk,
-// bv, bo: (D) f32; key_bias: (B, S) contiguous f32. D == 64 * H, D % 64 == 0
-// and 16-byte aligned pointers (the wrapper checks these).
+// x, out, h: (B, S, D) and q, k, v, ctx: (B, S, E) with E = 64 * H, contiguous
+// in one dtype; wq, wk, wv: (E, D) and wo: (D, E) in that dtype, torch.nn.Linear's
+// (out, in) layout; lns, lnb, bo: (D) f32; bq, bk, bv: (E) f32; key_bias: (B, S)
+// contiguous f32. E == D for the whole layer; a tensor-parallel rank passes its
+// H heads (E < D) and, off the first rank, add_residual 0 (out = ctx . Wo^T + bo).
+// D % 64 == 0 and 16-byte aligned pointers (the wrapper checks these).
 extern "C" int climb_fused_attention_sublayer(
     const void* x, const float* lns, const float* lnb, const void* wq, const float* bq,
     const void* wk, const float* bk, const void* wv, const float* bv, const void* wo,
     const float* bo, const float* key_bias, void* out, void* h, void* q, void* k, void* v,
-    void* ctx, int B, int S, int D, int H, float eps, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * kHeadDim || D % kTileK != 0)
+    void* ctx, int B, int S, int D, int H, int add_residual, float eps, int dtype,
+    void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || H * kHeadDim > D || D % kTileK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool res = add_residual != 0;
   if (dtype == kFloat32)
     return launch<float>(x, lns, lnb, wq, bq, wk, bk, wv, bv, wo, bo, key_bias, out, h, q, k, v,
-                         ctx, B, S, D, H, eps, dtype, s);
+                         ctx, B, S, D, H, res, eps, dtype, s);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16>(x, lns, lnb, wq, bq, wk, bk, wv, bv, wo, bo, key_bias, out, h, q,
-                                 k, v, ctx, B, S, D, H, eps, dtype, s);
+                                 k, v, ctx, B, S, D, H, res, eps, dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

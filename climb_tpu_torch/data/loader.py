@@ -42,7 +42,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,11 +92,14 @@ def _try_create_fork_pool(state, num_workers, deadline=10.0):
 
 
 def _make_batch(dataset, collate_fn, batch_size, task) -> dict:
-    indices, bucket_w, text_len = task
+    indices, bucket_w, text_len = task[:3]
     examples = [dataset[int(i)] for i in indices]
     examples = crop_examples_to_bucket(examples, bucket_w)
     examples = crop_examples_to_text_len(examples, text_len)
-    return pad_batch(collate_fn(examples), batch_size)
+    batch = pad_batch(collate_fn(examples), batch_size)
+    if len(task) > 3:  # a data rank's share that holds only padding
+        batch["valid"][:] = 0
+    return batch
 
 
 def _process_worker_make_batch(task):
@@ -217,7 +220,16 @@ class DataLoader:
                  drop_last: bool = False, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 2, epoch: int = 0, worker_mode: str = "thread",
                  pin_memory: bool = False, bucket_widths: Optional[Sequence[int]] = None,
-                 text_bucket_lens: Optional[Sequence[int]] = None):
+                 text_bucket_lens: Optional[Sequence[int]] = None, host_id: int = 0,
+                 host_count: int = 1, shard: Tuple[int, int] = (0, 1)):
+        """host_id/host_count: each node iterates a disjoint stripe
+        (``idx[host_id::host_count]``) of the (seed + epoch)-shuffled index
+        stream, as a JAX process does (``climb_tpu/data/loader.py:216-270``):
+        a JAX process drives one node's chips, so the port stripes by node.
+        shard = (i, n): this rank yields rows [i*B/n, (i+1)*B/n) of every
+        node batch of B rows (its data rank's share; the rest of the batch
+        is never loaded), so ranks with the same data coordinate get the same
+        rows and one node's ranks together train on the node's batch."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if worker_mode not in ("thread", "process"):
@@ -236,6 +248,11 @@ class DataLoader:
         self.worker_mode = worker_mode
         self.pin_memory = pin_memory
         self.skip = 0
+        self.host_id, self.host_count = int(host_id or 0), max(1, int(host_count or 1))
+        self.shard = (int(shard[0]), int(shard[1]))
+        if batch_size % self.shard[1]:
+            raise ValueError(f"batch_size {batch_size} does not split over {self.shard[1]} "
+                             "data ranks")
         self._len_cache = (None, 0)  # (epoch, bucketed batch count)
         # each example goes to the smallest bucket that holds it (one wider or
         # longer than the largest to the largest: the crops widen for it)
@@ -292,6 +309,8 @@ class DataLoader:
                 self._len_cache = (self.epoch, len(self._index_batches()))
             return self._len_cache[1]
         n = len(self.dataset)
+        if self.host_count > 1:
+            n = len(range(self.host_id, n, self.host_count))
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -303,6 +322,9 @@ class DataLoader:
         idx = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        if self.host_count > 1:
+            idx = idx[self.host_id::self.host_count]
+            n = len(idx)
         if not self.is_bucketed:
             stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
             return [(idx[i:i + self.batch_size], None, None)
@@ -329,14 +351,27 @@ class DataLoader:
                     batches.append((np.asarray(pending[key]),) + bounds(key))
         return batches
 
+    def _share(self, task):
+        """This rank's rows of a batch task: (indices, width, text length,
+        rows of padding to add)."""
+        inds, w, t = task
+        i, n = self.shard
+        if n == 1:
+            return task
+        k = self.batch_size // n
+        mine = inds[i * k:(i + 1) * k]
+        if len(mine) == 0:  # all padding: one real example keeps the shapes, masked out
+            return inds[:1], w, t, k
+        return mine, w, t
+
     def __iter__(self) -> Iterator[dict]:
-        batches = self._index_batches()[self.skip:]
+        batches = [self._share(b) for b in self._index_batches()[self.skip:]]
         self.skip = 0
         if not batches:
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop_evt = threading.Event()
-        state = (self.dataset, self.collate_fn, self.batch_size)
+        state = (self.dataset, self.collate_fn, self.batch_size // self.shard[1])
 
         def producer():
             inflight, todo = deque(), iter(batches)

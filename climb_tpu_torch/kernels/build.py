@@ -48,7 +48,7 @@ _SIGNATURES = {
         _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL, ctypes.c_float, _I, _P,
     ),
     "climb_linear_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "climb_fused_attention_sublayer": (_P,) * 18 + (_I, _I, _I, _I, ctypes.c_float, _I, _P),
+    "climb_fused_attention_sublayer": (_P,) * 18 + (_I,) * 5 + (ctypes.c_float, _I, _P),
 }
 
 _library = None

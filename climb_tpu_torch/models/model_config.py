@@ -5,8 +5,7 @@ canvas, the compute dtype and the kernel switches, with the JAX package's
 training knobs ``remat``, ``remat_policy`` and ``fuse_qkv``, and
 ``dense_impl`` (int8 dense layers for eval-mode forwards). Both dropout rates
 keep the JAX defaults of 0.0. ``scan_unroll`` is a knob of JAX's layer scan:
-the port runs a Python loop over the layers, so it has no such field, and the
-pipeline fields are not ported yet. ``AdapterSpec``
+the port runs a Python loop over the layers, so it has no such field. ``AdapterSpec``
 describes the per-task adapters or LoRA deltas of the adapter algorithm.
 """
 
@@ -59,6 +58,13 @@ class ViltConfig:
     fuse_qkv: bool = False            # one (D, 3D) product for q/k/v (same parameters)
     dense_impl: str = "xla"           # "xla" | "int8" | "int8_static": int8 dense
                                       # layers in eval mode only (ops/quant.py)
+
+    # Pipeline parallelism (parallel/pipeline.py): pp_stages > 1 runs the
+    # encoder's layers through the GPipe/circular schedule over the mesh's
+    # 'pipe' axis (ViltCore.pipe, set by parallel.sharding.shard_model).
+    pp_stages: int = 0                # 0/1 = off
+    pp_virtual: int = 1               # virtual stages per device (circular)
+    pp_microbatches: int = 0          # 0 = one microbatch per stage
 
     @property
     def head_dim(self) -> int:

@@ -67,9 +67,37 @@ fused attention sublayer, the pooler and the heads stay float. Train mode
 always runs the float dense. The calibrated scales of 'int8_static' are
 buffers ``<name>_amax`` of each block and of the core (``ops/quant.py``).
 
-Not ported yet: the pipeline-parallel encoder.
+Tensor parallelism (``parallel/tensor_parallel.py``): a block whose ``tp``
+is set (``parallel.sharding.shard_model`` under ``--n_model > 1``) holds
+only its rank's slice of q/k/v/fc1 (rows, with their biases) and of
+attn_out/fc2 (columns), and runs its local heads and FFN columns through
+the same kernels and the same code as one rank: attention at H/n heads
+(``fused_block``: the fused sublayer at H/n heads) and ``FusedMLP`` at F/n
+columns, between ``copy_in`` (identity forward, gradient summed over
+'model') and ``reduce_out`` (the ranks' partial outputs summed); without a
+mesh ``tp`` is ``SOLO``, whose every method returns its input. The
+row-split layers' bias, and the fused sublayer's residual, are added by the
+first rank only, so the sum holds them once. The sum runs in float32 and is
+cast to the compute dtype once: in bf16 each partial output is already
+rounded to bf16 (by the kernel or the product), so the block's output
+carries n roundings of the partials and one of their sum where the
+single-device block rounds once (float32 differs by summation order only).
+LoRA holds the columns of ``lora_b`` on a column-split target and the rows
+of ``lora_a`` on a row-split one, so its delta splits as its layer's output
+does. Bottleneck adapters act on the summed output and are not split. int8
+dense under tensor parallelism is refused by the model factory. Under FSDP
+(``--fsdp``) every large parameter is held as a slice over 'data' and each
+block's are gathered whole for its forward by hooks (``gathered``).
+
+Pipeline parallelism: with ``cfg.pp_stages > 1`` and ``pipe`` set (the
+'pipe' group, by ``shard_model``; its size is the model factory's check) the
+layers run through ``parallel.pipeline.pipeline_layers`` (JAX
+``_pipelined_encoder``, vilt_core.py:450-560) with ``cfg.pp_microbatches``
+(default: one per stage) and ``cfg.pp_virtual`` chunks per stage; remat
+stays per block.
 """
 
+import contextlib
 import functools
 import math
 from typing import Optional, Tuple
@@ -83,6 +111,8 @@ from climb_tpu_torch.models import adapters
 from climb_tpu_torch.models.model_config import AdapterSpec, ViltConfig
 from climb_tpu_torch.ops import attention, block, mlp, quant
 from climb_tpu_torch.ops.patch_embed import patch_grid_mask, patchify
+from climb_tpu_torch.parallel.pipeline import pipeline_layers
+from climb_tpu_torch.parallel.tensor_parallel import SOLO
 
 
 def _interp_weight_matrix(n_valid: torch.Tensor, src: int, out_total: int) -> torch.Tensor:
@@ -116,9 +146,11 @@ def interpolate_visual_pos_embed(grid: torch.Tensor, patch_hw: torch.Tensor, gri
     return pos.reshape(patch_hw.shape[0], grid_h * grid_w, grid.shape[-1])
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, bias=None) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias (``layer.bias``
+    unless given) cast to ``dtype``."""
+    bias = layer.bias if bias is None else bias
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias.to(dtype))
 
 
 def int8_active(cfg, module: nn.Module) -> bool:
@@ -128,13 +160,14 @@ def int8_active(cfg, module: nn.Module) -> bool:
 
 
 def routed_dense(module: nn.Module, layer: nn.Linear, name: str, x: torch.Tensor,
-                 cfg) -> torch.Tensor:
+                 cfg, bias=None) -> torch.Tensor:
     """``dense``, or ``quant.module_int8_dense`` under ``int8_active`` (JAX's
     ``ViltBlock._dense``); the scales are buffers of ``module``."""
     if int8_active(cfg, module):
-        return quant.module_int8_dense(module, x, layer.weight, layer.bias, name,
+        return quant.module_int8_dense(module, x, layer.weight,
+                                       layer.bias if bias is None else bias, name,
                                        cfg.dense_impl, cfg.compute_dtype)
-    return dense(layer, x, cfg.compute_dtype)
+    return dense(layer, x, cfg.compute_dtype, bias)
 
 
 def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -224,6 +257,10 @@ class ViltBlock(nn.Module):
             self, adapter_spec, adapter_tasks, d,
             {"q": (d, d), "k": (d, d), "v": (d, d), "attn_out": (d, d), "fc1": (d, f),
              "fc2": (f, d)})
+        self.tp = None  # a parallel.tensor_parallel.TensorParallel under --n_model > 1
+        # the block's parameters whole for the duration (FSDP's gather; set by
+        # parallel.sharding.shard_model)
+        self.gathered = contextlib.nullcontext
 
     def _lora(self, active_adapter, target, inp, out):
         spec = self.adapter_spec
@@ -237,22 +274,26 @@ class ViltBlock(nn.Module):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         spec = self.adapter_spec
+        tp = self.tp or SOLO
         b, s, d = x.shape
+        n_heads = tp.heads(cfg.num_heads)
+        e = n_heads * cfg.head_dim  # this rank's width of q, k, v and the context
         lora = functools.partial(self._lora, active_adapter)
         if fused_block_ok(cfg, spec):
             # the whole sublayer (LN1 -> QKV -> MHA -> out-projection -> +x) as
             # one kernel entry; the parameters keep their names and layout
-            x = block.attention_sublayer(
-                x.to(dtype), self.ln1.weight, self.ln1.bias,
+            x = tp.reduce_out(block.attention_sublayer(
+                tp.copy_in(x.to(dtype)), self.ln1.weight, self.ln1.bias,
                 self.q.weight.to(dtype), self.q.bias, self.k.weight.to(dtype), self.k.bias,
                 self.v.weight.to(dtype), self.v.bias,
-                self.attn_out.weight.to(dtype), self.attn_out.bias,
-                mask_bias, num_heads=cfg.num_heads, eps=cfg.layer_norm_eps)
+                self.attn_out.weight.to(dtype), tp.bias_once(self.attn_out.bias),
+                mask_bias, num_heads=n_heads, eps=cfg.layer_norm_eps, residual=tp.first))
             if fused_self_remat(cfg, spec) and torch.is_grad_enabled():
-                return remat_call(self._mlp_sublayer, generator, x, generator, active_adapter)
+                return remat_call(self._mlp_sublayer_gathered, generator, x, generator,
+                                  active_adapter)
             return self._mlp_sublayer(x, generator, active_adapter)
-        heads = (b, s, cfg.num_heads, cfg.head_dim)
-        h = layer_norm(self.ln1, x, dtype)
+        heads = (b, s, n_heads, cfg.head_dim)
+        h = tp.copy_in(layer_norm(self.ln1, x, dtype))
         if cfg.dense_impl == "int8" and not cfg.fuse_qkv and int8_active(cfg, self):
             # LN1's output quantized once for the three products
             hq, hs = quant.quantize_per_row(h)
@@ -263,20 +304,27 @@ class ViltBlock(nn.Module):
             # one (D, 3D) product of the concatenated q/k/v weights
             w = torch.cat([self.q.weight, self.k.weight, self.v.weight]).to(dtype)
             bias = torch.cat([self.q.bias, self.k.bias, self.v.bias]).to(dtype)
-            qkv = F.linear(h, w, bias).view(b, s, 3, d)
+            qkv = F.linear(h, w, bias).view(b, s, 3, e)
             q, k, v = (lora(n, h, qkv[:, :, i]).view(heads) for i, n in enumerate("qkv"))
         else:
             q = lora("q", h, routed_dense(self, self.q, "q", h, cfg)).view(heads)
             k = lora("k", h, routed_dense(self, self.k, "k", h, cfg)).view(heads)
             v = lora("v", h, routed_dense(self, self.v, "v", h, cfg)).view(heads)
         ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
-        ctx = ctx.reshape(b, s, d)
-        attn_out = lora("attn_out", ctx, routed_dense(self, self.attn_out, "attn_out", ctx, cfg))
+        ctx = ctx.reshape(b, s, e)
+        attn_out = tp.reduce_out(lora("attn_out", ctx, routed_dense(
+            self, self.attn_out, "attn_out", ctx, cfg, bias=tp.bias_once(self.attn_out.bias))))
         attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
         if spec is not None and spec.mh_adapter:
             attn_out = adapters.apply_task_adapter(self, attn_out, "attn", active_adapter,
                                                    dtype)
         return self._mlp_sublayer(x + attn_out, generator, active_adapter)
+
+    def _mlp_sublayer_gathered(self, x, generator=None, active_adapter=None):
+        """``_mlp_sublayer`` with the block's parameters whole: under FSDP its
+        recompute runs outside the block's forward, whose hooks gather them."""
+        with self.gathered():
+            return self._mlp_sublayer(x, generator, active_adapter)
 
     def _mlp_sublayer(self, x: torch.Tensor, generator=None,
                       active_adapter: Optional[str] = None) -> torch.Tensor:
@@ -284,18 +332,22 @@ class ViltBlock(nn.Module):
         cfg = self.cfg
         dtype = cfg.compute_dtype
         spec = self.adapter_spec
+        tp = self.tp or SOLO
         lora = functools.partial(self._lora, active_adapter)
         h = layer_norm(self.ln2, x, dtype)
         mlp_in = h
+        h = tp.copy_in(h)
         if mlp_lora(spec) or (int8_active(cfg, self) and cfg.mlp_impl != "pallas"):
             h = lora("fc1", h, routed_dense(self, self.fc1, "fc1", h, cfg))
             h = F.gelu(h, approximate="none")  # HF 'gelu' is the exact erf GELU
-            h = lora("fc2", h, routed_dense(self, self.fc2, "fc2", h, cfg))
+            h = lora("fc2", h, routed_dense(self, self.fc2, "fc2", h, cfg,
+                                            bias=tp.bias_once(self.fc2.bias)))
         else:
             h = mlp.mlp(
                 h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),
-                self.fc2.weight.to(dtype), self.fc2.bias.to(dtype),
+                self.fc2.weight.to(dtype), tp.bias_once(self.fc2.bias).to(dtype),
             )
+        h = tp.reduce_out(h)
         h = dropout(h, cfg.hidden_dropout, self.training, generator)
         if spec is not None and spec.output_adapter:
             adapter_input = mlp_in if spec.is_parallel else h
@@ -340,6 +392,7 @@ class ViltCore(nn.Module):
         self.final_layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.pooler = nn.Linear(d, d)
         self.dropout_generator = None  # a torch.Generator on the model's device
+        self.pipe = None  # the 'pipe' process group under --pp_stages > 1
         self.active_adapter: Optional[str] = None  # the task whose adapters apply
 
     def forward(self, input_ids, text_mask, pixel_values, patch_hw,
@@ -389,15 +442,25 @@ class ViltCore(nn.Module):
         joint_mask = torch.cat([text_mask.to(f32), img_mask], dim=1)
         mask_bias = attention.mask_to_bias(joint_mask, dtype=f32)
         remat = block_remat(cfg) and torch.is_grad_enabled()
-        for layer in self.encoder:
-            if remat:
-                x = remat_call(layer, gen, x, mask_bias, gen, self.active_adapter)
-            else:
-                x = layer(x, mask_bias, gen, self.active_adapter)
+        if cfg.pp_stages > 1 and self.pipe is not None:
+            # the mask bias travels with its microbatch
+            x, _ = pipeline_layers(
+                lambda layer, st: (self._run_block(layer, st[0], st[1], remat),) + st[1:],
+                list(self.encoder), (x, mask_bias), cfg.pp_microbatches or cfg.pp_stages,
+                self.pipe, cfg.pp_virtual)
+        else:
+            for layer in self.encoder:
+                x = self._run_block(layer, x, mask_bias, remat)
 
         x = layer_norm(self.final_layernorm, x, dtype)
         pooled = torch.tanh(dense(self.pooler, x[:, 0], dtype))
         return x, pooled, joint_mask
+
+    def _run_block(self, layer, x, mask_bias, remat):
+        gen = self.dropout_generator
+        if remat:
+            return remat_call(layer, gen, x, mask_bias, gen, self.active_adapter)
+        return layer(x, mask_bias, gen, self.active_adapter)
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator, initializer_range: float):

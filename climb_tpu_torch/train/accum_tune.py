@@ -141,9 +141,10 @@ class AccumTuner:
     """Sweep results per (shape, step configuration), backed by the cache file."""
 
     def __init__(self, patch_size: int, kind: str, cache_path: Optional[str] = None,
-                 config_sig: str = "", timer: Optional[Callable] = None):
+                 config_sig: str = "", timer: Optional[Callable] = None, n_devices: int = 1):
         self.patch_size = patch_size
-        self.kind = kind
+        # a step over several cards keys apart: its per-card microbatch differs
+        self.kind = kind if n_devices <= 1 else f"{kind}|n{n_devices}"
         self.cache_path = os.path.expanduser(cache_path or DEFAULT_CACHE_PATH)
         self.config_sig = config_sig
         self.timer = timer

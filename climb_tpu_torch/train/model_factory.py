@@ -12,6 +12,13 @@ vilt.py:106-108). HF hub names need the network: as the JAX package does when
 it cannot load them, the model keeps its random initialization and a warning
 says so. BERT's weights, too, come from a local file only (the JAX package
 downloads ``bert-base-uncased``, ``model_factory.py:211-222``).
+
+On a mesh (``--use_mesh``, ``--n_model``, ``--fsdp``; ``--pp_stages`` builds
+its own ('data', 'pipe') mesh) the learner is placed by
+``parallel.sharding.shard_model`` after the pretrained weights are grafted,
+with JAX's refusals (``model_factory.py:82-151``): the pipeline composes with
+data parallelism only, takes no int8 dense, and needs a 'pipe' axis of its
+size. The port also refuses int8 dense under ``--n_model > 1``.
 """
 
 import dataclasses
@@ -57,6 +64,9 @@ def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
         remat_policy=getattr(args, "remat_policy", "full"),
         fuse_qkv=getattr(args, "fuse_qkv", False),
         dense_impl=getattr(args, "dense_impl", "xla"),
+        pp_stages=int(getattr(args, "pp_stages", 0) or 0),
+        pp_virtual=int(getattr(args, "pp_virtual", 1) or 1),
+        pp_microbatches=int(getattr(args, "pp_microbatches", 0) or 0),
     )
     if getattr(args, "tiny", False):
         kw.update(
@@ -95,13 +105,52 @@ def load_pretrained(model: ViltContinualLearner, path: str):
                 len(missing))
 
 
-def create_cl_model(args, task_configs, device: torch.device,
-                    adapter_handler=None) -> ViltContinualLearner:
+def pipeline_mesh(args, mesh):
+    """The mesh of a ``--pp_stages > 1`` run (a new ('data', 'pipe') mesh
+    when ``mesh`` is None), after JAX's checks; ``mesh`` otherwise."""
+    pp_stages = int(getattr(args, "pp_stages", 0) or 0)
+    if pp_stages <= 1:
+        return mesh
+    if getattr(args, "fsdp", False) or getattr(args, "n_model", 1) > 1:
+        raise ValueError(
+            "--pp_stages composes with data parallelism only; drop --fsdp/--n_model (the "
+            "pipeline owns the encoder's layout)")
+    if getattr(args, "dense_impl", "xla") != "xla":
+        raise ValueError("--pp_stages does not support int8 dense (no calibration scales "
+                         "travel through the stage schedule)")
+    from climb_tpu_torch.parallel.mesh import PIPE_AXIS, make_dp_pp_mesh
+
+    if mesh is None:
+        return make_dp_pp_mesh(pp_stages)
+    if PIPE_AXIS not in mesh.axis_names:
+        raise ValueError(
+            f"--pp_stages needs a mesh with a '{PIPE_AXIS}' axis (got {mesh.axis_names}); drop "
+            f"--use_mesh — --pp_stages builds its own ('data','pipe') mesh")
+    if mesh.shape[PIPE_AXIS] != pp_stages:
+        raise ValueError(f"mesh '{PIPE_AXIS}' axis is {mesh.shape[PIPE_AXIS]} but "
+                         f"--pp_stages={pp_stages}")
+    return mesh
+
+
+def create_cl_model(args, task_configs, device: torch.device, adapter_handler=None,
+                    mesh=None) -> ViltContinualLearner:
     """The learner on ``device`` in eval mode (the train step switches it to
     train mode), initialized from ``args.seed``. With ``adapter_handler``
     (``cl/adapters.py``) every block holds one adapter per task, drawn with
     the rest of the weights (JAX ``model_factory.py:125-126``). ViLT-BERT's
-    learner carries ``viltbert_frozen_mask`` as its trainability mask."""
+    learner carries ``viltbert_frozen_mask`` as its trainability mask. With
+    ``mesh`` (or ``--pp_stages > 1`` in a process group) the learner is
+    sharded by ``parallel.sharding.shard_model``; ``model.parallel`` is None
+    otherwise."""
+    from climb_tpu_torch.parallel import distributed
+    from climb_tpu_torch.parallel.sharding import shard_model
+
+    if int(getattr(args, "pp_stages", 0) or 0) > 1 and (mesh is not None
+                                                        or distributed.is_initialized()):
+        mesh = pipeline_mesh(args, mesh)
+    if mesh is not None and getattr(args, "n_model", 1) > 1 and \
+            getattr(args, "dense_impl", "xla") != "xla":
+        raise NotImplementedError("--dense_impl int8 with --n_model > 1 is not ported")
     task_keys = list(args.ordered_cl_tasks)
     cfg = vilt_config_from_args(args, "nlvr2" in task_keys)
     learner = _resolve(LEARNERS, args.encoder_name)
@@ -119,7 +168,8 @@ def create_cl_model(args, task_configs, device: torch.device,
     model = model.to(device).eval()
     if model.encoder_key == "viltbert":
         model.trainable_mask = viltbert_frozen_mask(model)
-    return model
+    return shard_model(model, mesh, fsdp=getattr(args, "fsdp", False),
+                       pp=model.cfg.pp_stages > 1)
 
 
 def _encoder_state_dict(path: str, encoder_name: str = "vilt") -> dict:

@@ -27,6 +27,15 @@ The CL penalties:
 With k microbatches each adds its loss sum and its distillation sum divided
 by the whole batch's valid count, and the EWC penalty divided by k, so the
 summed gradients are the whole-batch step's (JAX ``train_step.py:294-320``).
+
+On a mesh (``model.parallel``, ``parallel/sharding.py``) each rank holds its
+share of the batch's rows. The valid count is summed over the batch shards
+before the loss is divided by it (a padded last batch gives ranks unequal
+counts), the gradients are summed over the shards (reduce-scattered under
+FSDP) by ``ParallelContext.reduce_grads``, and the EWC penalty's gradient,
+which each rank computes on its own slices, is added after that reduction.
+The logged loss, metrics and EWC penalty are the whole batch's and the
+whole model's.
 """
 
 from typing import Callable, Dict, NamedTuple, Optional
@@ -87,10 +96,13 @@ class FdRef(NamedTuple):
     weight: float
 
 
-def ewc_penalty(params: Dict[str, torch.Tensor], ewc_ref: EwcRef) -> torch.Tensor:
-    """weight * sum_i F_i (theta_i - theta*_i)^2 over the names in the Fisher."""
-    total = sum((f * (params[n] - ewc_ref.anchor[n]) ** 2).sum()
-                for n, f in ewc_ref.fisher.items())
+def ewc_penalty(params: Dict[str, torch.Tensor], ewc_ref: EwcRef, parallel=None) -> torch.Tensor:
+    """weight * sum_i F_i (theta_i - theta*_i)^2 over the names in the Fisher;
+    with ``parallel`` (a model's ``ParallelContext``, whose ranks hold slices
+    of the parameters, Fisher and anchor) the whole sum, from every rank."""
+    terms = {n: (f * (params[n] - ewc_ref.anchor[n]) ** 2).sum()
+             for n, f in ewc_ref.fisher.items()}
+    total = sum(terms.values()) if parallel is None else parallel.tree_sum(terms)
     return ewc_ref.weight * total
 
 
@@ -174,6 +186,30 @@ def _grads(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for n, p in params.items()}
 
 
+def _global_count(batch: dict, n: int, device, parallel) -> torch.Tensor:
+    """The batch's valid rows over every shard (at least 1)."""
+    count = _valid(batch, n, device).sum()
+    if parallel is not None:
+        count = parallel.batch_sum(count)
+    return torch.clamp(count, min=1.0)
+
+
+def _reduced_grads(params: Dict[str, torch.Tensor], parallel,
+                   ewc_ref=None) -> Dict[str, torch.Tensor]:
+    """``_grads`` of this rank's slices reduced over the mesh, plus the EWC
+    penalty's gradient, which each rank computes on its own slices (added
+    after the reduction, which would count it once per batch shard)."""
+    grads = parallel.reduce_grads(_grads(params))
+    if ewc_ref is not None:
+        names = list(ewc_ref.fisher)
+        pen = torch.autograd.grad(ewc_penalty(params, ewc_ref), [params[n] for n in names],
+                                  allow_unused=True)
+        for n, g in zip(names, pen):
+            if g is not None:
+                grads[n] = grads[n] + g
+    return grads
+
+
 def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: str,
                     compute_dtype=torch.float32, grad_accum_steps=1) -> Callable:
     """``train_step(state, batch, ewc_ref=None, fd_ref=None) -> metrics``
@@ -201,13 +237,14 @@ def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: 
     def train_step(state: TrainState, batch: dict, ewc_ref: Optional[EwcRef] = None,
                    fd_ref: Optional[FdRef] = None) -> dict:
         model.train()
+        par = getattr(model, "parallel", None)
         batch = prepare_batch(batch, compute_dtype)
         for p in state.params.values():
             p.grad = None
         n = batch["input_ids"].shape[0]
         if n % accum:
             raise ValueError(f"batch of {n} does not split into {accum} microbatches")
-        denom = torch.clamp(_valid(batch, n, batch["input_ids"].device).sum(), min=1.0)
+        denom = _global_count(batch, n, batch["input_ids"].device, par)
         loss, fd, logits = 0.0, 0.0, []
         for i in range(accum):
             mb = {k: v[i * n // accum:(i + 1) * n // accum] for k, v in batch.items()}
@@ -224,18 +261,25 @@ def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: 
             if fd_ref is not None:
                 micro_loss = micro_loss + fd_scaled
                 fd = fd + fd_scaled.detach()
-            if ewc_ref is not None:
+            if ewc_ref is not None and par is None:
                 micro_loss = micro_loss + ewc_penalty(state.params, ewc_ref) / accum
             micro_loss.backward()
             loss = loss + data_loss.detach()
             logits.append(out.detach())
-        state.apply_gradients(_grads(state.params))
+        if par is None:
+            state.apply_gradients(_grads(state.params))
+        else:
+            state.apply_gradients(_reduced_grads(state.params, par, ewc_ref))
         metric_sum, metric_count = batch_metric(torch.cat(logits), batch, loss_type)
+        if par is not None:
+            loss, metric_sum, metric_count = (par.batch_sum(t) for t in
+                                              (loss, metric_sum, metric_count))
+            fd = par.batch_sum(fd) if fd_ref is not None else fd
         metrics = {"loss": loss, "metric_sum": metric_sum, "metric_count": metric_count}
         if ewc_ref is not None:
             # logged apart, after the update, as the JAX step does
             with torch.no_grad():
-                metrics["ewc_loss"] = ewc_penalty(state.params, ewc_ref)
+                metrics["ewc_loss"] = ewc_penalty(state.params, ewc_ref, par)
         if fd_ref is not None:
             metrics["distill_loss"] = fd
         return metrics
@@ -251,13 +295,21 @@ def make_grad_fn(model: torch.nn.Module, task_key: Optional[str], loss_type: str
 
     def grad_step(batch: dict):
         model.train()
+        par = getattr(model, "parallel", None)
         batch = prepare_batch(batch, compute_dtype)
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss = compute_loss(model(*model_inputs(task_key, batch)), batch, loss_type)
+        out = model(*model_inputs(task_key, batch))
+        if par is None:
+            loss = compute_loss(out, batch, loss_type)
+        else:
+            lsum, _ = compute_loss_sum(out, batch, loss_type)
+            loss = lsum / _global_count(batch, out.shape[0], out.device, par)
         loss.backward()
-        grads = _grads(params)
+        grads = _grads(params) if par is None else _reduced_grads(params, par)
+        if par is not None:
+            loss = par.batch_sum(loss)
         for p in params.values():
             p.grad = None
         return loss.detach(), grads
@@ -275,13 +327,22 @@ def make_replay_step(model: torch.nn.Module, task_key: Optional[str], loss_type:
 
     def replay_step(batch: dict):
         model.train()
+        par = getattr(model, "parallel", None)
         batch = prepare_batch(batch, compute_dtype)
         state = TrainState.create(model, make_tx())
         for p in state.params.values():
             p.grad = None
-        loss = compute_loss(model(*model_inputs(task_key, batch)), batch, loss_type)
+        out = model(*model_inputs(task_key, batch))
+        if par is None:
+            loss = compute_loss(out, batch, loss_type)
+        else:
+            lsum, _ = compute_loss_sum(out, batch, loss_type)
+            loss = lsum / _global_count(batch, out.shape[0], out.device, par)
         loss.backward()
-        state.apply_gradients(_grads(state.params))
+        state.apply_gradients(_grads(state.params) if par is None
+                              else _reduced_grads(state.params, par))
+        if par is not None:
+            loss = par.batch_sum(loss)
         for p in state.params.values():
             p.grad = None
         return loss.detach()

@@ -43,18 +43,32 @@ handler is installed for the train loop, polled at every step boundary, and a
 request saves the full state with ``steps_into_epoch`` and exits 143; the
 rerun skips the steps done (``set_skip``) and restores the dropout generator
 and Python's ``random``, so it ends on the uninterrupted run's parameters.
+
+On a mesh (``args.mesh``, set by the driver; JAX ``trainers.py:184-187,
+244-249, 322-330, 440-568``) both loaders stripe the index stream by node
+and give each data rank its contiguous share of the node's batch
+(``--batch_size`` is a node's batch); the eval metric is summed over the
+batch shards; a SIGTERM is acted on when any rank has it; the accum sweep
+keys on the rank count and takes the first rank's pick. ``--async_checkpoint``
+writes the elastic state and the best parameters behind the train loop
+(``ckpt.checkpoint.AsyncCheckpointWriter``, flushed before the task ends);
+``--sharded_checkpoints`` writes the elastic state as a sharded directory.
+Host-gathered files, the logs and the results are the first rank's.
 """
 
+import contextlib
 import logging
 import os
 import pickle
 import random as py_random
+import shutil
 import time
 
 import numpy as np
 import torch
 
 from climb_tpu_torch.ckpt.checkpoint import (
+    AsyncCheckpointWriter,
     load_model_file,
     load_state_dict,
     load_train_state,
@@ -70,6 +84,7 @@ from climb_tpu_torch.data.loader import (
 )
 from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
 from climb_tpu_torch.data.visionlanguage import build_vl_datasets
+from climb_tpu_torch.parallel import distributed
 from climb_tpu_torch.train import accum_tune
 from climb_tpu_torch.train.eval_step import LOSS_TYPES, make_eval_step
 from climb_tpu_torch.train.optimizer import make_optimizer
@@ -115,6 +130,30 @@ def _py_random_state() -> torch.Tensor:
                                           dtype=np.uint8).copy())
 
 
+def loader_placement(mesh) -> dict:
+    """The loader's ``host_id``, ``host_count`` and ``shard`` on ``mesh``: one
+    stripe per node (``LOCAL_WORLD_SIZE`` ranks), and this rank's share of
+    its node's batch by its batch coordinate (JAX's process stripe, then the
+    split of a process's batch over its devices)."""
+    if mesh is None:
+        return {}
+    local = distributed.local_world_size()
+    nodes = max(1, mesh.world // local)
+    per_node = max(1, mesh.batch_size // nodes)
+    return dict(host_id=mesh.rank // local, host_count=nodes,
+                shard=(mesh.batch_coord % per_node, per_node))
+
+
+def any_rank(flag: bool, model) -> bool:
+    """True when ``flag`` is True on any rank of ``model``'s mesh."""
+    par = getattr(model, "parallel", None)
+    if par is None or par.mesh.world == 1:
+        return flag
+    t = torch.tensor(float(flag), device=next(model.parameters()).device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t)
+
+
 def make_step_dispatcher(model: torch.nn.Module, task_key, loss_type: str, grad_accum_steps,
                          token_budget=None):
     """``step(state, batch, ewc_ref=None, fd_ref=None) -> metrics`` honouring
@@ -140,14 +179,20 @@ def make_step_dispatcher(model: torch.nn.Module, task_key, loss_type: str, grad_
             return cached(a)(state, batch, ewc_ref, fd_ref)
         return dispatch
 
+    par = getattr(model, "parallel", None)
     tuner = accum_tune.AccumTuner(
         patch, accum_tune.device_kind(next(model.parameters()).device),
-        config_sig=accum_tune.step_config_signature(model.cfg))
+        config_sig=accum_tune.step_config_signature(model.cfg),
+        n_devices=1 if par is None else par.mesh.world)
 
     def dispatch(state, batch, ewc_ref=None, fd_ref=None):
         a = tuner.get(batch, ewc_ref, fd_ref)
         if a is None:
             a = tuner.tune(cached, state, model, batch, ewc_ref, fd_ref)
+        if par is not None and par.mesh.world > 1:  # every rank takes the first's pick
+            t = torch.tensor(float(a), device=next(model.parameters()).device)
+            torch.distributed.broadcast(t, src=0)
+            a = int(t)
         return cached(a)(state, batch, ewc_ref, fd_ref)
 
     dispatch.tuner = tuner
@@ -215,7 +260,8 @@ class VLTaskTrainer:
         loader_args = dict(num_workers=getattr(args, "num_workers", 2),
                            worker_mode=getattr(args, "worker_mode", "thread"),
                            pin_memory=torch.device(self.device).type == "cuda",
-                           **loader_buckets(args))
+                           **loader_buckets(args),
+                           **loader_placement(getattr(args, "mesh", None)))
         self.train_dataloader = DataLoader(self.train_dataset, self.batch_size, stack_collate,
                                            shuffle=True, seed=args.seed, **loader_args)
         eval_bs = args.eval_batch_size
@@ -264,6 +310,14 @@ class VLTaskTrainer:
 
         ckpt_dir = getattr(args, "task_ckpt_dir", None)
         save_every = int(args.save_state_epochs or 0)
+        self.writer = (AsyncCheckpointWriter() if ckpt_dir and save_every
+                       and getattr(args, "async_checkpoint", False) else None)
+        # the elastic saves' scale-out options, passed only when set; the
+        # preemption save is synchronous (the process exits next)
+        self.preempt_save = {"sharded": True} if getattr(args, "sharded_checkpoints",
+                                                         False) else {}
+        self.epoch_save = dict(self.preempt_save,
+                               **({"async_writer": self.writer} if self.writer else {}))
         state_path = os.path.join(ckpt_dir, "train_state") if ckpt_dir else None
         best_path = os.path.join(ckpt_dir, "best_model") if ckpt_dir else None
         start_epoch, resume_skip, global_step, best_score, best_params = 1, 0, 0, -1.0, None
@@ -312,11 +366,19 @@ class VLTaskTrainer:
         finally:
             if preempt:
                 preemption.uninstall_preemption_handler()
+            if self.writer is not None:  # the files are whole before anything reads them
+                self.writer.close()
 
         if best_params is None:  # no eval epoch was hit: keep the final parameters
             best_params, best_score = _host_copy(model), self.eval(model)
-        if state_path and os.path.exists(state_path):
-            os.remove(state_path)  # the task checkpoint supersedes it
+        distributed.barrier()
+        if state_path and os.path.exists(state_path) and distributed.is_main_process():
+            # the task checkpoint supersedes it
+            if os.path.isdir(state_path):
+                shutil.rmtree(state_path, ignore_errors=True)
+            else:
+                os.remove(state_path)
+        distributed.barrier()
         model.load_state_dict(best_params)
         model.encoder.dropout_generator = None
         return best_score, model
@@ -347,13 +409,15 @@ class VLTaskTrainer:
                     logger.info("task=%s step %d: loss=%.4f%s (%.1f ex/s)", self.task_key,
                                 global_step, float(metrics["loss"]), extra,
                                 seen / max(time.time() - t0, 1e-9))
-                if preempt and preemption.preemption_requested():
+                if preempt and any_rank(preemption.preemption_requested(), model):
+                    if self.writer is not None:
+                        self.writer.flush()
                     save_train_state(state, {
                         "epoch": epoch - 1,  # the rerun enters this epoch again...
                         "steps_into_epoch": steps_this_epoch,  # ...past the steps done
                         "global_step": global_step, "best_score": best_score,
                         "best_epoch": self.best_epoch, "generator": generator.get_state(),
-                        "py_random": _py_random_state()}, state_path)
+                        "py_random": _py_random_state()}, state_path, **self.preempt_save)
                     logger.warning("task=%s: preempted at epoch %d step %d; train state saved "
                                    "to %s; exiting 143", self.task_key, epoch,
                                    steps_this_epoch, state_path)
@@ -367,13 +431,13 @@ class VLTaskTrainer:
                 if score > best_score:
                     best_score, self.best_epoch = score, epoch
                     best_params = _host_copy(model)
-                    if best_path and save_every:
-                        save_state_dict(best_params, best_path)
+                    if best_path and save_every and distributed.is_main_process():
+                        save_state_dict(best_params, best_path, async_writer=self.writer)
             if state_path and save_every and epoch % save_every == 0:
                 save_train_state(state, {
                     "epoch": epoch, "global_step": global_step, "best_score": best_score,
                     "best_epoch": self.best_epoch, "generator": generator.get_state(),
-                    "py_random": _py_random_state()}, state_path)
+                    "py_random": _py_random_state()}, state_path, **self.epoch_save)
         return best_score, best_params
 
     # -- evaluation ----------------------------------------------------------
@@ -382,19 +446,25 @@ class VLTaskTrainer:
         parameters or with ``params`` (a state dict) in their place."""
         eval_step = make_eval_step(model, self.task_key, self.loss_type,
                                    model.cfg.compute_dtype, params=params)
-        total, count = 0.0, 0.0
+        total = torch.zeros(2, dtype=torch.float64)
         for batch in device_prefetch(self.eval_dataloader, self.device):
             _, s, c = eval_step(batch)
-            total += float(s)
-            count += float(c)
-        return 100.0 * total / max(count, 1.0)
+            total += torch.tensor([float(s), float(c)], dtype=torch.float64)
+        par = getattr(model, "parallel", None)
+        if par is not None:
+            total = par.batch_sum(total.to(next(model.parameters()).device)).cpu()
+        return 100.0 * float(total[0]) / max(float(total[1]), 1.0)
 
     def eval_forgetting(self, model: torch.nn.Module, model_path: str) -> float:
         """Evaluate this task with a later task's checkpoint (reference
         eval_forgetting, e.g. train_snli_ve.py:268-282); the model keeps its
         own parameters."""
-        own = model.state_dict()
+        par = getattr(model, "parallel", None)
+        with par.local_view() if par is not None else contextlib.nullcontext():
+            own = model.state_dict()  # on a mesh, this rank's slices
         ckpt = load_model_file(model_path)
+        if par is not None:
+            ckpt = par.localize(ckpt)
         params = {k: (ckpt[k].to(v.device) if k in ckpt and ckpt[k].shape == v.shape else v)
                   for k, v in own.items()}
         return self.eval(model, params)

@@ -76,9 +76,11 @@ def test_predict_matches_jax_cli(task, checkpoint, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--scan_unroll", "2"],  # xla_ckpt, remat and the buckets are ported
-    ["--fsdp"],  # --cl_algorithm adapter is ported (tests/test_torch_cl_drivers_adapter.py)
-    ["--use_mesh"],
-    ["--async_checkpoint"],
+    # --cl_algorithm adapter is ported (tests/test_torch_cl_drivers_adapter.py), and the
+    # scale-out flags (tests/test_torch_parallel_*.py, tests/test_torch_sharded_ckpt.py)
+    ["--profile_dir", "x"],
+    ["--memory_profile", "x"],
+    ["--do_wandb_logging"],
     ["--pretrained_model_name", "dandelin/vilt-b32-mlm"],
 ])
 def test_unported_flags_raise(flags, tmp_path):

@@ -184,18 +184,35 @@ def test_device_cuda_without_card_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     # the training knobs are ported (tests/test_torch_{remat,fused_qkv,buckets,
-    # accum_tune,preemption}.py); the flags of later slices still raise
+    # accum_tune,preemption}.py), and the scale-out flags (below); the flags of
+    # later slices still raise
     ["--scan_unroll", "2"],
-    ["--use_mesh"],
-    ["--async_checkpoint"],
-    ["--pp_stages", "2"],  # --dense_impl int8 runs (tests/test_torch_serve_quant.py)
+    ["--profile_dir", "x"],
+    ["--memory_profile", "x"],
     ["--do_wandb_logging"],
-    ["--sharded_checkpoints"],
-    ["--fsdp"],
 ])
 def test_unported_paths_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         port.main(_argv(tmp_path, "singletask", "--device", "cpu") + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use_mesh"],
+    ["--async_checkpoint"],
+    ["--pp_stages", "2"],
+    ["--sharded_checkpoints"],
+    ["--fsdp"],
+])
+def test_scale_out_flags_run_in_one_process(flags, tmp_path):
+    """Without a torchrun world the scale-out flags run the plain path (JAX's
+    one-device guard); a sharded task checkpoint is then written whole by the
+    one rank. Their multi-rank paths: tests/test_torch_parallel_*.py and
+    tests/test_torch_sharded_ckpt.py."""
+    port.main(_argv(tmp_path, "singletask", "--device", "cpu") + flags)
+    exp = next(p for p in tmp_path.iterdir() if p.is_dir())
+    model = exp / "checkpoints" / "task0_snli-ve" / "model"
+    assert model.is_dir() == (flags == ["--sharded_checkpoints"]) and model.exists()
+    assert len(json.loads((exp / "results.json").read_text())) == 1
 
 
 def test_msgpack_checkpoint_raises(tmp_path):
