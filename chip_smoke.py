@@ -33,6 +33,10 @@ Phases, each printing one JSON line as soon as it ends:
               at (32, 281, 12/n, 64), the FFN at F 3072/n on 8,992 and 17,984
               rows, and the fused sublayer at 6 of 12 heads as the first rank
               runs it (residual and bias) and as another rank does (neither).
+              Every row there and at the ragged row counts has the plain
+              version's time, its bound and the time of its library calls
+              (SDPA and its backward; F.linear, gelu, F.linear; the
+              sublayer's composition).
   4. predict: ``climb_tpu_torch.cli.predict.main`` at full ViLT-B/32 width on
               a synthetic snli-ve split through the prefetching loader, with
               the launch counts, step times and host split of that run;
@@ -210,7 +214,27 @@ Phases, each printing one JSON line as soon as it ends:
               train_paths' tolerances; no gradient may reach BERT), the bf16
               step, a profile of it, and BERT's forward against the step: ms
               to dispatch and on the card, its shares, its kernel launches.
- 11. the kernels line (every TPU kernel of climb_tpu with its port), then the
+ 11. pretrained: full-width snapshots written in the Hugging Face hub cache
+              layout in a temporary HF_HOME, random values from a seed (the
+              card's machine has no transformers; the port reads them itself):
+              dandelin/vilt-b32-mlm as ViltForMaskedLM keys (vilt. prefix, the
+              MLM head) in model.safetensors, bert-base-uncased as
+              BertForPreTraining keys (bert. prefix, LayerNorm gamma/beta, the
+              heads) in pytorch_model.bin with a vocab.txt. load_tokenizer
+              ('bert-base-uncased') takes the snapshot's vocabulary. The Phase I
+              driver on --pretrained_model_name dandelin/vilt-b32-mlm (bf16,
+              snli-ve, 12 steps of 32) with --do_wandb_logging --profile_dir
+              --memory_profile: every encoder tensor bit-equal to the file,
+              exact launch counts, the trace naming the port's attention and
+              FFN kernels, the memory snapshot's live bytes at least the
+              parameters and AdamW moments, the dev score in the W&B history;
+              train_language on its default --pretrained_model_name at 2 layers
+              (S = 1057) and with --encoder_name viltbert (BERT from its
+              snapshot, bit-equal); make_table over those results and phase
+              vision's; the host cost model on this host beside phase train's
+              and phase loader's examples/s, with the workers the Phase I step
+              needs.
+ 12. the kernels line (every TPU kernel of climb_tpu with its port), then the
      card line, then the result line.
 
 Exits non-zero, before printing any result, without a card or when any phase
@@ -408,7 +432,12 @@ TPU_KERNELS = (
 )
 
 
+EMITTED = {}  # each phase's last row, for a later phase to read
+
+
 def emit(obj):
+    if "phase" in obj:
+        EMITTED[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -538,21 +567,42 @@ def check_kernels(torch, results):
     torch.cuda.synchronize()
 
 
+def ffn_library(torch):
+    """The FFN as PyTorch's library calls: F.linear, exact gelu, F.linear."""
+    import torch.nn.functional as F
+
+    return lambda x, w1, b1, w2, b2: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+
+def ffn_bound(rows, f, el, peak):
+    return bound((2 * rows * HIDDEN + 2 * HIDDEN * f + f + HIDDEN) * el, 4 * rows * HIDDEN * f,
+                 peak)
+
+
 def check_mlp_ragged(torch, x, w1, b1, w2, b2, dn):
     """mlp_fwd against fused_mlp_plain on the first RAGGED_ROWS rows of x:
-    row counts that leave the last row tile partly outside the tensor."""
+    row counts that leave the last row tile partly outside the tensor; with
+    the plain version's and the library calls' times and the bound."""
     from climb_tpu_torch.ops import mlp
 
+    library = ffn_library(torch)
+    peak = PEAK_BF16 if dn == "bfloat16" else PEAK_F32
     for rows in RAGGED_ROWS:
         xr = x.reshape(-1, HIDDEN)[:rows]
         out = mlp.fused_mlp(xr, w1, b1, w2, b2)
         torch.cuda.synchronize()
         err, tol = compare(torch, "mlp_fwd", dn, out, mlp.fused_mlp_plain(xr, w1, b1, w2, b2))
         del out
-        emit({"phase": "kernel", "name": "mlp_fwd", "dtype": dn, "at": f"{rows} rows",
-              "shape": f"x ({rows},{HIDDEN}) {dn}, {HIDDEN} -> {FFN} -> {HIDDEN}",
-              "max_abs_err": err, "tolerance": tol,
-              "kernel_ms": time_ms(torch, lambda: mlp.fused_mlp(xr, w1, b1, w2, b2), iters=10)})
+        row = {"phase": "kernel", "name": "mlp_fwd", "dtype": dn, "at": f"{rows} rows",
+               "shape": f"x ({rows},{HIDDEN}) {dn}, {HIDDEN} -> {FFN} -> {HIDDEN}",
+               "max_abs_err": err, "tolerance": tol,
+               "kernel_ms": time_ms(torch, lambda: mlp.fused_mlp(xr, w1, b1, w2, b2), iters=10),
+               "plain_ms": time_ms(torch, lambda: mlp.fused_mlp_plain(xr, w1, b1, w2, b2),
+                                   iters=3, warmup=1),
+               "library_ms": time_ms(torch, lambda: library(xr, w1, b1, w2, b2), iters=10),
+               "library": "F.linear, gelu, F.linear"}
+        row["bound_ms"], row["bound_by"] = ffn_bound(rows, FFN, xr.element_size(), peak)
+        emit(row)
 
 
 def blocked_plain_check(torch, out, q, k, v, bias):
@@ -805,13 +855,15 @@ def predict_argv(out_dir, dtype, attn_impl="pallas"):
     ]
 
 
-def expected_launches(fused, n_forward, n_backward, n_batches):
+def expected_launches(fused, n_forward, n_backward, n_batches, layers=None):
     """Launch counts of ``n_forward`` encoder forwards, ``n_backward`` of them
-    with a backward, over ``n_batches`` normalized batches: with fused_block the
-    sublayer kernel takes the place of the attention forward."""
-    return {"attention_fwd": 0 if fused else LAYERS * n_forward,
-            "fused_block_fwd": LAYERS * n_forward if fused else 0,
-            "attention_bwd": LAYERS * n_backward, "mlp_fwd": LAYERS * n_forward,
+    with a backward, over ``n_batches`` normalized batches, through ``layers``
+    (default LAYERS) blocks: with fused_block the sublayer kernel takes the
+    place of the attention forward."""
+    layers = LAYERS if layers is None else layers
+    return {"attention_fwd": 0 if fused else layers * n_forward,
+            "fused_block_fwd": layers * n_forward if fused else 0,
+            "attention_bwd": layers * n_backward, "mlp_fwd": layers * n_forward,
             "normalize_u8": n_batches}
 
 
@@ -3838,9 +3890,15 @@ def check_tp_kernels(torch, results):
     and backward at (32, 281, H/n, 64), the FFN at F/n columns on the train
     (8,992) and serving (17,984) row counts, and the fused sublayer at 6 heads
     of a 768-wide layer, as the first rank runs it (residual and bias) and as
-    another rank does (neither)."""
+    another rank does (neither). Each row has the plain version's time, the
+    bound and the time of the library calls (SDPA and its backward; F.linear,
+    gelu, F.linear; the sublayer's composition)."""
+    import torch.nn.functional as F
+
     from climb_tpu_torch.kernels import LAUNCHES
-    from climb_tpu_torch.ops import attention, block, mlp
+    from climb_tpu_torch.ops import attention, mlp
+
+    library_ffn = ffn_library(torch)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
@@ -3861,6 +3919,8 @@ def check_tp_kernels(torch, results):
             el = torch.tensor([], dtype=dtype).element_size()
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
             q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa_mask = bias.to(dtype)
             at = f"tensor parallel n={n}"
             with torch.no_grad():
                 before = LAUNCHES["attention_fwd"]
@@ -3875,6 +3935,9 @@ def check_tp_kernels(torch, results):
                            q, k, v, bias), iters=10),
                        "plain_ms": time_ms(torch, lambda: attention.mha_plain(q, k, v, bias),
                                            iters=3, warmup=1),
+                       "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, attn_mask=sdpa_mask), iters=10),
+                       "library": "SDPA (float mask)",
                        "launches": LAUNCHES["attention_fwd"] - before}
                 row["bound_ms"], row["bound_by"] = bound(
                     4 * q.numel() * el + TRAIN_BATCH * SEQ * 4, 4 * pairs, peak)
@@ -3893,6 +3956,8 @@ def check_tp_kernels(torch, results):
                            q, k, v, bias, do), iters=10),
                        "plain_ms": time_ms(torch, lambda: attention.attention_bwd_plain(
                            q, k, v, bias, do), iters=3, warmup=1),
+                       "library_ms": sdpa_backward_ms(torch, q, k, v, bias, do),
+                       "library": "SDPA's backward alone, as phase kernel times it",
                        "launches": LAUNCHES["attention_bwd"] - before}
                 row["bound_ms"], row["bound_by"] = bound(
                     7 * q.numel() * el + TRAIN_BATCH * SEQ * 4, 10 * pairs, peak)
@@ -3914,21 +3979,40 @@ def check_tp_kernels(torch, results):
                                xr, w1, b1, w2, b2), iters=10),
                            "plain_ms": time_ms(torch, lambda: mlp.fused_mlp_plain(
                                xr, w1, b1, w2, b2), iters=3, warmup=1),
+                           "library_ms": time_ms(torch, lambda: library_ffn(
+                               xr, w1, b1, w2, b2), iters=10),
+                           "library": "F.linear, gelu, F.linear",
                            "launches": LAUNCHES["mlp_fwd"] - before}
-                    row["bound_ms"], row["bound_by"] = bound(
-                        (2 * rows * HIDDEN + 2 * HIDDEN * f + f + HIDDEN) * el,
-                        4 * rows * HIDDEN * f, peak)
+                    row["bound_ms"], row["bound_by"] = ffn_bound(rows, f, el, peak)
                     emit(row)
                     results[("mlp_fwd", dn, at, rows)] = row
-            del q, k, v, do
+            del q, k, v, do, qt, kt, vt, sdpa_mask
         torch.cuda.synchronize()
     check_tp_fused_block(torch, results)
+
+
+def sdpa_backward_ms(torch, q, k, v, bias, do):
+    """SDPA's backward alone on (B, S, H, D) inputs: autograd.grad through one
+    retained F.scaled_dot_product_attention graph (float mask), built outside
+    inference mode."""
+    import torch.nn.functional as F
+
+    with torch.inference_mode(False), torch.enable_grad():
+        qt, kt, vt = (t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v))
+        dot, mask = do.transpose(1, 2).clone(), bias.to(q.dtype).clone()
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        return time_ms(torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                          retain_graph=True), iters=10)
 
 
 def check_tp_fused_block(torch, results):
     """csrc/block.cu at one of two model ranks' shapes: x (64, 281, 768), the
     rank's 6 heads (q, k, v, ctx 384 wide, wq/wk/wv (384, 768), wo (768,
-    384)); the first rank adds the residual and bo, another rank neither."""
+    384)); the first rank adds the residual and bo, another rank neither. The
+    library yardstick is F.layer_norm, three F.linear, SDPA, F.linear and, on
+    the first rank, the residual add."""
+    import torch.nn.functional as F
+
     from climb_tpu_torch.kernels import LAUNCHES
     from climb_tpu_torch.ops import block
 
@@ -3953,10 +4037,24 @@ def check_tp_fused_block(torch, results):
         x = x32.to(dtype)
         wq, wk, wv = (w.to(dtype) for w in wqkv)
         wo = wo32.to(dtype)
+        sdpa_mask = bias.to(dtype)
+
+        def split(t):
+            return t.view(BATCH, SEQ, heads, HEAD_DIM).transpose(1, 2)
+
         for first in (True, False):
             b_out = bo if first else torch.zeros_like(bo)
             args = (x, lns, lnb, wq, bqkv[0], wk, bqkv[1], wv, bqkv[2], wo, b_out, bias)
             kw = dict(num_heads=heads, residual=first)
+
+            def library(first=first, b_out=b_out):
+                h = F.layer_norm(x, (HIDDEN,), lns.to(dtype), lnb.to(dtype), 1e-12)
+                q, k, v = (F.linear(h, w, b.to(dtype)) for w, b in zip((wq, wk, wv), bqkv))
+                ctx = F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                                     attn_mask=sdpa_mask)
+                out = F.linear(ctx.transpose(1, 2).reshape(BATCH, SEQ, e), wo, b_out.to(dtype))
+                return x + out if first else out
+
             with torch.no_grad():
                 before = LAUNCHES["fused_block_fwd"]
                 out = block.fused_attention_sublayer(*args, **kw)
@@ -3973,6 +4071,9 @@ def check_tp_fused_block(torch, results):
                            *args, **kw), iters=10),
                        "plain_ms": time_ms(torch, lambda: block.fused_attention_sublayer_plain(
                            *args, **kw), iters=3, warmup=1),
+                       "library_ms": time_ms(torch, library, iters=10),
+                       "library": "F.layer_norm, three F.linear, SDPA (float mask), F.linear"
+                                  + (", add" if first else ""),
                        "launches": LAUNCHES["fused_block_fwd"] - before}
                 row["bound_ms"], row["bound_by"] = bound(
                     (2 * n_rows * HIDDEN + 4 * n_rows * e + 4 * HIDDEN * e) * el
@@ -4472,6 +4573,355 @@ def check_pair(res, what):
     return memory
 
 
+PRETRAINED_SEED = 11  # the snapshots' random values
+PRETRAINED_STEPS = 12  # Phase I train steps of batch TRAIN_BATCH from the snapshot
+PRETRAINED_LANGUAGE_LAYERS = 2  # the language runs' depth (the snapshot has LAYERS)
+PRETRAINED_LANGUAGE_SIZE = 32  # synthetic imdb examples: two steps of LONG_BATCH
+VILTBERT_LANGUAGE_TEXT = 480  # under BERT's 512 positions
+VILT_HUB_CONFIG = {  # dandelin/vilt-b32-mlm's published widths (config.json)
+    "model_type": "vilt", "architectures": ["ViltForMaskedLM"], "hidden_size": HIDDEN,
+    "num_hidden_layers": LAYERS, "num_attention_heads": HEADS, "intermediate_size": FFN,
+    "vocab_size": 30522, "max_position_embeddings": TEXT, "image_size": 384,
+    "patch_size": 32, "num_channels": 3, "type_vocab_size": 2,
+    "modality_type_vocab_size": 2, "max_image_length": -1, "hidden_act": "gelu",
+    "layer_norm_eps": 1e-12}
+BERT_HUB_CONFIG = {  # bert-base-uncased's
+    "model_type": "bert", "architectures": ["BertForPreTraining"], "hidden_size": HIDDEN,
+    "num_hidden_layers": LAYERS, "num_attention_heads": HEADS, "intermediate_size": FFN,
+    "vocab_size": 30522, "max_position_embeddings": 512, "type_vocab_size": 2,
+    "hidden_act": "gelu", "layer_norm_eps": 1e-12}
+HUB_REVISION = "5a9582fd0c8d6da3eb8393e06b3bbf98919ff539"
+_SAFETENSORS_DTYPES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16", "int64": "I64"}
+
+
+def write_safetensors(torch, path, tensors):
+    """A ``.safetensors`` file: the 8-byte little-endian header length, the
+    JSON header (dtype, shape, data_offsets), the raw little-endian data."""
+    import struct
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+
+
+def hub_snapshot(hf_home, repo_id):
+    """The hub cache's entry for ``repo_id`` under ``hf_home``: refs/main and
+    the snapshot directory of its revision."""
+    repo = os.path.join(hf_home, "hub", "models--" + repo_id.replace("/", "--"))
+    snapshot = os.path.join(repo, "snapshots", HUB_REVISION)
+    os.makedirs(snapshot)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(HUB_REVISION)
+    return snapshot
+
+
+def random_like(torch, sd, g):
+    """Each float tensor of ``sd`` drawn anew, N(0, 0.02), from ``g``."""
+    return {k: torch.randn(v.shape, generator=g) * 0.02 for k, v in sd.items()}
+
+
+def write_pretrained_snapshots(torch, hf_home):
+    """Full-width snapshots in the hub cache layout under ``hf_home``, random
+    values from PRETRAINED_SEED: dandelin/vilt-b32-mlm as a ViltForMaskedLM
+    checkpoint (``vilt.`` keys and the MLM head, model.safetensors), and
+    bert-base-uncased as a BertForPreTraining one (``bert.`` keys, TF-era
+    LayerNorm gamma/beta, the heads, pytorch_model.bin) with a vocab.txt and a
+    tokenizer_config.json. Returns the ViltCore and BertCore state dicts
+    written (by the port's names) and the files' sizes."""
+    from climb_tpu_torch.models.bert import BertConfig, BertCore
+    from climb_tpu_torch.models.hf_import import bert_to_hf, vilt_to_hf
+    from climb_tpu_torch.models.model_config import ViltConfig
+    from climb_tpu_torch.models.vilt_core import ViltCore
+
+    g = torch.Generator().manual_seed(PRETRAINED_SEED)
+    vilt = random_like(torch, ViltCore(ViltConfig()).state_dict(), g)
+    snap = hub_snapshot(hf_home, "dandelin/vilt-b32-mlm")
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(VILT_HUB_CONFIG, f)
+    vocab, d = VILT_HUB_CONFIG["vocab_size"], HIDDEN
+    hf = {"vilt." + k: v for k, v in vilt_to_hf(vilt).items()}
+    hf.update({"mlm_score.dense.weight": torch.randn(d, d, generator=g),
+               "mlm_score.dense.bias": torch.randn(d, generator=g),
+               "mlm_score.layer_norm.weight": torch.ones(d),
+               "mlm_score.layer_norm.bias": torch.zeros(d),
+               "mlm_score.bias": torch.randn(vocab, generator=g)})
+    write_safetensors(torch, os.path.join(snap, "model.safetensors"), hf)
+    sizes = {"vilt_model.safetensors": os.path.getsize(os.path.join(snap, "model.safetensors"))}
+
+    bert = random_like(torch, BertCore(BertConfig()).state_dict(), g)
+    snap = hub_snapshot(hf_home, "bert-base-uncased")
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(BERT_HUB_CONFIG, f)
+    hf = {}
+    for k, v in bert_to_hf(bert).items():
+        k = "bert." + k
+        if k.endswith("LayerNorm.weight"):
+            k = k[:-len("weight")] + "gamma"
+        elif k.endswith("LayerNorm.bias"):
+            k = k[:-len("bias")] + "beta"
+        hf[k] = v
+    hf.update({"bert.pooler.dense.weight": torch.randn(d, d, generator=g),
+               "bert.pooler.dense.bias": torch.randn(d, generator=g),
+               "cls.predictions.bias": torch.randn(vocab, generator=g),
+               "cls.seq_relationship.weight": torch.randn(2, d, generator=g)})
+    torch.save(hf, os.path.join(snap, "pytorch_model.bin"))
+    sizes["bert_pytorch_model.bin"] = os.path.getsize(os.path.join(snap, "pytorch_model.bin"))
+    write_vocab(os.path.join(snap, "vocab.txt"))
+    with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True, "model_max_length": 512}, f)
+    return vilt, bert, sizes
+
+
+def differing(torch, got, want, prefix=""):
+    """Names of ``want`` whose tensor in ``got`` (under ``prefix``) is not
+    bit-equal; a missing name counts."""
+    return [k for k, v in want.items() if prefix + k not in got
+            or not torch.equal(got[prefix + k].cpu(), v)]
+
+
+def trace_kernels(path):
+    """Device kernel names (by substring) and launches in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    wanted = ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
+              "attention_bwd_dkdv_bf16_kernel", "linear_bf16_wgmma_kernel",
+              "normalize_u8_kernel")
+    return {w: sum(w in n for n in names) for w in wanted}, len(names)
+
+
+def live_bytes(path):
+    """Bytes of the blocks a CUDA memory snapshot (this run's own file) shows
+    allocated, and how many of them carry a stack."""
+    import pickle
+
+    with open(path, "rb") as f:
+        snapshot = pickle.load(f)
+    blocks = [b for seg in snapshot["segments"] for b in seg["blocks"]
+              if b["state"] == "active_allocated"]
+    return sum(b["size"] for b in blocks), sum(bool(b.get("frames")) for b in blocks)
+
+
+@contextlib.contextmanager
+def hidden_module(name):
+    """``import name`` raises ImportError inside the block; sys.modules is
+    otherwise left as the block leaves it."""
+    missing = object()
+    saved = sys.modules.get(name, missing)
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        if saved is missing:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = saved
+
+
+def run_pretrained_phase1(torch, hf_home, vilt, work):
+    """The Phase I driver on --pretrained_model_name dandelin/vilt-b32-mlm,
+    with --do_wandb_logging --profile_dir --memory_profile."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as driver
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.train import model_factory
+    from climb_tpu_torch.utils.wandb import wandb_logger
+
+    out_dir = os.path.join(work, "phase1")
+    trace_dir, mem_path = os.path.join(work, "trace"), os.path.join(work, "memory.pickle")
+    size = PRETRAINED_STEPS * TRAIN_BATCH
+    argv = ["--encoder_name", "vilt", "--pretrained_model_name", "dandelin/vilt-b32-mlm",
+            "--cl_algorithm", "singletask_ft", "--ordered_cl_tasks", "snli-ve",
+            "--climb_data_dir", out_dir, "--output_dir", out_dir, "--synthetic",
+            "--synthetic_train_size", str(size), "--batch_size", str(TRAIN_BATCH),
+            "--task_config_overrides", "snli-ve.num_epochs=1", "--compute_dtype", "bfloat16",
+            "--attn_impl", "pallas", "--mlp_impl", "pallas", "--seed", "0", "--do_train",
+            "--do_wandb_logging", "--profile_dir", trace_dir, "--memory_profile", mem_path]
+    loaded = {}
+    load_pretrained = model_factory.load_pretrained
+
+    def checked_load(model, name):
+        load_pretrained(model, name)
+        loaded["differing"] = differing(torch, model.state_dict(), vilt, "vilt.")
+        loaded["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    # the card's machine may have the wandb package, whose init reaches for W&B's
+    # servers: hidden, so the logger keeps its in-memory history (as without it)
+    with mock.patch.object(model_factory, "load_pretrained", checked_load), \
+            hidden_module("wandb"), \
+            mock.patch.object(wandb_logger, "is_initialized", False), \
+            mock.patch.object(wandb_logger, "_history", []):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        driver.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        history = list(wandb_logger._history)
+    n_eval = math.ceil(size // 4 / TRAIN_BATCH)
+    expected = expected_launches(False, PRETRAINED_STEPS + n_eval, PRETRAINED_STEPS,
+                                 PRETRAINED_STEPS + n_eval)
+    if launches != expected:
+        raise AssertionError(f"pretrained Phase I launches {launches} != expected {expected}")
+    if loaded.get("differing") != []:
+        raise AssertionError(f"encoder tensors not bit-equal to the snapshot: {loaded}")
+    traced, n_kernels = trace_kernels(os.path.join(trace_dir, "snli-ve.pt.trace.json"))
+    if not all(traced.values()):
+        raise AssertionError(f"the trace lacks a kernel of the port: {traced}")
+    live, with_stacks = live_bytes(mem_path)
+    # parameters, and AdamW's two f32 moments of every (trainable) parameter
+    floor = 3 * loaded["param_bytes"]
+    if live < floor or with_stacks == 0:
+        raise AssertionError(f"memory snapshot: {live} live bytes ({with_stacks} blocks with "
+                             f"stacks), expected at least {floor}")
+    dev = [h["snli-ve/dev_score"] for h in history if "snli-ve/dev_score" in h]
+    if len(dev) != 1 or not 0.0 <= dev[0] <= 100.0:
+        raise AssertionError(f"W&B history has no dev score: {history}")
+    return {"seconds": seconds, "launches": launches, "encoder_tensors_bit_equal": len(vilt),
+            "trace_kernel_launches": traced, "trace_device_kernels": n_kernels,
+            "trace_bytes": os.path.getsize(os.path.join(trace_dir, "snli-ve.pt.trace.json")),
+            "memory_live_bytes": live, "memory_blocks_with_stacks": with_stacks,
+            "param_bytes": loaded["param_bytes"], "wandb_history": history}
+
+
+def run_pretrained_language(torch, vilt, bert, out_dir, encoder):
+    """train_language on its default --pretrained_model_name (the snapshot) at
+    PRETRAINED_LANGUAGE_LAYERS layers: imdb at S = 1057 for ViLT, at
+    VILTBERT_LANGUAGE_TEXT text positions for ViLT-BERT (BERT's 512)."""
+    import dataclasses
+
+    from climb_tpu_torch.cli import train_language
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    layers = PRETRAINED_LANGUAGE_LAYERS
+    config_from_args = train_language.vilt_config_from_args
+    encoder_params = train_language.load_encoder_params
+    got = {}
+
+    def shallow(args, needs_three_modalities):
+        return dataclasses.replace(config_from_args(args, needs_three_modalities),
+                                   num_layers=layers)
+
+    def recorded(*a, **kw):
+        sd, cfg = encoder_params(*a, **kw)
+        got["sd"] = sd
+        return sd, cfg
+
+    text = LONG_TEXT if encoder == "vilt" else VILTBERT_LANGUAGE_TEXT
+    argv = ["--task_name", "imdb", "--encoder_name", encoder, "--max_len_override", str(text),
+            "--batch_size", str(LONG_BATCH), "--checkpoint_name", "scratch", "--synthetic",
+            "--synthetic_train_size", str(PRETRAINED_LANGUAGE_SIZE), "--attn_impl", "pallas",
+            "--mlp_impl", "pallas", "--compute_dtype", "bfloat16", "--seed", "0",
+            "--output_dir", out_dir, "--task_config_overrides", "imdb.num_epochs=1"]
+    with mock.patch.object(train_language, "vilt_config_from_args", shallow), \
+            mock.patch.object(train_language, "load_encoder_params", recorded):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out_fn = train_language.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    n_steps, n_eval = math.ceil(PRETRAINED_LANGUAGE_SIZE / LONG_BATCH), 2
+    expected = expected_launches(False, n_steps + n_eval, n_steps, n_steps + n_eval, layers)
+    if launches != expected:
+        raise AssertionError(f"pretrained {encoder} language launches {launches} != {expected}")
+    keep = tuple(f"encoder.{i}." for i in range(layers))
+    vilt_want = {k: v for k, v in vilt.items() if not k.startswith("encoder.") or
+                 k.startswith(keep)}
+    prefix = "vilt." if encoder == "viltbert" else ""
+    bad = differing(torch, got["sd"], vilt_want, prefix)
+    row = {"seconds": seconds, "launches": launches, "results_file": os.path.basename(out_fn),
+           "layers": layers, "text_positions": text, "vilt_tensors_bit_equal": len(vilt_want)}
+    if encoder == "viltbert":
+        bert_want = {k: v for k, v in bert.items() if not k.startswith("encoder.") or
+                     k.startswith(keep)}
+        bad += differing(torch, got["sd"], bert_want, "bert.")
+        row["bert_tensors_bit_equal"] = len(bert_want)
+    if bad:
+        raise AssertionError(f"{encoder} language: not loaded from the snapshot: {bad[:8]}")
+    return row, out_fn
+
+
+def run_pretrained(torch, work):
+    """Phase pretrained: the drivers from full-width Hugging Face snapshots in
+    a temporary HF_HOME (the port's own reader: no transformers here), the
+    profiling and W&B flags, make_table over this script's Phase II results,
+    and the host cost model beside phases train and loader."""
+    import shutil
+
+    from climb_tpu_torch.data import host_cost
+    from climb_tpu_torch.data.tokenization import WordPieceTokenizer, load_tokenizer
+    from climb_tpu_torch.evaluation import make_table
+
+    t_phase = time.perf_counter()
+    work = os.path.join(work, "pretrained")
+    hf_home = os.path.join(work, "hf_home")
+    env = {"HF_HOME": hf_home, "HF_HUB_CACHE": ""}
+    with mock.patch.dict(os.environ, env):
+        del os.environ["HF_HUB_CACHE"]
+        t0 = time.perf_counter()
+        vilt, bert, sizes = write_pretrained_snapshots(torch, hf_home)
+        write_seconds = time.perf_counter() - t0
+        tok = load_tokenizer("bert-base-uncased")
+        ref = WordPieceTokenizer.from_vocab_file(os.path.join(
+            hf_home, "hub", "models--bert-base-uncased", "snapshots", HUB_REVISION, "vocab.txt"))
+        sentence = "Two people are riding a horse on the beach ."
+        if type(tok).__name__ != "NativeWordPieceTokenizer" or any(
+                not (a == b).all() for a, b in zip(tok.encode(sentence, TEXT),
+                                                  ref.encode(sentence, TEXT))):
+            raise AssertionError(f"load_tokenizer('bert-base-uncased') gave {type(tok)}")
+        phase1 = run_pretrained_phase1(torch, hf_home, vilt, work)
+        results = os.path.join(work, "results")
+        language = {}
+        for encoder, sub in (("vilt", "lang_only"), ("viltbert", "lang_only/viltbert")):
+            language[encoder], _ = run_pretrained_language(
+                torch, vilt, bert, os.path.join(results, sub), encoder)
+    # make_table over the Phase II results: these language runs' and phase vision's
+    vision = os.path.join(results, "vision_only")
+    os.makedirs(vision)
+    for root, _, files in os.walk(os.path.join(os.path.dirname(work), "vision_out")):
+        for name in files:
+            if name.startswith("imagenet_") and name.endswith("_results.json"):
+                shutil.copy(os.path.join(root, name), vision)
+    tables = {}
+    for task in ("imdb", "imagenet"):
+        with contextlib.redirect_stdout(sys.stderr):  # its pretty-print is not a result
+            out = make_table.main([task, "--results_root", results, "--out_dir", work])
+        with open(out) as f:
+            tables[task] = json.load(f)
+    if set(tables["imdb"]) != {"ViLT", "ViLTBERT"} or "ViLT" not in tables["imagenet"]:
+        raise AssertionError(f"make_table: {tables}")
+    # the host cost model on this host, against phase train's and phase loader's rates
+    t0 = time.perf_counter()
+    measured = host_cost.measure_host_costs()
+    train_ex_s = EMITTED["train"]["snli-ve"]["train_examples_per_sec"]
+    workers = 2  # the drivers' --num_workers
+    model = host_cost.cost_model(measured, train_ex_s, workers)
+    loader_ex_s = [r["examples_per_sec"] for r in EMITTED["loader"]["readings"]
+                   if r["task"] == "snli-ve" and r["worker_mode"] == "thread"
+                   and r["num_workers"] == workers][0]
+    emit({"phase": "pretrained", "config": "ViLT-B/32 and BERT-base snapshots at the published "
+          "widths (random values from seed %d) in a temporary HF_HOME, hub cache layout" %
+          PRETRAINED_SEED, "snapshot_bytes": sizes, "snapshot_write_seconds": write_seconds,
+          "tokenizer": type(tok).__name__, "phase1": phase1, "language": language,
+          "make_table": tables, "host_cost": {
+              "measured": measured, "model_this_host": model, "seconds":
+              time.perf_counter() - t0, "phase_train_examples_per_sec": train_ex_s,
+              "phase_loader_examples_per_sec": loader_ex_s,
+              "workers_needed_for_phase_train": model["workers_needed_for_headline"]},
+          "seconds": time.perf_counter() - t_phase})
+
+
 def ptxas_resources(report):
     """{mangled kernel name: {"registers", "spill_bytes"}} from nvcc -Xptxas -v."""
     import re
@@ -4633,6 +5083,7 @@ def main() -> int:
         fabricate_piqa_root(piqa_root)
         launches["language_real"] = run_language_real(torch, piqa_root)
         launches.update(run_viltbert(torch, work, vision_root, piqa_root, launches["train"]))
+        run_pretrained(torch, work)
     # the Phase II paths of this slice run the normalize, attention and FFN kernels
     for path in ("vision_imagenet", "vision_coco_cls", "lowshot", "lowshot_vcr"):
         missing = [k for k in ("normalize_u8", "attention_fwd", "attention_bwd", "mlp_fwd")

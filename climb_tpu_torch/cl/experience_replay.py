@@ -27,6 +27,7 @@ from climb_tpu_torch.data.loader import collate_from_indices
 from climb_tpu_torch.parallel.sharding import shard_batch
 from climb_tpu_torch.train.optimizer import make_optimizer
 from climb_tpu_torch.train.train_step import make_replay_step
+from climb_tpu_torch.utils.wandb import wandb_logger
 
 logger = logging.getLogger(__name__)
 
@@ -152,5 +153,6 @@ class ExperienceReplayMemory:
         # drawn alike on every rank (Python's random), then this rank's rows
         batch = buf.task_trainer.put(shard_batch(buf.sample_replay_batch(), model))
         loss = buf.replay_step_fn(model)(batch)
+        wandb_logger.log({task_key: {"loss": float(loss)}})
         logger.info("replay step on %s: loss=%.4f", task_key, float(loss))
         return loss

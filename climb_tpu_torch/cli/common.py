@@ -1,14 +1,21 @@
 """Shared CLI plumbing (counterpart of ``climb_tpu/cli/common.py``).
 
 The flags the serving and training paths read keep their JAX names and
-defaults. Flags of later slices are accepted where ``climb_tpu`` accepts them
-and raise ``NotImplementedError`` when set (``reject_unported``), so a run
-never silently ignores one. ``setup_mesh`` joins a ``torchrun`` world and
-builds the drivers' mesh.
+defaults. The scale-out flags, which the Phase II drivers accept as the JAX
+ones do, raise ``NotImplementedError`` there when set (``reject_unported``),
+so a run never silently ignores one. ``setup_mesh`` joins a ``torchrun``
+world and builds the drivers' mesh.
 """
 
 import argparse
 import logging
+
+
+PRETRAINED_HELP = ("'scratch', a Hugging Face snapshot (a directory, or a hub name such as "
+                   "dandelin/vilt-b32-mlm already in the local cache: $HF_HUB_CACHE, else "
+                   "$HF_HOME/hub, else ~/.cache/huggingface/hub; never downloaded) or a "
+                   "reference-layout checkpoint file; with none of them the seed's "
+                   "initialization stays, with a warning.")
 
 
 def setup_logging():
@@ -23,7 +30,8 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--output_dir", type=str, required=True,
                         help="Directory where experiment results are saved.")
     parser.add_argument("--do_wandb_logging", action="store_true",
-                        help="Log to W&B: not ported (no network); raises.")
+                        help="Log experiments in W&B (utils.wandb; without the wandb "
+                             "package, an in-memory history only).")
     parser.add_argument("--batch_size", type=int, default=32, help="Batch size.")
     parser.add_argument("--num_workers", type=int, default=2,
                         help="Host loader workers (threads or forked processes, "
@@ -173,7 +181,10 @@ def add_device_args(parser: argparse.ArgumentParser):
                              "kernels never keep (with --attn_impl fused_block the MLP "
                              "sublayer is checkpointed).")
     parser.add_argument("--scan_unroll", type=int, default=1,
-                        help="JAX layer-scan unroll; the port runs a Python loop (1 only).")
+                        help="Unroll factor of the JAX package's encoder layer scan. The "
+                             "port runs the layers as an unrolled Python loop, so the value "
+                             "changes no computation; it is kept in ViltConfig and in the "
+                             "accum sweep's cache key, as JAX keeps it.")
     parser.add_argument("--fuse_qkv", action="store_true",
                         help="One (D, 3D) product for q, k and v instead of three (D, D) "
                              "products; the parameters keep their names and layout. "
@@ -209,18 +220,16 @@ def add_device_args(parser: argparse.ArgumentParser):
                              "stays synchronous; writes are tmp+rename atomic). Use with "
                              "--save_state_epochs.")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="jax.profiler trace: not ported (chip_smoke.py profiles a step).")
+                        help="Capture a torch.profiler trace of train steps 6-10 (started "
+                             "after step 5, as JAX's) of each task, CPU activity and CUDA on "
+                             "the card, into this directory as <task>.pt.trace.json, a "
+                             "Chrome trace (view it in chrome://tracing or Perfetto).")
     parser.add_argument("--memory_profile", type=str, default=None,
-                        help="Device memory profile: not ported.")
-
-
-# (flag, value that is ported, later slice that brings the rest)
-_UNPORTED = (
-    ("do_wandb_logging", False, "no network: W&B logging is not ported"),
-    ("scan_unroll", 1, "the port runs the layers in a Python loop"),
-    ("profile_dir", None, "chip_smoke.py's torch.profiler phase stands in"),
-    ("memory_profile", None, "a later profiling PR"),
-)
+                        help="Write what is live on the card after train step 5 to this "
+                             "path: a CUDA memory snapshot recorded from the trainer's start, "
+                             "with stacks (PyTorch's pickle format, not pprof; view it with "
+                             "torch.cuda._memory_viz or pytorch.org/memory_viz). On the CPU "
+                             "it warns and writes nothing.")
 
 
 # the scale-out flags, which the Phase II drivers do not run: the JAX package's
@@ -230,17 +239,15 @@ _SCALE_OUT = (("n_model", 1), ("use_mesh", False), ("pp_stages", 0), ("fsdp", Fa
               ("async_checkpoint", False))
 
 
-def reject_unported(args, scale_out: bool = True):
-    """Raise NotImplementedError for a flag value this slice does not run;
-    ``scale_out=False`` (the Phase II drivers) also for the scale-out flags."""
-    unported = _UNPORTED if scale_out else _UNPORTED + tuple(
-        (flag, value, "the Phase II drivers run one process (the JAX drivers build no "
-                      "mesh)") for flag, value in _SCALE_OUT)
-    for flag, ported, later in unported:
-        value = getattr(args, flag, ported)
-        if value != ported and not (flag == "pp_stages" and value in (0, 1)):
+def reject_unported(args):
+    """Raise NotImplementedError for a scale-out flag that is set: the Phase II
+    drivers run one process (the JAX drivers build no mesh)."""
+    for flag, default in _SCALE_OUT:
+        value = getattr(args, flag, default)
+        if value != default and not (flag == "pp_stages" and value in (0, 1)):
             raise NotImplementedError(
-                f"--{flag} {value!r} is not ported to climb_tpu_torch yet ({later})")
+                f"--{flag} {value!r} is not ported to the Phase II drivers of climb_tpu_torch "
+                "(they run one process; the JAX drivers build no mesh)")
 
 
 def setup_mesh(args, device):

@@ -45,9 +45,9 @@ from climb_tpu_torch.ckpt.checkpoint import load_model_file
 from climb_tpu_torch.ckpt.convert import partial_load
 from climb_tpu_torch.cl.adapters import AdapterHandler
 from climb_tpu_torch.cli.common import (
+    PRETRAINED_HELP,
     add_common_args,
     add_device_args,
-    reject_unported,
     setup_mesh,
     setup_logging,
 )
@@ -75,7 +75,7 @@ def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--encoder_name", required=True, type=str)
     parser.add_argument("--pretrained_model_name", default="scratch", type=str,
-                        help="Base weights; the checkpoint overrides them.")
+                        help="Base weights; the checkpoint overrides them. " + PRETRAINED_HELP)
     parser.add_argument("--ordered_cl_tasks", required=True, type=str,
                         help="Task sequence the checkpoint was trained with "
                              "(determines which heads exist).")
@@ -142,16 +142,6 @@ def build_parser():
     return parser
 
 
-def _reject_unported_predict(args):
-    reject_unported(args)
-    if (args.pretrained_model_name != "scratch" and not args.checkpoint
-            and not os.path.isfile(args.pretrained_model_name)):
-        raise NotImplementedError(
-            f"--pretrained_model_name {args.pretrained_model_name}: HF hub weights are not "
-            "ported to climb_tpu_torch (they need the network); pass --checkpoint or a "
-            "reference-layout file")
-
-
 def build_eval_loader(args, device=torch.device("cpu")) -> DataLoader:
     """The task trainer's eval loader (the JAX CLI's ``trainer.eval_dataloader``):
     the eval split of the data root or the synthetic one, ``--eval_batch_size``
@@ -168,7 +158,6 @@ def main(argv=None):
         args.image_height, args.image_width = 64, 96
     if args.task_key not in args.ordered_cl_tasks:
         raise ValueError(f"--task_key {args.task_key} not in --ordered_cl_tasks")
-    _reject_unported_predict(args)
     if args.export_model:
         parse_platforms(args.export_platforms)  # refuse a bad list before any work
     device = resolve_device(args.device)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from climb_tpu_torch.cli.common import (
+    PRETRAINED_HELP,
     add_common_args,
     add_device_args,
     apply_task_config_overrides,
@@ -76,8 +77,7 @@ def build_parser():
     parser.add_argument("--checkpoint_name", required=True, type=str,
                         help="Path of the upstream encoder checkpoint ('none' for base weights).")
     parser.add_argument("--pretrained_model_name", default="dandelin/vilt-b32-mlm", type=str,
-                        help="'scratch' or a reference-layout file; HF hub names need the "
-                             "network and raise.")
+                        help=PRETRAINED_HELP)
     parser.add_argument("--num_shot", type=int, help="Training examples (per class for cls tasks).")
     parser.add_argument("--subsample_seed", type=int, help="Seed for few-shot sampling.")
     parser.add_argument("--climb_data_dir", type=str, default=".",
@@ -97,7 +97,7 @@ def build_parser():
 def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
-    reject_unported(args, scale_out=False)
+    reject_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     set_seed(args)

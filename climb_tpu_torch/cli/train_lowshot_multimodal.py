@@ -34,6 +34,7 @@ from climb_tpu_torch.ckpt.checkpoint import (
     task_checkpoint_exists,
 )
 from climb_tpu_torch.cli.common import (
+    PRETRAINED_HELP,
     add_common_args,
     add_device_args,
     apply_task_config_overrides,
@@ -58,7 +59,8 @@ def build_parser():
     parser.add_argument("--encoder_name", required=True, type=str, choices=ALLOWED_CL_ENCODERS,
                         help="The base encoder: ViLT, or ViLT-BERT (ViLT fed by a frozen "
                              "BERT).")
-    parser.add_argument("--pretrained_model_name", required=True, type=str)
+    parser.add_argument("--pretrained_model_name", required=True, type=str,
+                        help=PRETRAINED_HELP)
     parser.add_argument("--ordered_cl_tasks", type=str, required=True)
     parser.add_argument("--cl_algorithm", type=str, required=True,
                         choices=["singletask_ft", "sequential_ft", "experience_replay",
@@ -116,7 +118,7 @@ def main(argv=None):
         args.image_height, args.image_width = 64, 96
     for task_key in args.ordered_cl_tasks:
         assert task_key in SUPPORTED_VL_TASKS
-    reject_unported(args, scale_out=False)
+    reject_unported(args)
     device = resolve_device(args.device)
     configs = task_configs
     if args.synthetic and args.synthetic_vqa_labels:

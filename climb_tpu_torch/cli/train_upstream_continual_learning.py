@@ -64,15 +64,16 @@ from climb_tpu_torch.ckpt.checkpoint import (
     task_dir,
 )
 from climb_tpu_torch.cli.common import (
+    PRETRAINED_HELP,
     add_common_args,
     add_device_args,
     apply_task_config_overrides,
-    reject_unported,
     setup_logging,
     setup_mesh,
 )
 from climb_tpu_torch.configs.model_configs import model_configs
 from climb_tpu_torch.configs.task_configs import SUPPORTED_VL_TASKS, task_configs
+from climb_tpu_torch.configs.wandb_config import wandb_config
 from climb_tpu_torch.device import resolve_device
 from climb_tpu_torch.evaluation.cl_eval import (
     catastrophic_forgetting_eval,
@@ -83,6 +84,7 @@ from climb_tpu_torch.train.model_factory import create_cl_model
 from climb_tpu_torch.train.trainers import any_rank, get_task_trainer_class
 from climb_tpu_torch.utils import preemption
 from climb_tpu_torch.utils.seed import set_seed
+from climb_tpu_torch.utils.wandb import wandb_logger
 
 logger = logging.getLogger(__name__)
 
@@ -101,9 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="The base encoder: ViLT, or ViLT-BERT (ViLT fed by a frozen "
                              "BERT).")
     parser.add_argument("--pretrained_model_name", default=None, type=str, required=True,
-                        help="'scratch', or a checkpoint file in the reference torch "
-                             "layout; an HF hub name needs the network and leaves the "
-                             "random initialization, with a warning.")
+                        help=PRETRAINED_HELP)
     parser.add_argument("--ordered_cl_tasks", type=str, required=True,
                         help="Ordered list of VL task keys, comma-separated.")
     parser.add_argument("--cl_algorithm", type=str, required=True, choices=CL_ALGORITHMS,
@@ -200,7 +200,6 @@ def main(argv=None):
     output_dir = os.path.join(args.output_dir, experiment_name)
     results_file = os.path.join(output_dir, "results.json")
     validate_algorithm_args(args)
-    reject_unported(args)
     device = resolve_device(args.device)
     mesh = setup_mesh(args, device)
     if not distributed.is_main_process():
@@ -230,6 +229,8 @@ def main(argv=None):
         model.trainable_mask = freeze_bottom_k_layers_mask(
             model, k=args.layers_to_freeze, num_layers=model.cfg.num_layers,
             encoder_key=model.encoder_key)
+    if args.do_train and args.do_wandb_logging:
+        wandb_logger.initialize(wandb_config, experiment_name)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Continual learner: %s | %d task heads (%s) | %.2fM params | algorithm=%s | %s",
                 args.encoder_name, len(args.ordered_cl_tasks), ",".join(args.ordered_cl_tasks),

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from climb_tpu_torch.cli.common import (
+    PRETRAINED_HELP,
     add_common_args,
     add_device_args,
     apply_task_config_overrides,
@@ -62,8 +63,7 @@ def build_parser():
     parser.add_argument("--checkpoint_name", required=True, type=str,
                         help="Path of the upstream encoder checkpoint ('none' for base weights).")
     parser.add_argument("--pretrained_model_name", default="dandelin/vilt-b32-mlm", type=str,
-                        help="'scratch' or a reference-layout file; HF hub names need the "
-                             "network and raise.")
+                        help=PRETRAINED_HELP)
     parser.add_argument("--num_shot", type=float,
                         help="Shots per class (or train-set ratio for coco-cls).")
     parser.add_argument("--subsample_seed", type=int)
@@ -93,7 +93,7 @@ class _MultiHotWrapper:
 def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
-    reject_unported(args, scale_out=False)
+    reject_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     if args.tiny:

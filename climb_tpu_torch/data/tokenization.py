@@ -11,8 +11,9 @@ happens once in the loader, into fixed-shape (ids, mask, token types) arrays.
   the reference and the fallback.
 - ``HashTokenizer``: a deterministic hash tokenizer for synthetic and test
   pipelines (no vocab file).
-- ``load_tokenizer``: a vocab file, then the hash tokenizer with a warning
-  (the port imports no transformers, so it has no HF-cache step).
+- ``load_tokenizer``: a vocab file, then the Hugging Face snapshot the spec
+  resolves to (its ``vocab.txt``; the JAX package's cached
+  ``BertTokenizerFast`` step), then the hash tokenizer with a warning.
 """
 
 import os
@@ -67,12 +68,14 @@ def basic_tokenize(text: str, lowercase: bool = True) -> List[str]:
     out_chars = []
     for ch in text:
         cp = ord(ch)
-        if cp == 0 or cp == 0xFFFD or unicodedata.category(ch) in ("Cc", "Cf"):
-            continue
-        if _is_chinese_char(cp):
-            out_chars.append(f" {ch} ")
-        elif ch in ("\t", "\n", "\r") or unicodedata.category(ch) == "Zs":
+        # tab, newline and return are whitespace before they are control characters,
+        # as in BertTokenizerFast (the JAX package's copy drops them)
+        if ch in ("\t", "\n", "\r") or unicodedata.category(ch) == "Zs":
             out_chars.append(" ")
+        elif cp == 0 or cp == 0xFFFD or unicodedata.category(ch) in ("Cc", "Cf"):
+            continue
+        elif _is_chinese_char(cp):
+            out_chars.append(f" {ch} ")
         else:
             out_chars.append(ch)
     text = "".join(out_chars)
@@ -174,7 +177,7 @@ class WordPieceTokenizer:
         call, vilt.py:88-93).
         """
         a = self.tokenize_to_ids(text)
-        if text_pair is not None:
+        if text_pair:  # an empty pair is no pair, as in BertTokenizerFast
             b = self.tokenize_to_ids(text_pair)
             a, b = truncate_pair(a, b, max_len - 3)
             ids = [self.cls_id] + a + [self.sep_id] + b + [self.sep_id]
@@ -243,26 +246,38 @@ class HashTokenizer:
 
 
 def load_tokenizer(spec: str = "bert-base-uncased", vocab_path: Optional[str] = None):
-    """Resolve a tokenizer: an explicit vocab file (the native WordPiece when
-    its library builds, else the Python one), then the hash tokenizer. The
-    JAX package tries an HF fast tokenizer from the local cache in between;
-    the port imports no transformers, so a real vocabulary comes from a vocab
-    file (``--vocab_path``, or ``spec`` naming one)."""
+    """Resolve a tokenizer, in the JAX package's order: an explicit vocab file
+    (``--vocab_path``, or ``spec`` naming one); then the Hugging Face snapshot
+    ``spec`` resolves to (a directory, or a hub name in the local cache, as
+    ``models.hf_snapshot.resolve_snapshot`` finds it; never downloaded): its
+    ``vocab.txt``, lower-cased as its ``tokenizer_config.json`` says (default
+    true), which gives the ids, mask and token types of the JAX package's
+    ``BertTokenizerFast``; then the hash tokenizer, with JAX's warning. A
+    lower-casing vocabulary gets the native WordPiece when its library builds,
+    else the Python one."""
     if spec == "synthetic":
         return HashTokenizer()
-    path = vocab_path
+    path, lowercase = vocab_path, True
     if path is None and os.path.isfile(spec):
         path = spec
-    if path is not None and os.path.isfile(path):
-        try:
-            from climb_tpu_torch.native import NativeWordPieceTokenizer
+    if path is None or not os.path.isfile(path):
+        from climb_tpu_torch.models.hf_snapshot import snapshot_vocab
 
-            return NativeWordPieceTokenizer(path)
-        except Exception:
-            return WordPieceTokenizer.from_vocab_file(path)
+        found = snapshot_vocab(spec)
+        if found is not None:
+            path, lowercase = found
+    if path is not None and os.path.isfile(path):
+        if lowercase:
+            try:
+                from climb_tpu_torch.native import NativeWordPieceTokenizer
+
+                return NativeWordPieceTokenizer(path)
+            except (OSError, RuntimeError):  # no toolchain, or the library did not build
+                pass
+        return WordPieceTokenizer.from_vocab_file(path, lowercase=lowercase)
     import logging
 
     logging.getLogger(__name__).warning(
-        "tokenizer %s unavailable (no vocab file); falling back to HashTokenizer — fine "
-        "for synthetic runs only", spec)
+        "tokenizer %s unavailable (no vocab file, no HF cache); falling back to HashTokenizer "
+        "— fine for synthetic runs only", spec)
     return HashTokenizer()

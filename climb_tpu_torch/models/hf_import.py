@@ -12,7 +12,10 @@ the caller reads the HF file (``torch.load`` of a ``ViltModel`` or
   ``BertCore``'s (the frozen text side of ViLT-BERT; JAX ``import_hf_bert``,
   hf_import.py:88-113). The pooler and any other HF extras are not read.
 
-Linear weights keep torch's (out, in) layout on both sides.
+Linear weights keep torch's (out, in) layout on both sides. A name missing
+from the input is missing from the output (a snapshot that lacks a tensor
+leaves the model its own value; ``ckpt.convert.partial_load`` loads the
+rest).
 """
 
 import re
@@ -81,18 +84,20 @@ def _rename_layers(src: Tensors, out: Tensors, names: Dict[str, str], to_hf: boo
         for ours, theirs in names.items():
             for leaf in ("weight", "bias"):
                 port, hf = f"encoder.{i}.{ours}.{leaf}", f"encoder.layer.{i}.{theirs}.{leaf}"
-                if to_hf:
+                if to_hf and port in src:
                     out[hf] = src[port]
-                else:
+                elif not to_hf and hf in src:
                     out[port] = src[hf]
 
 
 def vilt_from_hf(hf: Tensors) -> Tensors:
     """HF ``ViltModel`` state dict -> ``ViltCore`` state dict."""
-    conv = hf[_CONV]
-    sd = {ours: hf[theirs] for ours, theirs in _VILT_NAMES.items()}
-    sd["patch_projection.weight"] = conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1)
-    sd["visual_position_embeddings"] = hf[_POS][0]
+    sd = {ours: hf[theirs] for ours, theirs in _VILT_NAMES.items() if theirs in hf}
+    if _CONV in hf:
+        conv = hf[_CONV]
+        sd["patch_projection.weight"] = conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1)
+    if _POS in hf:
+        sd["visual_position_embeddings"] = hf[_POS][0]
     _rename_layers(hf, sd, VILT_BLOCK_NAMES, to_hf=False)
     return sd
 
@@ -111,7 +116,7 @@ def vilt_to_hf(enc: Tensors) -> Tensors:
 
 def bert_from_hf(hf: Tensors) -> Tensors:
     """HF ``BertModel`` state dict -> ``BertCore`` state dict."""
-    sd = {ours: hf[theirs] for ours, theirs in _BERT_NAMES.items()}
+    sd = {ours: hf[theirs] for ours, theirs in _BERT_NAMES.items() if theirs in hf}
     _rename_layers(hf, sd, BERT_LAYER_NAMES, to_hf=False)
     return sd
 

@@ -4,8 +4,10 @@ HF ``ViltConfig`` defaults for ``dandelin/vilt-b32-mlm`` plus the fixed image
 canvas, the compute dtype and the kernel switches, with the JAX package's
 training knobs ``remat``, ``remat_policy`` and ``fuse_qkv``, and
 ``dense_impl`` (int8 dense layers for eval-mode forwards). Both dropout rates
-keep the JAX defaults of 0.0. ``scan_unroll`` is a knob of JAX's layer scan:
-the port runs a Python loop over the layers, so it has no such field. ``AdapterSpec``
+keep the JAX defaults of 0.0. ``scan_unroll`` is the unroll factor of JAX's
+layer scan: the port runs its layers as an unrolled Python loop, so the value
+changes no computation; it is kept, as JAX keeps it, in the config and in
+the accum sweep's cache key. ``AdapterSpec``
 describes the per-task adapters or LoRA deltas of the adapter algorithm.
 """
 
@@ -56,6 +58,7 @@ class ViltConfig:
     remat: bool = False               # recompute the encoder blocks in backward
     remat_policy: str = "full"        # "full" | "dots" | "selective" (vilt_core.py)
     fuse_qkv: bool = False            # one (D, 3D) product for q/k/v (same parameters)
+    scan_unroll: int = 1              # JAX's layer-scan unroll; no effect here
     dense_impl: str = "xla"           # "xla" | "int8" | "int8_static": int8 dense
                                       # layers in eval mode only (ops/quant.py)
 

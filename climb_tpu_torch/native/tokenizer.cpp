@@ -128,7 +128,7 @@ void* wp_create(const char* vocab_path) {
   int32_t idx = 0;
   while (std::getline(f, line)) {
     if (!line.empty() && line.back() == '\r') line.pop_back();
-    tok->vocab.emplace(line, idx++);
+    tok->vocab[line] = idx++;  // a repeated entry takes its last line, as in HF's vocab
   }
   auto get = [&](const char* k) {
     auto it = tok->vocab.find(k);

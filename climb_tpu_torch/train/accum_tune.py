@@ -44,9 +44,9 @@ def shape_key(batch: dict, patch_size: int, kind: str, config_sig: str = "") -> 
 
 def step_config_signature(cfg) -> str:
     """The ``ViltConfig`` facts the accum optimum depends on."""
-    return (f"{cfg.dtype}|remat={int(cfg.remat)}:{cfg.remat_policy}|attn={cfg.attn_impl}"
-            f"|mlp={cfg.mlp_impl}|qkv={int(cfg.fuse_qkv)}|L={cfg.num_layers}"
-            f"|D={cfg.hidden_size}")
+    return (f"{cfg.dtype}|remat={int(cfg.remat)}:{cfg.remat_policy}|unroll={cfg.scan_unroll}"
+            f"|attn={cfg.attn_impl}|mlp={cfg.mlp_impl}|qkv={int(cfg.fuse_qkv)}"
+            f"|L={cfg.num_layers}|D={cfg.hidden_size}")
 
 
 def accum_candidates(batch_size: int, max_accum: int = 16) -> List[int]:

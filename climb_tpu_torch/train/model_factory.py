@@ -4,14 +4,19 @@ Heads for every task in the sequence, three modality-type rows when NLVR2 is
 in it, weights drawn from ``--seed`` through a ``torch.Generator``.
 ``--encoder_name viltbert`` builds the ViLT-BERT learner with its frozen-BERT
 trainability mask (JAX ``model_factory.py:119-146``).
-``--pretrained_model_name`` may name a checkpoint file in the reference torch
-layout (a model, encoder or bare HF ``ViltModel`` state dict; for ViLT-BERT
-also one holding BERT), which is loaded over the initialization; a two-row
-modality table grows a third row, a copy of the image row (reference
-vilt.py:106-108). HF hub names need the network: as the JAX package does when
-it cannot load them, the model keeps its random initialization and a warning
-says so. BERT's weights, too, come from a local file only (the JAX package
-downloads ``bert-base-uncased``, ``model_factory.py:211-222``).
+``--pretrained_model_name`` is read as the JAX package reads it
+(``model_factory.py:248-286 _graft_pretrained``): a Hugging Face snapshot,
+a directory or a hub name already in the local cache (``models.hf_snapshot``;
+the port never downloads); the port also takes a checkpoint file in the
+reference torch layout (a model, encoder or bare HF ``ViltModel`` state
+dict; for ViLT-BERT also one holding BERT). With neither, the model keeps
+its seed's initialization and a warning says so, as JAX's does when
+``from_pretrained`` fails. A two-row modality table grows a third row, a copy
+of the image row, when NLVR2 is in the sequence (reference vilt.py:106-108).
+ViLT-BERT's BERT comes from the file when it holds BERT, else from the
+``bert-base-uncased`` snapshot (JAX ``model_factory.py:270-281``), else it
+stays random with a warning. Where a snapshot lacks a tensor, JAX takes the
+value transformers initializes; the port keeps its own seed's.
 
 On a mesh (``--use_mesh``, ``--n_model``, ``--fsdp``; ``--pp_stages`` builds
 its own ('data', 'pipe') mesh) the learner is placed by
@@ -33,6 +38,7 @@ from climb_tpu_torch.ckpt.convert import (
     partial_load,
     with_encoder_key,
 )
+from climb_tpu_torch.models import hf_snapshot
 from climb_tpu_torch.models.model_config import ViltConfig, head_specs_from_task_configs
 from climb_tpu_torch.models.surgery import expand_modality_type_embeddings
 from climb_tpu_torch.models.vilt import ViltContinualLearner
@@ -50,8 +56,8 @@ ENCODERS = {"vilt": ViltCore, "viltbert": ViltBertCore}
 # the reference torch layout's encoder names (model, encoder and bare HF files)
 _REFERENCE_PREFIXES = ("vilt_encoder.vilt.", "viltbert_encoder.", "vilt.embeddings.",
                        "bert.embeddings.", "embeddings.")
-_NO_BERT = ("%s holds no BERT weights: BERT keeps its random initialization (its "
-            "weights come from a local file only)")
+_NO_BERT = ("%s holds no BERT weights and no " + hf_snapshot.BERT_NAME + " snapshot resolves "
+            "(the port never downloads): BERT keeps its random initialization")
 
 
 def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
@@ -63,6 +69,7 @@ def vilt_config_from_args(args, needs_three_modalities: bool) -> ViltConfig:
         remat=getattr(args, "remat", False),
         remat_policy=getattr(args, "remat_policy", "full"),
         fuse_qkv=getattr(args, "fuse_qkv", False),
+        scan_unroll=getattr(args, "scan_unroll", 1),
         dense_impl=getattr(args, "dense_impl", "xla"),
         pp_stages=int(getattr(args, "pp_stages", 0) or 0),
         pp_virtual=int(getattr(args, "pp_virtual", 1) or 1),
@@ -88,20 +95,41 @@ def _resolve(table: dict, encoder_name: str):
     return table[encoder_name]
 
 
-def load_pretrained(model: ViltContinualLearner, path: str):
-    """Load a reference-layout checkpoint file over the model's weights (a
-    flax msgpack file raises: it is read as a task checkpoint, not as base
-    weights). A ViLT file loads ViLT-BERT's
-    ViLT side, and a ViLT-BERT file a ViLT learner's encoder."""
-    sd = with_encoder_key(load_reference_checkpoint(path), model.encoder_key)
+def _with_bert(sd: dict, prefix: str, source: str) -> dict:
+    """``sd`` with BERT's weights under ``prefix`` when it holds none: those of
+    the ``bert-base-uncased`` snapshot, else a warning (BERT stays random)."""
+    if any(k.startswith(prefix) for k in sd):
+        return sd
+    bert = hf_snapshot.pretrained_bert()
+    if bert is None:
+        logger.warning(_NO_BERT, source)
+        return sd
+    return {**sd, **{prefix + k: v for k, v in bert.items()}}
+
+
+def load_pretrained(model: ViltContinualLearner, name: str):
+    """Load ``--pretrained_model_name`` over the learner's weights: a snapshot
+    (``hf_snapshot.pretrained_vilt``), else a reference-layout checkpoint file
+    (a flax msgpack file raises: it is read as a task checkpoint, not as base
+    weights; a ViLT file loads ViLT-BERT's ViLT side, and a ViLT-BERT file a
+    ViLT learner's encoder), else a warning: the seed's weights stay."""
+    enc = hf_snapshot.pretrained_vilt(name)
+    if enc is not None:
+        sd = with_encoder_key({"vilt." + k: v for k, v in enc.items()}, model.encoder_key)
+    elif os.path.isfile(name):
+        sd = with_encoder_key(load_reference_checkpoint(name), model.encoder_key)
+    else:
+        logger.warning("Could not load pretrained weights %s (no local snapshot or file; the "
+                       "port never downloads); training from scratch", name)
+        return
     mod = next(k for k in model.state_dict() if k.endswith("modality_type_embeddings.weight"))
     rows = model.cfg.modality_type_vocab_size
     if mod in sd and sd[mod].shape[0] == 2 and rows == 3:
         sd[mod] = torch.cat([sd[mod], sd[mod][1:2]], dim=0)
-    if model.encoder_key == "viltbert" and not any(k.startswith("viltbert.bert.") for k in sd):
-        logger.warning(_NO_BERT, path)
+    if model.encoder_key == "viltbert":
+        sd = _with_bert(sd, "viltbert.bert.", name)
     loaded, missing = partial_load(model, sd)
-    logger.info("Pretrained %s: %d tensors loaded, %d kept from init", path, len(loaded),
+    logger.info("Pretrained %s: %d tensors loaded, %d kept from init", name, len(loaded),
                 len(missing))
 
 
@@ -160,11 +188,7 @@ def create_cl_model(args, task_configs, device: torch.device, adapter_handler=No
     model.reset_parameters(generator)
     pretrained = getattr(args, "pretrained_model_name", "scratch")
     if pretrained not in ("scratch", "", None):
-        if os.path.isfile(pretrained):
-            load_pretrained(model, pretrained)
-        else:
-            logger.warning("Could not load pretrained weights %s (HF hub names need the "
-                           "network); training from scratch", pretrained)
+        load_pretrained(model, pretrained)
     model = model.to(device).eval()
     if model.encoder_key == "viltbert":
         model.trainable_mask = viltbert_frozen_mask(model)
@@ -200,7 +224,8 @@ def load_encoder_params(checkpoint_name, cfg: ViltConfig, pretrained: str = "scr
     """Encoder-only parameter loading for the Phase II drivers (counterpart of
     ``climb_tpu``'s ``load_encoder_params``; reference ``load_vilt_encoder``,
     vilt.py:481-514, and ``load_viltbert_encoder``, viltbert.py:459-493):
-    start from weights drawn from ``seed`` (or a pretrained file), with three
+    start from weights drawn from ``seed`` (or pretrained weights, read as
+    ``load_pretrained`` reads them; BERT's as well for 'viltbert'), with three
     modality rows when the upstream checkpoint came from a run with NLVR2
     ('nlvr2' in its path), then load the saved encoder over them. Returns
     (the state dict of a bare ``ViltCore``, or of a ``ViltBertCore`` for
@@ -213,17 +238,20 @@ def load_encoder_params(checkpoint_name, cfg: ViltConfig, pretrained: str = "scr
     init_weights_(core, torch.Generator().manual_seed(int(seed)), cfg.initializer_range)
 
     if pretrained not in ("scratch", "", None):
-        if not os.path.isfile(pretrained):
-            raise NotImplementedError(
-                f"--pretrained_model_name {pretrained}: HF hub weights are not ported to "
-                "climb_tpu_torch (they need the network); pass 'scratch' or a "
-                "reference-layout file")
-        enc = _encoder_state_dict(pretrained, encoder_name)
+        enc = hf_snapshot.pretrained_vilt(pretrained)
+        if enc is not None:
+            enc = {"vilt." + k: v for k, v in enc.items()} if encoder_name == "viltbert" else enc
+        elif os.path.isfile(pretrained):
+            enc = _encoder_state_dict(pretrained, encoder_name)
+        else:
+            logger.warning("pretrained %s unavailable (no local snapshot or file; the port never "
+                           "downloads); random init", pretrained)
+            enc = {}
         if needs_three:
             enc, _ = expand_modality_type_embeddings(
                 enc, dataclasses.replace(cfg, modality_type_vocab_size=2))
-        if encoder_name == "viltbert" and not any(k.startswith("bert.") for k in enc):
-            logger.warning(_NO_BERT, pretrained)
+        if encoder_name == "viltbert":
+            enc = _with_bert(enc, "bert.", pretrained)
         partial_load(core, enc)
 
     if checkpoint_name and os.path.isfile(checkpoint_name):

@@ -5,7 +5,10 @@ Skeleton parity (e.g. reference train_snli_ve.py:159-228): AdamW with the
 poly-warmup schedule over ``len(train loader) * num_epochs`` steps (with the
 model's trainability mask, ``--skip_nonfinite_updates`` and
 ``--adam_moments_dtype``), the epoch loop of train steps with the loss logged
-every ``log_freq`` steps, an eval every epoch, the best parameters kept
+every ``log_freq`` steps (the W&B logger's, ``utils/wandb.py``, with the dicts
+and at the points of the JAX trainer, trainers.py:292, 491-503, 546), the
+``--profile_dir`` and ``--memory_profile`` windows (``train/profiling.py``),
+an eval every epoch, the best parameters kept
 (copied off the card), and the elastic per-epoch train state in the task's
 checkpoint directory, from which a killed run resumes at the epoch boundary
 with the same trajectory (the loader's order is a function of (seed, epoch);
@@ -88,13 +91,13 @@ from climb_tpu_torch.parallel import distributed
 from climb_tpu_torch.train import accum_tune
 from climb_tpu_torch.train.eval_step import LOSS_TYPES, make_eval_step
 from climb_tpu_torch.train.optimizer import make_optimizer
+from climb_tpu_torch.train.profiling import StepProfiler
 from climb_tpu_torch.train.train_state import TrainState
 from climb_tpu_torch.train.train_step import auto_grad_accum_for_batch, make_train_step
 from climb_tpu_torch.utils import preemption
+from climb_tpu_torch.utils.wandb import wandb_logger
 
 logger = logging.getLogger(__name__)
-
-LOG_FREQ = 100  # the JAX trainer's log_freq without wandb
 
 
 def batch_divisor(task_cfg: dict) -> int:
@@ -305,6 +308,11 @@ class VLTaskTrainer:
                                           args.grad_accum_steps,
                                           getattr(args, "auto_accum_token_budget", None))
         replay_freq = int(getattr(args, "replay_frequency", 100))
+        self.log_freq = wandb_logger.get_log_freq()
+        self.profiler = StepProfiler(
+            getattr(args, "profile_dir", None), getattr(args, "memory_profile", None),
+            self.device, self.task_key,
+            torch.distributed.get_rank() if distributed.world_size() > 1 else None)
         generator = torch.Generator(device=self.device).manual_seed(int(args.seed))
         model.encoder.dropout_generator = generator
 
@@ -364,6 +372,7 @@ class VLTaskTrainer:
                 start_epoch, resume_skip, global_step, best_score, best_params, preempt,
                 save_every, state_path, best_path)
         finally:
+            self.profiler.close()
             if preempt:
                 preemption.uninstall_preemption_handler()
             if self.writer is not None:  # the files are whole before anything reads them
@@ -396,19 +405,23 @@ class VLTaskTrainer:
             t0, seen = time.time(), 0
             for batch in device_prefetch(self.train_dataloader, self.device):
                 ewc_ref = ewc.sample_ref() if ewc is not None and ewc.has_tasks() else None
+                self.profiler.before_step(global_step)
                 metrics = train_step(state, batch, ewc_ref, fd_ref)
                 global_step += 1
+                self.profiler.after_step(global_step)
                 seen += self.batch_size
                 if replay_memory is not None and replay_memory.do_replay() \
                         and global_step % replay_freq == 0:
                     replay_memory.run_replay_step(model)
                 steps_this_epoch += 1
-                if global_step % LOG_FREQ == 0:
-                    extra = "".join(f" {k}={float(metrics[k]):.4f}"
-                                    for k in ("ewc_loss", "distill_loss") if k in metrics)
-                    logger.info("task=%s step %d: loss=%.4f%s (%.1f ex/s)", self.task_key,
-                                global_step, float(metrics["loss"]), extra,
-                                seen / max(time.time() - t0, 1e-9))
+                if global_step % self.log_freq == 0:
+                    log = {f"{self.task_key}/{k}": float(metrics[k])
+                           for k in ("loss", "ewc_loss", "distill_loss") if k in metrics}
+                    log[f"{self.task_key}/examples_per_sec"] = round(
+                        seen / max(time.time() - t0, 1e-9), 1)
+                    wandb_logger.log(log)
+                    logger.info("task=%s step %d: %s", self.task_key, global_step,
+                                " ".join(f"{k.split('/')[-1]}={v:.4f}" for k, v in log.items()))
                 if preempt and any_rank(preemption.preemption_requested(), model):
                     if self.writer is not None:
                         self.writer.flush()
@@ -428,6 +441,7 @@ class VLTaskTrainer:
                 score = self.eval(model)
                 logger.info("task=%s epoch %d/%d: score=%.2f (%.1f ex/s)", self.task_key,
                             epoch, self.num_epochs, score, seen / max(dt, 1e-6))
+                wandb_logger.log({f"{self.task_key}/dev_score": score})
                 if score > best_score:
                     best_score, self.best_epoch = score, epoch
                     best_params = _host_copy(model)

@@ -87,7 +87,7 @@ def test_candidates_and_shape_key_match_jax():
     cfg = vilt_config_from_args(SimpleNamespace(tiny=True, remat=True, remat_policy="dots",
                                                 fuse_qkv=True), False)
     sig = accum_tune.step_config_signature(cfg)
-    assert sig == "float32|remat=1:dots|attn=xla|mlp=xla|qkv=1|L=2|D=64"
+    assert sig == "float32|remat=1:dots|unroll=1|attn=xla|mlp=xla|qkv=1|L=2|D=64"
     batch = _shape_batch(32, 40, 384, 640, fold_images=2)
     assert accum_tune.shape_key(batch, 32, "NVIDIA_H100", sig) == \
         f"NVIDIA_H100|b32|s281|f2|{sig}"

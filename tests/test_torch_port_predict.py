@@ -75,19 +75,31 @@ def test_predict_matches_jax_cli(task, checkpoint, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--scan_unroll", "2"],  # xla_ckpt, remat and the buckets are ported
-    # --cl_algorithm adapter is ported (tests/test_torch_cl_drivers_adapter.py), and the
-    # scale-out flags (tests/test_torch_parallel_*.py, tests/test_torch_sharded_ckpt.py)
+    ["--scan_unroll", "2"],  # JAX's layer-scan unroll: no effect on the port's loop
+    # the profiling flags act in the trainer (tests/test_torch_tools.py); predict
+    # takes them as JAX's predict does
     ["--profile_dir", "x"],
     ["--memory_profile", "x"],
     ["--do_wandb_logging"],
     ["--pretrained_model_name", "dandelin/vilt-b32-mlm"],
 ])
-def test_unported_flags_raise(flags, tmp_path):
+def test_unported_flags_raise(flags, tmp_path, monkeypatch, caplog):
+    """The flags that raised "not ported" before the last slice now run as the
+    JAX CLI runs them: the same predictions as without them. A hub name that
+    is not in the local cache keeps the seed's weights with a warning (the
+    checkpoint overrides them either way)."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
+    monkeypatch.chdir(tmp_path)
     argv = ["--encoder_name", "vilt", "--ordered_cl_tasks", "snli-ve", "--task_key", "snli-ve",
-            "--synthetic", "--tiny", "--device", "cpu", "--output_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_predict(argv + flags)
+            "--synthetic", "--tiny", "--device", "cpu"]
+    base = port_predict(argv + ["--output_dir", str(tmp_path / "base")])
+    with caplog.at_level("WARNING"):
+        out = port_predict(argv + ["--output_dir", str(tmp_path / "flags")] + flags)
+    assert out["predictions"] == base["predictions"]
+    assert out["n_examples"] == base["n_examples"] > 0
+    if flags[0] == "--pretrained_model_name":
+        assert "no local snapshot or file" in caplog.text
+    assert not (tmp_path / "x").exists()
 
 
 def test_predict_without_card_raises(monkeypatch, tmp_path):
@@ -121,10 +133,17 @@ IMPORT_CHECKED = ["climb_tpu_torch.cli.predict",
                   "climb_tpu_torch.ops.quant",
                   "climb_tpu_torch.serve.export",
                   "climb_tpu_torch.serve.server",
-                  "climb_tpu_torch.cli.serve"]
-# nor transformers, msgpack or ml_dtypes: the card's machine has none of them
-# (the port reads flax's msgpack checkpoints with its own decoder)
-FORBIDDEN = JAX_MODULES + ("transformers", "msgpack", "ml_dtypes")
+                  "climb_tpu_torch.cli.serve",
+                  "climb_tpu_torch.models.hf_snapshot",
+                  "climb_tpu_torch.train.profiling",
+                  "climb_tpu_torch.utils.wandb",
+                  "climb_tpu_torch.evaluation.make_table",
+                  "climb_tpu_torch.data.host_cost",
+                  "climb_tpu_torch.data.mean_image"]
+# nor transformers, safetensors, msgpack or ml_dtypes: the card's machine has none
+# of them (the port reads flax's msgpack checkpoints and safetensors files with its
+# own decoders)
+FORBIDDEN = JAX_MODULES + ("transformers", "safetensors", "msgpack", "ml_dtypes")
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +166,8 @@ def imported():
 
 @pytest.mark.parametrize("module", IMPORT_CHECKED)
 def test_import_loads_no_jax(module, imported):
-    """The module imports neither JAX, flax, optax, climb_tpu nor transformers."""
+    """The module imports neither JAX, flax, optax, climb_tpu, transformers nor
+    safetensors."""
     assert module in imported["loaded"]
     assert imported["forbidden"] == []
 
@@ -162,7 +182,7 @@ def _imported_roots(path: Path):
 
 def test_port_sources_import_no_jax_package():
     """Exact top-level names: ``climb_tpu_torch`` is not ``climb_tpu``. No
-    transformers either."""
+    transformers or safetensors either."""
     files = sorted((ROOT / "climb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                   ROOT / "chip_ab.py"]
     assert len(files) > 20
@@ -178,7 +198,11 @@ def test_port_sources_import_no_jax_package():
             "climb_tpu_torch/train/accum_tune.py", "climb_tpu_torch/utils/preemption.py",
             "climb_tpu_torch/ckpt/checkpoint.py", "climb_tpu_torch/data/processor.py",
             "climb_tpu_torch/ops/quant.py", "climb_tpu_torch/serve/export.py",
-            "climb_tpu_torch/serve/server.py", "climb_tpu_torch/cli/serve.py"} <= scanned
+            "climb_tpu_torch/serve/server.py", "climb_tpu_torch/cli/serve.py",
+            "climb_tpu_torch/models/hf_snapshot.py", "climb_tpu_torch/train/profiling.py",
+            "climb_tpu_torch/utils/wandb.py", "climb_tpu_torch/configs/wandb_config.py",
+            "climb_tpu_torch/evaluation/make_table.py", "climb_tpu_torch/data/host_cost.py",
+            "climb_tpu_torch/data/mean_image.py"} <= scanned
     bad = {(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
            if root in FORBIDDEN}
     assert not bad

@@ -80,16 +80,31 @@ def _results(out_dir, run):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both drivers' output directories after both runs."""
+    """Both drivers' output directories after both runs, and each run's W&B
+    history in both packages (``--do_wandb_logging``, every step logged; the
+    module-global loggers start each run empty and are reset afterwards)."""
+    from climb_tpu.configs.wandb_config import wandb_config as jax_wandb_config
+    from climb_tpu.utils.wandb import wandb_logger as jax_wandb
+    from climb_tpu_torch.configs.wandb_config import wandb_config as port_wandb_config
+    from climb_tpu_torch.utils.wandb import wandb_logger as port_wandb
+
     mp = pytest.MonkeyPatch()
     _start_from_jax(mp)
     jit_flax_init(mp)
     share_jax_eval_steps(mp)
-    out = {"jax": tmp_path_factory.mktemp("jax"), "port": tmp_path_factory.mktemp("port")}
+    mp.setitem(jax_wandb_config, "log_freq", 1)
+    mp.setitem(port_wandb_config, "log_freq", 1)
+    out = {"jax": tmp_path_factory.mktemp("jax"), "port": tmp_path_factory.mktemp("port"),
+           "wandb": {}}
     try:
         for run in RUNS:
-            jax_main(_argv(out["jax"], run, "--do_eval"))
-            port.main(_argv(out["port"], run, "--do_eval", "--device", "cpu"))
+            for logger in (jax_wandb, port_wandb):
+                mp.setattr(logger, "is_initialized", False)
+                mp.setattr(logger, "_history", [])
+            jax_main(_argv(out["jax"], run, "--do_eval", "--do_wandb_logging"))
+            port.main(_argv(out["port"], run, "--do_eval", "--device", "cpu",
+                            "--do_wandb_logging"))
+            out["wandb"][run] = (jax_wandb._history, port_wandb._history)
     finally:
         mp.undo()
     return out
@@ -111,6 +126,25 @@ def test_results_match_jax_driver(run, runs):
                                    f_ref["absolute_transfer_score"], atol=SCORE_ATOL)
         # the singletask run in the same output_dir gives the transfer gain
         assert ev["upstream_knowledge_transfer"]["snli-ve"]["singletask_score"] is not None
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_wandb_history_matches_jax(run, runs):
+    """The same dicts at the same points (JAX trainers.py:491-503, 546): each
+    step's loss and ex/s, each epoch's dev score; the losses within the f32
+    trajectory's rounding (it grows over the run's twelve AdamW steps at lr
+    2e-3: 4.7e-5 relative at the sequential run's worst step), the dev scores
+    equal, the ex/s (host clocks) not compared."""
+    ref, got = runs["wandb"][run]
+    n_tasks = len(RUNS[run][3].split(","))
+    assert sum(k.endswith("/dev_score") for h in ref for k in h) == 2 * n_tasks  # 2 epochs
+    assert [list(h) for h in got] == [list(h) for h in ref]
+    for h, r in zip(got, ref):
+        for k, v in r.items():
+            if k.endswith("/dev_score"):
+                np.testing.assert_allclose(h[k], v, atol=SCORE_ATOL)
+            elif k.endswith("/loss"):
+                np.testing.assert_allclose(h[k], v, rtol=1e-4, atol=1e-6)
 
 
 def test_jax_loads_port_checkpoint_with_the_same_score(runs):
@@ -183,17 +217,29 @@ def test_device_cuda_without_card_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    # the training knobs are ported (tests/test_torch_{remat,fused_qkv,buckets,
-    # accum_tune,preemption}.py), and the scale-out flags (below); the flags of
-    # later slices still raise
+    # the flags that raised "not ported" before the last slice now run (their
+    # outputs: tests/test_torch_tools.py)
     ["--scan_unroll", "2"],
-    ["--profile_dir", "x"],
-    ["--memory_profile", "x"],
+    ["--profile_dir", "{tmp}/trace"],
+    ["--memory_profile", "{tmp}/mem.pickle"],
     ["--do_wandb_logging"],
 ])
-def test_unported_paths_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.main(_argv(tmp_path, "singletask", "--device", "cpu") + flags)
+def test_unported_paths_raise(flags, tmp_path, monkeypatch):
+    """Each flag runs the Phase I driver to its results. The run has four
+    steps: under the profile window's start and the memory snapshot's step
+    (5), so neither writes, as in the JAX trainer; on the CPU the memory
+    snapshot only warns. W&B keeps its in-memory history (no wandb package)."""
+    from climb_tpu_torch.utils.wandb import wandb_logger
+
+    monkeypatch.setattr(wandb_logger, "is_initialized", False)
+    monkeypatch.setattr(wandb_logger, "_history", [])
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    port.main(_argv(tmp_path, "singletask", "--device", "cpu") + flags)
+    assert len(_results(tmp_path, "singletask")) == 1
+    assert not (tmp_path / "trace").exists() and not (tmp_path / "mem.pickle").exists()
+    assert wandb_logger.is_initialized == (flags == ["--do_wandb_logging"])
+    if wandb_logger.is_initialized:
+        assert [list(h) for h in wandb_logger._history] == [["snli-ve/dev_score"]] * 2
 
 
 @pytest.mark.parametrize("flags", [
