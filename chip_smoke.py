@@ -9,11 +9,12 @@ Phases, each printing one JSON line as soon as it ends:
   1. device:  the card (nvidia-smi name and power limit), torch and CUDA.
   2. build:   nvcc builds climb_tpu_torch/csrc into one library (sm_90a);
               for each bf16 tensor-core kernel its count of tensor-core
-              instructions (HMMA for the mma.sync attention kernels, HGMMA
-              for the wgmma GEMMs, from cuobjdump -sass), its registers and
-              its spill bytes (ptxas -v, kept beside a reused library).
-              Fails if one lacks its instruction, if a GEMM still has HMMA,
-              if one spills, or if one has no ptxas report.
+              instructions (HMMA for the mma.sync attention forward, HGMMA
+              for the wgmma attention backward and GEMMs, from cuobjdump
+              -sass), its registers and its spill bytes (ptxas -v, kept
+              beside a reused library). Fails if one lacks its instruction,
+              if a wgmma kernel still has HMMA, if one spills, or if one has
+              no ptxas report.
   3. kernels: each kernel against its plain PyTorch version, in float32 and
               bfloat16, with its tolerance and times (kernel, plain version,
               one PyTorch library call): the forward kernels and the fused
@@ -28,7 +29,10 @@ Phases, each printing one JSON line as soon as it ends:
               GEMM's column tail (N % 128 != 0): the FFN at D 64 / F 128 and
               D 192 / F 768 and the fused sublayer at D 192, 3 heads. Each row
               carries previous_ms, the kernel's time before its last
-              redesign at its shape. Then tensor parallelism's local shapes
+              redesign at its shape. The attention backward is also held
+              at S = 9 (one example with every key masked), 97 and 161, and
+              each bf16 check calls it twice and requires bit-equal dq, dk
+              and dv (no atomics). Then tensor parallelism's local shapes
               at n = 2 and 4 model ranks: the attention forward and backward
               at (32, 281, 12/n, 64), the FFN at F 3072/n on 8,992 and 17,984
               rows, and the fused sublayer at 6 of 12 heads as the first rank
@@ -396,23 +400,25 @@ GRAD_REL_TOL = (1e-3, 1e-5, "per parameter, ||g_kernel - g_plain|| <= 1e-3 ||g_p
 SHIFT_INVARIANT = ".k.bias"
 
 # each kernel row's time before the kernel's last redesign (for the attention
-# kernels their move to mma.sync tiles, for the GEMMs of mlp_fwd and
+# forward its move to mma.sync tiles, for the bf16 attention backward its move
+# from mma.sync to wgmma fed by TMA, for the GEMMs of mlp_fwd and
 # fused_block_fwd their move to wgmma), at the same shape and dtype (PERF.md's
 # kernel table; NVIDIA H100 80GB HBM3, 700 W); None where that time was not
 # written down
 PREVIOUS_MS = {
     ("attention_fwd", "bfloat16"): 0.8724, ("attention_fwd_blocked", "bfloat16"): 2.3261,
-    ("attention_bwd", "bfloat16"): 2.0178, ("attention_bwd_long", "bfloat16"): 10.7270,
+    ("attention_bwd", "bfloat16"): 0.2398, ("attention_bwd_long", "bfloat16"): 1.2065,
     ("mlp_fwd", "bfloat16"): 0.9575, ("normalize_u8", "bfloat16"): 0.0551,
     ("fused_block_fwd", "bfloat16"): 0.7157, ("fused_block_fwd", "float32"): 4.4188,
     ("attention_fwd_blocked", "float32"): 2.4124, ("attention_bwd_long", "float32"): 10.8660,
 }
 # the bf16 tensor-core kernels (a piece of each mangled name) and the SASS
-# instruction each must show: mma.sync (HMMA) in the attention kernels, wgmma
-# (HGMMA, and no HMMA) in the GEMMs; none may spill
+# instruction each must show: mma.sync (HMMA) in the attention forward, wgmma
+# (HGMMA, and no HMMA) in the two launches of the attention backward and in
+# the GEMMs; none may spill
 TENSOR_CORE_KERNELS = {
-    "attention_fwd_bf16_kernel": "HMMA", "attention_bwd_dq_bf16_kernel": "HMMA",
-    "attention_bwd_dkdv_bf16_kernel": "HMMA", "linear_bf16_wgmma_kernel": "HGMMA",
+    "attention_fwd_bf16_kernel": "HMMA", "attention_bwd_dq_bf16_kernel": "HGMMA",
+    "attention_bwd_dkdv_bf16_kernel": "HGMMA", "linear_bf16_wgmma_kernel": "HGMMA",
     "qkv_bf16_wgmma_kernel": "HGMMA", "out_bf16_wgmma_kernel": "HGMMA",
 }
 # the FFN's ragged row counts held on the card beside the serving shape: the
@@ -433,11 +439,15 @@ TPU_KERNELS = (
 
 
 EMITTED = {}  # each phase's last row, for a later phase to read
+STARTED = time.monotonic()  # the script's start, for emit's timeline
 
 
 def emit(obj):
     if "phase" in obj:
         EMITTED[obj["phase"]] = obj
+        # where the script's time goes, phase by phase, without touching stdout
+        print(f"chip_smoke: {time.monotonic() - STARTED:.1f} s at the end of {obj['phase']}",
+              file=sys.stderr, flush=True)
     print(json.dumps(obj), flush=True)
 
 
@@ -656,6 +666,8 @@ def check_attention_bwd(torch, results):
             torch.cuda.synchronize()
             ref = attention.attention_bwd_plain(q, k, v, bias, do)
             errs = [compare(torch, "attention_bwd", dn, o, r) for o, r in zip(out, ref)]
+            bit_equal = check_deterministic(torch, attention.attention_bwd(q, k, v, bias, do), out,
+                                            f"attention_bwd {dn}")
             del out, ref
             kernel_ms = time_ms(torch, lambda: attention.attention_bwd(q, k, v, bias, do))
             plain_ms = time_ms(torch, lambda: attention.attention_bwd_plain(q, k, v, bias, do),
@@ -666,6 +678,7 @@ def check_attention_bwd(torch, results):
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         library_ms = time_ms(torch, lambda: torch.autograd.grad(
             sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+        backends = sdpa_backward_by_backend(torch, qt, kt, vt, dot, mask)
         row = {
             "phase": "kernel", "name": "attention_bwd", "dtype": dn,
             "shape": f"q/k/v/dO ({TRAIN_BATCH},{SEQ},{HEADS},{HEAD_DIM}) {dn}, "
@@ -676,7 +689,9 @@ def check_attention_bwd(torch, results):
             "library_ms": library_ms,
             "library": "SDPA's backward alone: autograd.grad through one retained "
                        "F.scaled_dot_product_attention graph (float mask)",
+            "library_backend": sdpa_out.grad_fn.name(), "library_ms_by_backend": backends,
             "launches": launches, "previous_ms": PREVIOUS_MS.get(("attention_bwd", dn)),
+            "second_call_bit_equal": bit_equal,
         }
         row["bound_ms"], row["bound_by"] = bound(7 * n * el + TRAIN_BATCH * SEQ * 4,
                                                  10 * TRAIN_BATCH * HEADS * SEQ * SEQ * HEAD_DIM,
@@ -685,6 +700,80 @@ def check_attention_bwd(torch, results):
         results[("attention_bwd", dn)] = row
         del q, k, v, do, qt, kt, vt, dot, mask, sdpa_out
     torch.cuda.synchronize()
+
+
+def sdpa_backward_by_backend(torch, qt, kt, vt, dot, mask):
+    """SDPA's backward (as library_ms times it) with its forward held to the
+    memory-efficient backend and to the math backend: ms, or None where the
+    backend refuses these inputs. Beside the backend the default picked, it
+    shows whether the library yardstick moved with the pick."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name in ("EFFICIENT_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        try:
+            with sdpa_kernel(backend):
+                graph = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        except (RuntimeError, TypeError):  # no such backend, or it refuses the inputs
+            out[name] = None
+            continue
+        out[name] = time_ms(torch, lambda: torch.autograd.grad(graph, (qt, kt, vt), dot,
+                                                               retain_graph=True), iters=10)
+        del graph
+    return out
+
+
+def check_deterministic(torch, again, first, what):
+    """Two calls of a kernel on the same inputs (tuples of outputs) must give
+    bit-equal outputs; returns True or raises."""
+    for a, b in zip(again, first):
+        bits = torch.int16 if a.element_size() == 2 else torch.int32
+        if not torch.equal(a.view(bits), b.view(bits)):
+            raise AssertionError(f"{what}: a second call on the same inputs is not bit-equal")
+    return True
+
+
+# the attention backward at short ragged S: one 64-row tile with one example
+# whose keys are all masked (a uniform softmax), a bucket-sized S whose last
+# tile holds one row (97 = 64 + 33), and one just past two tiles (161)
+BWD_EDGE_CASES = ((4, 9, HEADS, 1), (TRAIN_BATCH, 97, HEADS, None),
+                  (TRAIN_BATCH, 161, HEADS, None))
+
+
+def check_attention_bwd_edges(torch):
+    """attention_bwd against attention_bwd_plain at BWD_EDGE_CASES, f32 and
+    bf16, at phase kernel's tolerances, with the bf16 kernel called twice and
+    held to bit-equal outputs."""
+    from climb_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for b, s, h, masked in BWD_EDGE_CASES:
+        q32, k32, v32, do32 = (torch.randn((b, s, h, HEAD_DIM), generator=g, device=dev)
+                               for _ in range(4))
+        text_len = torch.randint(1, s + 1, (b, 1), generator=g, device=dev)
+        mask = (torch.arange(s, device=dev)[None] < text_len).float()
+        if masked is not None:
+            mask[masked] = 0.0
+        bias = attention.mask_to_bias(mask)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+            with torch.no_grad():
+                out = attention.attention_bwd(q, k, v, bias, do)
+                errs = [compare(torch, "attention_bwd", dn, o, r)[0]
+                        for o, r in zip(out, attention.attention_bwd_plain(q, k, v, bias, do))]
+                same = check_deterministic(torch, attention.attention_bwd(q, k, v, bias, do),
+                                           out, f"attention_bwd S={s} {dn}")
+            rows.append({"shape": [b, s, h, HEAD_DIM], "masked_example": masked, "dtype": dn,
+                         "max_abs_err_dq_dk_dv": errs, "second_call_bit_equal": same})
+            del q, k, v, do, out
+    torch.cuda.synchronize()
+    emit({"phase": "kernel", "name": "attention_bwd", "at": "edges",
+          "tolerance": "phase kernel's attention_bwd", "checks": rows})
 
 
 def check_fused_block(torch, results):
@@ -811,11 +900,14 @@ def check_attention_long(torch, results):
             torch.cuda.synchronize()
             gref = attention.attention_bwd_plain(q, k, v, bias, do)
             errs = [compare(torch, "attention_bwd", dn, o, r) for o, r in zip(grads, gref)]
+            bit_equal = check_deterministic(torch, attention.attention_bwd(q, k, v, bias, do),
+                                            grads, f"attention_bwd long {dn}")
             del grads, gref
             bwd = {"phase": "kernel", "name": "attention_bwd", "dtype": dn, "at": "long",
                    "shape": f"q/k/v/dO {shape_s}, bias ({LONG_BATCH},{LONG_SEQ}) f32",
                    "max_abs_err": max(e for e, _ in errs),
                    "max_abs_err_dq_dk_dv": [e for e, _ in errs], "tolerance": errs[0][1],
+                   "second_call_bit_equal": bit_equal,
                    "previous_ms": PREVIOUS_MS.get(("attention_bwd_long", dn)),
                    "kernel_ms": time_ms(torch, lambda: attention.attention_bwd(q, k, v, bias, do),
                                         iters=5, warmup=1),
@@ -832,6 +924,9 @@ def check_attention_long(torch, results):
         bwd["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             sdpa_out, (qt, kt, vt), dot, retain_graph=True), iters=10)
         bwd["library"] = "SDPA's backward alone (autograd.grad through one retained graph)"
+        bwd["library_backend"] = sdpa_out.grad_fn.name()
+        bwd["library_ms_by_backend"] = sdpa_backward_by_backend(torch, qt, kt, vt, dot,
+                                                                sdpa_mask)
         fwd["bound_ms"], fwd["bound_by"] = bound(4 * n * el + LONG_BATCH * LONG_SEQ * 4,
                                                  4 * pairs, peak)
         bwd["bound_ms"], bwd["bound_by"] = bound(7 * n * el + LONG_BATCH * LONG_SEQ * 4,
@@ -2416,6 +2511,40 @@ def dispatch_cost(torch, calls=DISPATCH_CALLS, rounds=5):
     return out
 
 
+def bwd_host_cost(torch, calls=DISPATCH_CALLS, rounds=5):
+    """Host microseconds a call of the attention backward (autograd calls its
+    wrapper; it is no dispatcher op), bf16 at a shape small enough that the
+    card never holds the host back: the wrapper, and its C entry alone (the
+    four tensor maps encoded, two launches), alternated in rounds of
+    ``calls``, the least of each."""
+    from climb_tpu_torch.kernels import build
+    from climb_tpu_torch.ops import attention
+
+    q = torch.randn(1, 64, 1, HEAD_DIM, device="cuda").to(torch.bfloat16)
+    bias = torch.zeros(1, 1, 1, 64, device="cuda")
+    outs = [torch.empty_like(q) for _ in range(3)]
+    scratch = torch.empty(3 * 64, device="cuda")  # held: args keep only its address
+    # the wrapper's own arguments for its C entry, built once
+    args = attention.bwd_c_args(q, q, q, bias.reshape(1, 64), q, *outs, scratch)
+    lib = build.load_library()
+
+    def host_us(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*a)
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    wrapper, entry = [], []
+    for _ in range(rounds):
+        wrapper.append(host_us(attention.attention_bwd, q, q, q, bias, q))
+        entry.append(host_us(lib.climb_attention_bwd, *args))
+    return {"wrapper_us": min(wrapper), "c_entry_us": min(entry),
+            "what": "the C entry encodes four tensor maps and makes two launches"}
+
+
 def run_serve(torch, root, ckpt, work):
     """Phase serve on phase real_data's snli-ve checkpoint and the predict
     root's photos, full ViLT-B/32 width, bf16: (a) predict --input_jsonl, (b)
@@ -2679,7 +2808,7 @@ def run_serve(torch, root, ckpt, work):
                 "fused_block": LAYERS * (added["fused_block_fwd"] + added["mlp_fwd"])
                 + added["normalize_u8"]}
     emit({"phase": "dispatch_cost", "card": card, "calls_per_round": DISPATCH_CALLS,
-          "per_call": cost,
+          "per_call": cost, "attention_bwd": bwd_host_cost(torch),
           "per_eager_step_ms": {k: v / 1e3 for k, v in per_step.items()},
           "share_of_eager_step": {k: v / 1e3 / exports[k]["step_ms"]["eager"]["events_ms"]
                                   for k, v in per_step.items()}})
@@ -5039,6 +5168,7 @@ def main() -> int:
         check_gemm_tails(torch)
         check_tp_kernels(torch, results)
     check_attention_bwd(torch, results)
+    check_attention_bwd_edges(torch)
     check_attention_long(torch, results)
     launches = {}
     launches["predict"], predict_out = run_predict(torch)

@@ -6,26 +6,31 @@
 // f32; dV = P^T.dO with P rounded to dO's type; dP = dO.V^T in f32; delta =
 // rowsum(dP o P); dS = P o (dP - delta) * scale rounded to q's type; dQ =
 // dS.K; dK = dS^T.Q; every product accumulates in f32; results cast to the
-// input type.
+// input type. The blockwise path keeps P and dS in f32 and takes delta =
+// rowsum(dO o O); the port keeps _bwd_kernel's roundings at every S, within
+// 1-2 bf16 ulps of it (tests/test_torch_language.py).
 //
-// Two launches, one deterministic result (no atomics):
-//   1. dq kernel, one block per (batch, head, 64-query tile). Sweep 1 over
+// Two launches, one deterministic result (no atomics: two calls on the same
+// inputs give bit-equal dq, dk and dv):
+//   1. dq kernel, one block per (batch, head, 192-query tile). Sweep 1 over
 //      64-key tiles keeps the running row max m, row sum l and an unnormalized
-//      delta (sum of exp(s - m) * dP, rescaled like l), so
-//      m, 1/l and delta = rowsum(dP o P) come out of one pass over
-//      the keys without the forward's output. Sweep 2 recomputes P and dP
-//      per key tile and accumulates dQ = dS.K in registers. It writes (m, 1/l) and
-//      delta (B, H, S) f32 for launch 2.
-//   2. dkdv kernel, one block per (batch, head, 64-key tile), K and V tiles
-//      staged once; it loops over 64-query tiles, recomputes P and dP from
-//      the row statistics and delta, and accumulates dK and dV in registers.
+//      delta (sum of exp(s - m) * dP, rescaled like l), so m, 1/l and delta =
+//      rowsum(dP o P) come out of one pass over the keys without the forward's
+//      output. Sweep 2 recomputes P and dP per key tile and accumulates dQ =
+//      dS.K in registers. It writes (m, 1/l) and delta (B, H, S) f32 for
+//      launch 2.
+//   2. dkdv kernel, one block per (batch, head, 128-key tile), K and V tiles
+//      resident; it loops over 64-query tiles, recomputes P and dP from the
+//      row statistics and delta, and accumulates dK and dV in registers.
 // delta is rowsum(dP o P), as _bwd_kernel computes it (not FlashAttention-2's
 // rowsum(dO o O), which needs the saved output and rounds differently in
 // bf16). P is exp(s - m) * (1 / l) with m and 1/l kept apart, not
 // exp(s - lse): a row whose keys are all masked has m = -1e9, where
 // m + log(l) rounds log(l) away in f32 and P would come out l times too large.
 // That is nine 64x64x64 tile products per (query tile, key tile) pair where
-// FlashAttention-2 needs five: QK^T and dO.V^T are computed three times.
+// FlashAttention-2 needs five: QK^T and dO.V^T are computed three times. One
+// launch that sums dQ over key tiles with f32 atomics (FlashAttention-3's
+// way) would save four of them and give up determinism.
 //
 // Bound on the H100, bf16: the five products of the backward are
 // 10 * B*H*S^2*D FLOP against 7 * B*S*H*D elements of compulsory traffic (q,
@@ -36,25 +41,36 @@
 // bound is the 67 TFLOP/s of the CUDA cores (0.29 ms at the training shape).
 // What the design does about it:
 // - It never writes the (B, H, S, S) probabilities or dS to device memory,
-//   reads q, k, v and dO in their (B, S, H, D) layout through strides (no
-//   transpose or padding copy), and masks the ragged end of S itself.
-// - bf16: four warps per block, each owning 16 of its 64 rows, run every
-//   product on the tensor cores (mma.sync m16n8k16, f32 accumulators). The
-//   resident tiles (Q and dO, or K and V) are loaded once as A fragments; the
-//   streamed tiles (K and V, or Q and dO) stay bf16 in shared memory with a
-//   padded row stride and are double-buffered by 16-byte cp.async, rows past S
-//   zero-filled. Scores never leave registers: the dq launch reduces rows
-//   within a quad of lanes and re-packs dS's C fragments as the A operand of
-//   dS.K; the dkdv launch computes S^T = K.Q^T and dP^T = V.dO^T with keys as
-//   rows, so P^T and dS^T are A operands of P^T.dO and dS^T.Q, and reads each
-//   query's (m, 1/l) and delta from shared memory; it re-reads K's and V's
-//   fragments by ldmatrix rather than holding them, so three of its blocks fit
-//   on an SM without spilling. exp is __expf (the SFU's
-//   ex2; its error is far below the bf16 roundings of P and dS).
+//   and reads q, k, v and dO in their (B, S, H, D) layout (strided views of a
+//   fused QKV output included) with no transpose or padding copy.
+// - bf16: every product runs on wgmma m64n64k16 with f32 accumulators
+//   (hopper.cuh). S = Q.K^T and dP = dO.V^T (S^T = K.Q^T and dP^T = V.dO^T in
+//   launch 2) take both operands from shared memory; dQ = dS.K, dV = P^T.dO
+//   and dK = dS^T.Q take dS, P^T or dS^T from registers (the accumulator of
+//   the products before, re-packed as bf16 pairs) and K, dO or Q as the
+//   MN-major B operand: the same 128-byte-swizzled tile read transposed, so
+//   each tile is loaded once for both of its products.
+// - Tiles arrive by TMA: 4-D tensor maps over {D, H, S, B} with the tensors'
+//   strides, so rows past S read as zeros within each example. In each block
+//   one warp of a producer warpgroup keeps the streamed tiles (K and V, or Q
+//   and dO) in flight through a 4-stage ring of full and empty mbarriers, and
+//   writes beside each stage its 64 side values: the key bias (-inf past S)
+//   or each query's (m, 1/l) and delta (+inf, 0, 0 past S), so that the
+//   consumers need no mask test. setmaxnreg hands the producer's registers
+//   to the consumer warpgroups of 64 rows each: three in the dq kernel (160
+//   registers a thread), two in the dkdv kernel (232: the dK, dV, S^T and
+//   dP^T accumulators alone are 128). One block an SM.
+// - Each consumer warpgroup issues the next tile's S and dP products right
+//   behind the current tile's dQ (or dV and dK) products, so the tensor
+//   cores have them queued while it works on scores; the other warpgroups'
+//   score work overlaps its products. Scores are kept in log2 units, so exp
+//   is one ex2 of the SFU, as __expf computes it; its error is far below the
+//   bf16 roundings of P and dS.
 // - f32 keeps f32 FMAs on the CUDA cores (the tensor cores' f32 is TF32), each
 //   thread of 256 owning 4 x 4 of a tile held in padded f32 shared memory.
 #include <math.h>
 
+#include "hopper.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -359,26 +375,88 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- bf16: tensor cores -------------------------------------------------------
+// ---- bf16: wgmma fed by TMA -------------------------------------------------
 
 using bf16 = __nv_bfloat16;
+using namespace climb;  // hopper.cuh's mbarrier, TMA and wgmma helpers
 
-constexpr int kTcThreads = 128;     // four warps of 16 rows
-constexpr int kLd = kD + 8;         // bf16 row stride of the tiles: 144 bytes
-constexpr int kTcTile = kT * kLd;   // elements of one 64-row tile
-// Q, dO, two K and two V tiles, two blocks of 64 key-bias values
-constexpr size_t kDqTcSmemBytes = 6 * kTcTile * sizeof(bf16) + 2 * kT * sizeof(float);
-// K, V, two Q and two dO tiles, two blocks of 64 (m, 1/l) and 64 delta
-constexpr size_t kDkdvTcSmemBytes =
-    6 * kTcTile * sizeof(bf16) + 2 * kT * (sizeof(float2) + sizeof(float));
+constexpr int kStages = 4;                   // depth of the ring of streamed tiles
+constexpr unsigned kTileBytes = kT * kD * 2; // one 64 x 64 bf16 tile
+constexpr unsigned kRingBytes = kStages * 2 * kTileBytes;
+constexpr unsigned kBarBytes = (2 * kStages + 1) * 8;
 
-__device__ __forceinline__ void zero(float (&a)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
+// A block of WGS consumer warpgroups, 64 rows each, and one producer
+// warpgroup, of which one warp issues the copies; setmaxnreg moves the
+// producer's registers to the consumers. Dynamic shared memory, from a
+// 1024-byte boundary (the swizzle's period): the resident tiles (dq: WGS of
+// Q, then WGS of dO; dkdv: of K, then of V), the ring (two streamed tiles a
+// stage: K and V, or Q and dO), per stage 64 values beside the tiles (dq: the
+// key bias; dkdv: each query's (m, 1/l) and delta), then the barriers: full
+// and empty per stage, and one for the resident tiles.
+template <int WGS, unsigned SideBytes>
+struct Block {
+  static constexpr int kWgs = WGS;
+  static constexpr int kRows = kT * WGS;  // query rows (dq) or keys (dkdv)
+  static constexpr int kThreads = 128 * (WGS + 1);
+  static constexpr int kProducerRegs = WGS == 2 ? 40 : 24;
+  static constexpr int kConsumerRegs = WGS == 2 ? 232 : 160;
+  static_assert(128 * kProducerRegs + 128 * WGS * kConsumerRegs <= 65536, "one block an SM");
+  static constexpr unsigned kResidentBytes = 2 * WGS * kTileBytes;
+  static constexpr unsigned kSideOffset = kResidentBytes + kRingBytes;
+  static constexpr unsigned kBarOffset = kSideOffset + SideBytes;
+  static constexpr size_t kSmemBytes = 1024 + kBarOffset + kBarBytes;
+};
+using DqBlock = Block<3, kStages * kT * sizeof(float)>;
+using DkdvBlock = Block<2, kStages * kT * (sizeof(float2) + sizeof(float))>;
+
+// Scores are kept in log2 units (s * scale * log2 e + bias * log2 e), so
+// that exp(s - m) is one ex2 of the SFU: what __expf computes after scaling
+// its argument by log2 e.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// the warp's 16 x 64 f32 C fragments as bf16 rows of a (B, S, H, D) slice
-__device__ __forceinline__ void store_rows(bf16* dst, long long ss, const float (&c)[8][4],
+// the dynamic shared memory from its first 1024-byte boundary: a generic
+// pointer, and the shared-space address in `addr`
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned& addr) {
+  extern __shared__ unsigned char bwd_smem[];
+  const unsigned raw = smem_u32(bwd_smem);
+  addr = (raw + 1023u) & ~1023u;
+  return bwd_smem + (addr - raw);
+}
+
+// the block's barriers, from shared-space address `at`
+struct Barriers {
+  unsigned full, empty, ready;
+  __device__ explicit Barriers(unsigned at) {
+    full = at;
+    empty = full + 8 * kStages;
+    ready = empty + 8 * kStages;
+  }
+  // full: the producer warp's 32 lanes (lane 0's carries the TMA bytes);
+  // empty: one arrival per consumer warp that works
+  __device__ void init(int working_wgs) const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 4 * working_wgs);
+    }
+    mbar_init(ready, 1);
+    mbar_init_fence();
+  }
+  // a consumer warp is done with stage s (its wgmma groups have completed and
+  // its lanes have read the stage's values)
+  __device__ void release(int s, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+};
+
+// the accumulators of a 64 x 64 product, rounded to bf16 rows of a
+// (B, S, H, D) slice; rows at or past S are not stored
+__device__ __forceinline__ void store_rows(bf16* dst, long long ss, const float (&c)[32],
                                            int row0, int S, int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -387,253 +465,328 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long ss, const float 
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + s * ss + 8 * j + 2 * (lane & 3)) =
-          __floats2bfloat162_rn(c[j][2 * r], c[j][2 * r + 1]);
+          __floats2bfloat162_rn(c[4 * j + 2 * r], c[4 * j + 2 * r + 1]);
   }
 }
 
-__global__ void __launch_bounds__(kTcThreads)
-    attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(DqBlock::kThreads, 1)
+    attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 const __grid_constant__ CUtensorMap omap,
                                  const float* __restrict__ bias, bf16* __restrict__ dq,
                                  float2* __restrict__ ml_out, float* __restrict__ delta_out,
-                                 int S, int H, Strides qs, Strides ks, Strides vs, Strides dos,
-                                 Strides dqs, long long bias_sb, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kTcTile;
-  bf16* Ks = dOs + kTcTile;     // two buffers
-  bf16* Vs = Ks + 2 * kTcTile;  // two buffers
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * kTcTile);  // two buffers of 64
+                                 int S, int H, Strides dqs, long long bias_sb, float scale) {
+  constexpr int WGS = DqBlock::kWgs;
+  unsigned base;
+  unsigned char* smem = aligned_smem(base);
+  const unsigned ring = base + DqBlock::kResidentBytes;
+  float* key_bias = reinterpret_cast<float*>(smem + DqBlock::kSideOffset);
+  const Barriers bar(base + DqBlock::kBarOffset);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * DqBlock::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_wg = min(WGS, (S - q0 + kT - 1) / kT);  // warpgroups with a query row < S
+  const int n_k = (S + kT - 1) / kT;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
-  const int q0 = blockIdx.x * kT;
-  const long long b = blockIdx.z, h = blockIdx.y;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const float* biasb = bias + b * bias_sb;
+  if (tid == 0) bar.init(n_wg);
+  __syncthreads();
 
-  auto stage = [&](int buf, int k0) {
-    climb::cp_async_tile64<kTcThreads, kLd>(Ks + buf * kTcTile, kb, ks.s, k0, S, tid);
-    climb::cp_async_tile64<kTcThreads, kLd>(Vs + buf * kTcTile, vb, vs.s, k0, S, tid);
-    if (tid < kT) {
-      const bool ok = k0 + tid < S;
-      climb::cp_async4(Bs + buf * kT + tid, ok ? biasb + k0 + tid : biasb, ok);
+  if (warp >= 4 * WGS) {  // the producer warpgroup: one warp issues the copies
+    setmaxnreg_dec<DqBlock::kProducerRegs>();
+    if (warp > 4 * WGS) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar.ready, 2 * n_wg * kTileBytes);
+      for (int w = 0; w < n_wg; ++w) {
+        tma_load_4d(base + w * kTileBytes, &qmap, bar.ready, 0, h, q0 + kT * w, b);
+        tma_load_4d(base + (WGS + w) * kTileBytes, &omap, bar.ready, 0, h, q0 + kT * w, b);
+      }
     }
-  };
-  climb::cp_async_tile64<kTcThreads, kLd>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S, tid);
-  climb::cp_async_tile64<kTcThreads, kLd>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S, tid);
-  stage(0, 0);
-  climb::cp_async_commit();
+    // K and V tiles with the tile's key bias, -inf past S (so a key past S
+    // gets s = -inf with no test in the consumers); once for each sweep
+    const float* biasb = bias + b * bias_sb;
+    for (int i = 0; i < 2 * n_k; ++i) {
+      const int s = i % kStages, k0 = (i < n_k ? i : i - n_k) * kT;
+      mbar_wait(bar.empty + 8 * s, ((i / kStages) & 1) ^ 1);  // round 0 passes at once
+      for (int c = lane; c < kT; c += 32)
+        key_bias[s * kT + c] = k0 + c < S ? biasb[k0 + c] * kLog2e : -INFINITY;
+      if (lane == 0) {
+        const unsigned t = ring + s * 2 * kTileBytes;
+        mbar_arrive_expect_tx(bar.full + 8 * s, 2 * kTileBytes);
+        tma_load_4d(t, &kmap, bar.full + 8 * s, 0, h, k0, b);
+        tma_load_4d(t + kTileBytes, &vmap, bar.full + 8 * s, 0, h, k0, b);
+      } else {
+        mbar_arrive(bar.full + 8 * s);
+      }
+    }
+    return;
+  }
 
-  unsigned qf[4][4], of[4][4];  // A fragments of the warp's 16 rows of Q and dO
-  const int n_tiles = (S + kT - 1) / kT;
-  float s[8][4], dp[8][4];
-  // scores of key tile `it` in s (masked, scaled, biased) and dP in dp
-  auto scores = [&](int it) {
-    const int buf = it & 1, k0 = it * kT;
-    if (it + 1 < n_tiles) stage(buf ^ 1, k0 + kT);
-    climb::cp_async_commit();
-    climb::cp_async_wait<1>();
-    __syncthreads();
-    zero(s);
-    zero(dp);
-    climb::mma_abt(s, qf, Ks + buf * kTcTile, kLd, lane);
-    climb::mma_abt(dp, of, Vs + buf * kTcTile, kLd, lane);
-    const float* Bt = Bs + buf * kT;
+  setmaxnreg_inc<DqBlock::kConsumerRegs>();
+  const int wg = warp >> 2;
+  if (wg >= n_wg) return;  // all its rows are past S
+  const int t = lane & 3;
+  const int row0 = q0 + kT * wg + 16 * (warp & 3);  // this warp's first query row
+  const unsigned qt = base + wg * kTileBytes, ot = base + (WGS + wg) * kTileBytes;
+  const float scale_log2 = scale * kLog2e;
+  mbar_wait(bar.ready, 0);
+
+  // Ring index i < n_k is key tile i of sweep 1, n_k + i key tile i of sweep
+  // 2. S = Q.K^T and dP = dO.V^T of ring index i; those of index i + 1 are
+  // issued behind index i's dS.K, so the tensor cores have them queued.
+  float s[32], dp[32];
+  auto issue_scores = [&](int i) {
+    const int st = i % kStages;
+    const unsigned kt = ring + st * 2 * kTileBytes, vt = kt + kTileBytes;
+    mbar_wait(bar.full + 8 * st, (i / kStages) & 1);
+    wgmma_fence();
+    wgmma_m64n64k16_ss_first(s, sw128_desc(qt), sw128_desc(kt));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(s, sw128_desc(qt + 32 * kk), sw128_desc(kt + 32 * kk));
+    wgmma_m64n64k16_ss_first(dp, sw128_desc(ot), sw128_desc(vt));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(dp, sw128_desc(ot + 32 * kk), sw128_desc(vt + 32 * kk));
+    wgmma_commit();
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  float inv_l[2], inv_l_scale[2], delta[2];
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  fence_operand(acc);  // zeroed here, not next to its first wgmma
+  issue_scores(0);
+  for (int i = 0; i < 2 * n_k; ++i) {
+    const int st = i % kStages;
+    wgmma_wait<0>();  // index i's S and dP, and index i - 1's dS.K
+    fence_operand(s);
+    fence_operand(dp);
+    fence_operand(acc);
+    if (i > n_k) bar.release((i - 1) % kStages, lane);  // dS.K has read K
+    const float* bt = key_bias + st * kT;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bc = bt[8 * j + 2 * t + e];
+        s[4 * j + e] = fmaf(s[4 * j + e], scale_log2, bc);
+        s[4 * j + 2 + e] = fmaf(s[4 * j + 2 + e], scale_log2, bc);
+      }
+    if (i < n_k) {
+      bar.release(st, lane);
+      // sweep 1: row max, row sum and unnormalized delta, online
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+      float m_new[2], rs[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m[r], quad_max(mx[r]));  // finite
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        const float p = exp2_approx(s[e] - m_new[r]);
+        rs[r] += p;
+        rd[r] += p * dp[e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float alpha = exp2_approx(m[r] - m_new[r]);
+        l[r] = l[r] * alpha + quad_sum(rs[r]);
+        dl[r] = dl[r] * alpha + quad_sum(rd[r]);
+        m[r] = m_new[r];
+      }
+      if (i == n_k - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          inv_l[r] = 1.f / l[r];
+          inv_l_scale[r] = inv_l[r] * scale;
+          delta[r] = dl[r] * inv_l[r];
+          const int row = row0 + (lane >> 2) + 8 * r;
+          if (t == 0 && row < S) {
+            const long long at = (static_cast<long long>(b) * H + h) * S + row;
+            ml_out[at] = make_float2(m[r], inv_l[r]);
+            delta_out[at] = delta[r];
+          }
+        }
+      }
+    } else {
+      // sweep 2: dS, then dQ += dS.K with K as the MN-major B operand
+      unsigned dsf[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 8 * kk; e < 8 * kk + 8; ++e) {
+          const int r = (e >> 1) & 1;
+          // keys past S have s = -inf, so p = 0
+          s[e] = exp2_approx(s[e] - m[r]) * inv_l_scale[r] * (dp[e] - delta[r]);
+        }
+        a_from_acc(dsf[kk], s, kk);
+      }
+      const unsigned kt = ring + st * 2 * kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs(acc, dsf[kk], sw128_mn_desc(kt + 2048 * kk));
+      wgmma_commit();
+    }
+    if (i + 1 < 2 * n_k) issue_scores(i + 1);
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  bar.release((2 * n_k - 1) % kStages, lane);
+  store_rows(dq + b * dqs.b + h * dqs.h, dqs.s, acc, row0, S, lane);
+}
+
+__global__ void __launch_bounds__(DkdvBlock::kThreads, 1)
+    attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                                   const __grid_constant__ CUtensorMap kmap,
+                                   const __grid_constant__ CUtensorMap vmap,
+                                   const __grid_constant__ CUtensorMap omap,
+                                   const float* __restrict__ bias,
+                                   const float2* __restrict__ ml_in,
+                                   const float* __restrict__ delta_in, bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv, int S, int H, Strides dks,
+                                   Strides dvs, long long bias_sb, float scale) {
+  constexpr int WGS = DkdvBlock::kWgs;
+  unsigned base;
+  unsigned char* smem = aligned_smem(base);
+  const unsigned ring = base + DkdvBlock::kResidentBytes;
+  float2* q_ml = reinterpret_cast<float2*>(smem + DkdvBlock::kSideOffset);
+  float* q_delta = reinterpret_cast<float*>(q_ml + kStages * kT);
+  const Barriers bar(base + DkdvBlock::kBarOffset);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * DkdvBlock::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_wg = min(WGS, (S - k0 + kT - 1) / kT);  // warpgroups with a key < S
+  const int n_q = (S + kT - 1) / kT;
+
+  if (tid == 0) bar.init(n_wg);
+  __syncthreads();
+
+  if (warp >= 4 * WGS) {  // the producer warpgroup: one warp issues the copies
+    setmaxnreg_dec<DkdvBlock::kProducerRegs>();
+    if (warp > 4 * WGS) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar.ready, 2 * n_wg * kTileBytes);
+      for (int w = 0; w < n_wg; ++w) {
+        tma_load_4d(base + w * kTileBytes, &kmap, bar.ready, 0, h, k0 + kT * w, b);
+        tma_load_4d(base + (WGS + w) * kTileBytes, &vmap, bar.ready, 0, h, k0 + kT * w, b);
+      }
+    }
+    // Q and dO tiles with each query's (m, 1/l) and delta; a query past S
+    // gets m = +inf and 1/l = 0, so its P and dS are 0 with no test in the
+    // consumers
+    const long long at = (static_cast<long long>(b) * H + h) * S;
+    const float2* mlb = ml_in + at;
+    const float* deltab = delta_in + at;
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % kStages, q0 = i * kT;
+      mbar_wait(bar.empty + 8 * s, ((i / kStages) & 1) ^ 1);  // round 0 passes at once
+      for (int c = lane; c < kT; c += 32) {
+        const bool ok = q0 + c < S;
+        q_ml[s * kT + c] = ok ? mlb[q0 + c] : make_float2(INFINITY, 0.f);
+        q_delta[s * kT + c] = ok ? deltab[q0 + c] : 0.f;
+      }
+      if (lane == 0) {
+        const unsigned t = ring + s * 2 * kTileBytes;
+        mbar_arrive_expect_tx(bar.full + 8 * s, 2 * kTileBytes);
+        tma_load_4d(t, &qmap, bar.full + 8 * s, 0, h, q0, b);
+        tma_load_4d(t + kTileBytes, &omap, bar.full + 8 * s, 0, h, q0, b);
+      } else {
+        mbar_arrive(bar.full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<DkdvBlock::kConsumerRegs>();
+  const int wg = warp >> 2;
+  if (wg >= n_wg) return;  // all its keys are past S
+  const int t = lane & 3;
+  const int row0 = k0 + kT * wg + 16 * (warp & 3);  // this warp's first key
+  const unsigned kt = base + wg * kTileBytes, vt = base + (WGS + wg) * kTileBytes;
+  const float scale_log2 = scale * kLog2e;
+  // this thread's keys row0 + lane/4 and 8 on: their bias, -inf past S
+  float key_bias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = row0 + (lane >> 2) + 8 * r;
+    key_bias[r] = key < S ? bias[b * bias_sb + key] * kLog2e : -INFINITY;
+  }
+  mbar_wait(bar.ready, 0);
+
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  fence_operand(dka);  // zeroed here, not next to their first wgmma
+  fence_operand(dva);
+  // S^T = K.Q^T and dP^T = V.dO^T of query tile i: keys as rows, queries as
+  // columns. Tile i + 1's are issued right behind tile i's dV and dK, so the
+  // tensor cores have the next products queued while those run.
+  float sc[32], dpt[32];
+  auto issue_scores = [&](int i) {
+    const int st = i % kStages;
+    const unsigned qs = ring + st * 2 * kTileBytes, os = qs + kTileBytes;
+    mbar_wait(bar.full + 8 * st, (i / kStages) & 1);
+    wgmma_fence();
+    wgmma_m64n64k16_ss_first(sc, sw128_desc(kt), sw128_desc(qs));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(sc, sw128_desc(kt + 32 * kk), sw128_desc(qs + 32 * kk));
+    wgmma_m64n64k16_ss_first(dpt, sw128_desc(vt), sw128_desc(os));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(dpt, sw128_desc(vt + 32 * kk), sw128_desc(os + 32 * kk));
+    wgmma_commit();
+  };
+  issue_scores(0);
+  for (int it = 0; it < n_q; ++it) {
+    const int st = it % kStages;
+    const unsigned qs = ring + st * 2 * kTileBytes, os = qs + kTileBytes;
+    wgmma_wait<0>();  // tile it's S^T and dP^T, and tile it - 1's dV and dK
+    fence_operand(sc);
+    fence_operand(dpt);
+    fence_operand(dka);
+    fence_operand(dva);
+    if (it > 0) bar.release((it - 1) % kStages, lane);
+    const float2* mlt = q_ml + st * kT;
+    const float* dlt = q_delta + st * kT;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * t + e;
-        const bool ok = k0 + c < S;
-        const float bc = Bt[c];
-        s[j][e] = ok ? s[j][e] * scale + bc : -INFINITY;
-        s[j][2 + e] = ok ? s[j][2 + e] * scale + bc : -INFINITY;
-      }
-  };
-
-  // sweep 1: row max, row sum and unnormalized delta, online over key tiles
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it == 0) {
-      climb::cp_async_wait<0>();
-      __syncthreads();
-      climb::load_a(qf, Qs + warp * 16 * kLd, kLd, lane);
-      climb::load_a(of, dOs + warp * 16 * kLd, kLd, lane);
-    }
-    scores(it);
-    float mx[2] = {-INFINITY, -INFINITY};
+        const float2 ml = mlt[c];
+        const float dl = dlt[c];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    float m_new[2], rs[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m[r], climb::quad_max(mx[r]));  // finite
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - m_new[e >> 1]);
-        rs[e >> 1] += p;
-        rd[e >> 1] += p * dp[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float alpha = __expf(m[r] - m_new[r]);
-      l[r] = l[r] * alpha + climb::quad_sum(rs[r]);
-      dl[r] = dl[r] * alpha + climb::quad_sum(rd[r]);
-      m[r] = m_new[r];
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-  float inv_l[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    inv_l[r] = 1.f / l[r];
-    delta[r] = dl[r] * inv_l[r];
-    const int s_row = q0 + warp * 16 + (lane >> 2) + 8 * r;
-    if (t == 0 && s_row < S) {
-      const long long at = (b * H + h) * S + s_row;
-      ml_out[at] = make_float2(m[r], inv_l[r]);
-      delta_out[at] = delta[r];
-    }
-  }
-
-  // sweep 2: dS per key tile, dQ += dS.K
-  stage(0, 0);
-  climb::cp_async_commit();
-  float acc[8][4];
-  zero(acc);
-  for (int it = 0; it < n_tiles; ++it) {
-    scores(it);
-    unsigned dsf[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        // masked keys have s = -inf, so p = 0
-        const float p = __expf(s[j][e] - m[r]) * inv_l[r];
-        s[j][e] = p * (dp[j][e] - delta[r]) * scale;
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) climb::a_from_c(dsf[kk], s, kk);
-    climb::mma_ab(acc, dsf, Ks + (it & 1) * kTcTile, kLd, lane);
-    __syncthreads();
-  }
-  store_rows(dq + b * dqs.b + h * dqs.h, dqs.s, acc, q0 + warp * 16, S, lane);
-}
-
-// at most 168 registers a thread: three blocks an SM
-__global__ void __launch_bounds__(kTcThreads, 3)
-    attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                   const float* __restrict__ bias,
-                                   const float2* __restrict__ ml_in,
-                                   const float* __restrict__ delta_in, bf16* __restrict__ dk,
-                                   bf16* __restrict__ dv, int S, int H, Strides qs, Strides ks,
-                                   Strides vs, Strides dos, Strides dks, Strides dvs,
-                                   long long bias_sb, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kTcTile;
-  bf16* Qs = Vs + kTcTile;       // two buffers
-  bf16* dOs = Qs + 2 * kTcTile;  // two buffers
-  float2* Ms = reinterpret_cast<float2*>(dOs + 2 * kTcTile);  // two buffers of 64 (m, 1/l)
-  float* Ds = reinterpret_cast<float*>(Ms + 2 * kT);          // two buffers of 64 delta
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kT;
-  const long long b = blockIdx.z, h = blockIdx.y;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* ob = dout + b * dos.b + h * dos.h;
-  const float2* mlb = ml_in + (b * H + h) * S;
-  const float* deltab = delta_in + (b * H + h) * S;
-
-  auto stage = [&](int buf, int q0) {
-    climb::cp_async_tile64<kTcThreads, kLd>(Qs + buf * kTcTile, qb, qs.s, q0, S, tid);
-    climb::cp_async_tile64<kTcThreads, kLd>(dOs + buf * kTcTile, ob, dos.s, q0, S, tid);
-    if (tid < kT) {
-      const bool ok = q0 + tid < S;
-      climb::cp_async8(Ms + buf * kT + tid, ok ? mlb + q0 + tid : mlb, ok);
-    } else {
-      const int r = tid - kT;
-      const bool ok = q0 + r < S;
-      climb::cp_async4(Ds + buf * kT + r, ok ? deltab + q0 + r : deltab, ok);
-    }
-  };
-  climb::cp_async_tile64<kTcThreads, kLd>(Ks, k + b * ks.b + h * ks.h, ks.s, k0, S, tid);
-  climb::cp_async_tile64<kTcThreads, kLd>(Vs, v + b * vs.b + h * vs.h, vs.s, k0, S, tid);
-  stage(0, 0);
-  climb::cp_async_commit();
-
-  // this thread's key rows g and g + 8 of the warp's 16: validity and bias
-  bool key_ok[2];
-  float key_bias[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + warp * 16 + g + 8 * r;
-    key_ok[r] = key < S;
-    key_bias[r] = key_ok[r] ? bias[b * bias_sb + key] : 0.f;
-  }
-
-  const bf16* Kw = Ks + warp * 16 * kLd;  // the warp's 16 rows of K and V
-  const bf16* Vw = Vs + warp * 16 * kLd;
-  float dka[8][4], dva[8][4];
-  zero(dka);
-  zero(dva);
-  const int n_tiles = (S + kT - 1) / kT;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1, q0 = it * kT;
-    if (it + 1 < n_tiles) stage(buf ^ 1, q0 + kT);
-    climb::cp_async_commit();
-    climb::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qt = Qs + buf * kTcTile;
-    const bf16* dOt = dOs + buf * kTcTile;
-    const float2* Mt = Ms + buf * kT;
-    const float* Dt = Ds + buf * kT;
-    // two halves of 32 queries keep the score fragments at 16 registers each;
-    // K's and V's A fragments are read from shared memory for each half
-    // rather than held (32 registers), so three blocks fit on an SM
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;
-      float st[4][4], dpt[4][4];  // S^T and dP^T: keys as rows, queries as columns
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      unsigned af[4][4];
-      climb::load_a(af, Kw, kLd, lane);
-      climb::mma_abt(st, af, Qt + c0 * kLd, kLd, lane);
-      climb::load_a(af, Vw, kLd, lane);
-      climb::mma_abt(dpt, af, dOt + c0 * kLd, kLd, lane);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, c = c0 + 8 * j + 2 * t + (e & 1);
-          const float2 ml = Mt[c];
-          const float p = (key_ok[r] && q0 + c < S)
-                              ? __expf(st[j][e] * scale + key_bias[r] - ml.x) * ml.y
-                              : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - Dt[c]) * scale;
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          const float p = exp2_approx(fmaf(sc[i], scale_log2, key_bias[r]) - ml.x) * ml.y;
+          sc[i] = p;
+          dpt[i] = p * (dpt[i] - dl) * scale;
         }
-      unsigned pf[2][4], dsf[2][4];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        climb::a_from_c(pf[kk], st, kk);
-        climb::a_from_c(dsf[kk], dpt, kk);
       }
-      climb::mma_ab(dva, pf, dOt + c0 * kLd, kLd, lane);
-      climb::mma_ab(dka, dsf, Qt + c0 * kLd, kLd, lane);
+    // dV += P^T.dO and dK += dS^T.Q, with dO and Q as MN-major B operands
+    unsigned pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a_from_acc(pf[kk], sc, kk);
+      a_from_acc(dsf[kk], dpt, kk);
     }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_rs(dva, pf[kk], sw128_mn_desc(os + 2048 * kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_rs(dka, dsf[kk], sw128_mn_desc(qs + 2048 * kk));
+    wgmma_commit();
+    if (it + 1 < n_q) issue_scores(it + 1);
   }
-  const int row0 = k0 + warp * 16;
+  wgmma_wait<0>();
+  fence_operand(dka);
+  fence_operand(dva);
+  bar.release((n_q - 1) % kStages, lane);
   store_rows(dk + b * dks.b + h * dks.h, dks.s, dka, row0, S, lane);
   store_rows(dv + b * dvs.b + h * dvs.h, dvs.s, dva, row0, S, lane);
 }
@@ -643,33 +796,36 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, c
                 const long long* qs, const long long* ks, const long long* vs,
                 const long long* dos, const long long* dqs, const long long* dks,
                 const long long* dvs, long long bias_sb, float scale, cudaStream_t stream) {
-  // the wrapper checks these and says which tensor fails
-  using climb::aligned16;
+  // the wrapper checks these and says which tensor fails; TMA needs the same
   if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs) || !aligned16(dout, dos) ||
       !aligned16(dq, dqs) || !aligned16(dk, dks) || !aligned16(dv, dvs))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kDqTcSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kDkdvTcSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kT - 1) / kT, H, B);
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* ot = static_cast<const bf16*>(dout);
-  attention_bwd_dq_bf16_kernel<<<grid, kTcThreads, kDqTcSmemBytes, stream>>>(
-      qt, kt, vt, ot, bias, static_cast<bf16*>(dq), ml, delta, S, H, strides3(qs),
-      strides3(ks), strides3(vs), strides3(dos), strides3(dqs), bias_sb, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_bf16_kernel<<<grid, kTcThreads, kDkdvTcSmemBytes, stream>>>(
-      qt, kt, vt, ot, bias, ml, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H,
-      strides3(qs), strides3(ks), strides3(vs), strides3(dos), strides3(dks), strides3(dvs),
-      bias_sb, scale);
+  // the operands' addresses and strides change from call to call: encode here
+  CUtensorMap qm, km, vm, om;
+  int err = encode_bshd_bf16(&qm, q, B, S, H, qs);
+  if (!err) err = encode_bshd_bf16(&km, k, B, S, H, ks);
+  if (!err) err = encode_bshd_bf16(&vm, v, B, S, H, vs);
+  if (!err) err = encode_bshd_bf16(&om, dout, B, S, H, dos);
+  if (err) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          static_cast<int>(DqBlock::kSmemBytes));
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  cerr = cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(DkdvBlock::kSmemBytes));
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const dim3 dq_grid((S + DqBlock::kRows - 1) / DqBlock::kRows, H, B);
+  attention_bwd_dq_bf16_kernel<<<dq_grid, DqBlock::kThreads, DqBlock::kSmemBytes, stream>>>(
+      qm, km, vm, om, bias, static_cast<bf16*>(dq), ml, delta, S, H, strides3(dqs), bias_sb,
+      scale);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const dim3 dkdv_grid((S + DkdvBlock::kRows - 1) / DkdvBlock::kRows, H, B);
+  attention_bwd_dkdv_bf16_kernel<<<dkdv_grid, DkdvBlock::kThreads, DkdvBlock::kSmemBytes,
+                                   stream>>>(
+      qm, km, vm, om, bias, ml, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H,
+      strides3(dks), strides3(dvs), bias_sb, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -707,9 +863,9 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
 
 // q/k/v/dout/dq/dk/dv: (B, S, H, D) with D == 64 contiguous; *_strides =
 // element strides of the B, S and H axes. bias: (B, S) f32 rows bias_sb apart.
-// ml: (B, H, S, 2) contiguous f32 scratch holding each row's (max, 1 / sum);
-// delta: (B, H, S) f32 scratch; both written by the first launch and read by
-// the second.
+// ml: (B, H, S, 2) contiguous f32 scratch holding each row's (max, 1 / sum),
+// the max in log2 units for bf16; delta: (B, H, S) f32 scratch; both written
+// by the first launch and read by the second.
 extern "C" int climb_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                    const float* bias, void* dq, void* dk, void* dv, float* ml,
                                    float* delta, int B, int S, int H, int D,

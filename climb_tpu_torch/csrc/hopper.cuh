@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the bf16 GEMM in gemm.cuh: mbarriers,
-// TMA tile loads described by a CUtensorMap, and warpgroup MMA (wgmma) with
-// its shared-memory descriptors and fences, as PTX. Host side: encoding a
-// tensor map for a K-major bf16 operand.
+// Hopper (sm_90a) building blocks of the bf16 GEMM in gemm.cuh and the bf16
+// attention backward in attention_bwd.cu: mbarriers, TMA tile loads described
+// by a CUtensorMap, warpgroup MMA (wgmma) with its shared-memory descriptors
+// and fences, and the register handoff between warpgroups (setmaxnreg), as
+// PTX. Host side: encoding tensor maps for a K-major bf16 operand and for a
+// strided (B, S, H, 64) bf16 tensor.
 //
 // Layout contract (PTX ISA, "Asynchronous Warpgroup Level Matrix Shared
 // Memory Layout"): a TMA box of 64 bf16 (128 bytes) by R rows, loaded with
@@ -11,9 +13,23 @@
 // stride byte offset). The k-th 16-deep slice of the box starts 32 * k bytes
 // into the tile; the hardware applies the swizzle to that address.
 //
+// The same tile read as an MN-major operand (wgmma's transposed B): a 64 x 64
+// bf16 tile whose rows are the reduction axis K and whose 128-byte rows run
+// along N is the MN-major 128-byte-swizzled layout ((8, 8), (8, k)) :
+// ((1, 8), (64, SBO)) in elements: eight rows of K 128 bytes apart, 8-row
+// groups 1024 bytes apart (SBO), and N = 64 in one swizzle atom, so the
+// leading byte offset (the stride between 64-wide N blocks) is not used. The
+// k-th 16-deep slice starts 16 rows, 2048 bytes, into the tile.
+//
 // The accumulator of wgmma m64nNk16 with f32 D, for thread t of the
 // warpgroup with w = t / 32, l = t % 32: d[4j + 2h + e] holds
-// D[16w + l/4 + 8h][8j + 2(l%4) + e] for h, e in {0, 1}.
+// D[16w + l/4 + 8h][8j + 2(l%4) + e] for h, e in {0, 1}. An A operand taken
+// from registers (m64k16, bf16) has each warp's 16 rows in mma.sync
+// m16n8k16's A layout (tc.cuh): a0 = A[16w + l/4][2(l%4) + {0, 1}], a1 the
+// same 8 rows down, a2 and a3 the same 8 columns on. So the accumulator's
+// columns 16kk .. 16kk + 15 rounded to bf16 pairs are the A operand of k-slice
+// kk of the next product: a = {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]},
+// {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]} (a_from_acc).
 #pragma once
 
 #include <cuda.h>
@@ -69,6 +85,19 @@ __device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
+// the box of a 4-D `map` at element coordinates (c0 innermost .. c3) into
+// shared memory at `dst`; completes bytes on `bar`. Out-of-bounds elements as
+// tma_load_2d.
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // ---- wgmma ----------------------------------------------------------------------
 
 // descriptor of a K-major, 128-byte-swizzled operand tile starting at `addr`
@@ -78,6 +107,33 @@ __device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map
 __device__ __forceinline__ unsigned long long sw128_desc(unsigned addr) {
   return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<unsigned long long>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// descriptor of an MN-major, 128-byte-swizzled operand tile starting at
+// `addr` (the layout above): leading byte offset 8192 (unused at N = 64),
+// stride byte offset 1024, layout type 1; read with the transpose bit set
+__device__ __forceinline__ unsigned long long sw128_mn_desc(unsigned addr) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) | ((8192ull >> 4) << 16) |
+         (static_cast<unsigned long long>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// keeps the compiler from moving other reads or writes of a wgmma
+// accumulator across this point: around the wgmma instructions that use it
+__device__ __forceinline__ void fence_operand(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// hand registers between the warpgroups of a block (the counts are per
+// thread); all four warps of a warpgroup must exist and execute it: a block
+// whose last warpgroup is one lone warp hangs there
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -121,6 +177,87 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], unsigned long l
       : "l"(a), "l"(b), "r"(1));
 }
 
+#define CLIMB_WGMMA_D32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+  "+f"(d[31])
+#define CLIMB_WGMMA_D32_OUT \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), \
+  "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), \
+  "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), \
+  "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), \
+  "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), \
+  "=f"(d[31])
+
+// d (64 x 64, f32) = A (64 x 16) . B (64 x 16)^T, both bf16 and K-major in
+// shared memory, by the whole warpgroup; d's earlier values are not read (so
+// no other instruction that wrote them is tied to this one)
+__device__ __forceinline__ void wgmma_m64n64k16_ss_first(float (&d)[32], unsigned long long a,
+                                                         unsigned long long b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CLIMB_WGMMA_D32_OUT
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x 64, f32) += A (64 x 16) . B (64 x 16)^T, both bf16 and K-major in
+// shared memory, by the whole warpgroup
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], unsigned long long a,
+                                                   unsigned long long b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CLIMB_WGMMA_D32
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16, from registers in the layout above) .
+// B (16 x 64, bf16, MN-major in shared memory: sw128_mn_desc), by the whole
+// warpgroup. A's registers must not change until the group has completed.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4],
+                                                   unsigned long long b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : CLIMB_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef CLIMB_WGMMA_D32
+#undef CLIMB_WGMMA_D32_OUT
+
+// the A operand of k-slice kk (accumulator columns 16kk .. 16kk + 15) of a
+// 64 x 64 f32 accumulator, rounded to bf16 pairs (the layouts above)
+__device__ __forceinline__ void a_from_acc(unsigned (&a)[4], const float (&d)[32], int kk) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+    a[r] = *reinterpret_cast<unsigned*>(&v);
+  }
+}
+
 // ---- host: tensor maps --------------------------------------------------------
 
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point so
@@ -162,6 +299,29 @@ inline int encode_kmajor_bf16(CUtensorMap* map, const void* base, int rows, int 
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// map of a (B, S, H, 64) bf16 tensor with element strides st = {B, S, H} and
+// a contiguous last axis, read in boxes of 64 rows of S for one (b, h) with
+// 128-byte swizzle (dims {64, H, S, B}): rows past S within each batch read
+// as zeros. Needs a 16-byte aligned base and strides in multiples of 8
+// elements; returns a cudaError_t.
+inline int encode_bshd_bf16(CUtensorMap* map, const void* base, int B, int S, int H,
+                            const long long* st) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * sizeof(__nv_bfloat16),
+                                 static_cast<cuuint64_t>(st[1]) * sizeof(__nv_bfloat16),
+                                 static_cast<cuuint64_t>(st[0]) * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,11 +27,7 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(valid ? 16 : 0));
 }
-// 8 and 4 bytes, for rows whose starts are not 16-byte aligned
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem), "r"(valid ? 8 : 0));
-}
+// 4 bytes, for rows whose starts are not 16-byte aligned
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(valid ? 4 : 0));

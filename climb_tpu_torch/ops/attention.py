@@ -9,7 +9,8 @@ package's: q, k, v and the output are (B, S, H, D); the mask bias is
 ``torch.export`` traces it. ``FlashAttention`` is the autograd form: its
 forward launches ``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu`` for
 CUDA tensors; for CPU tensors both run the plain versions. In bf16 both
-kernels run on the tensor cores, in f32 on the CUDA cores.
+kernels run on the tensor cores (the forward on ``mma.sync``, the backward on
+``wgmma`` fed by TMA), in f32 on the CUDA cores.
 """
 
 import math
@@ -106,10 +107,11 @@ def _cp_async_ok(t):
 
 
 def check_cp_async_layout(what, **tensors):
-    """The bf16 kernels stage (B, S, H, D) tiles by 16-byte ``cp.async``: each
-    tensor must start on a 16-byte boundary, and its B, S and H strides must
-    be multiples of 16 bytes. Reads only ``data_ptr()``, ``stride()`` and the
-    element size; raises ValueError naming the first tensor that fails."""
+    """The bf16 kernels stage (B, S, H, D) tiles by 16-byte ``cp.async`` (the
+    forward) or by TMA (the backward, whose tensor maps take the same rule):
+    each tensor must start on a 16-byte boundary, and its B, S and H strides
+    must be multiples of 16 bytes. Reads only ``data_ptr()``, ``stride()`` and
+    the element size; raises ValueError naming the first tensor that fails."""
     for name, t in tensors.items():
         if not _cp_async_ok(t):
             size = t.element_size()
@@ -182,6 +184,20 @@ def attention_fwd(q, k, v, bias):
     return attention_fwd_op(q, k, v, bias)
 
 
+def bwd_c_args(q, k, v, key_bias, do, dq, dk, dv, scratch):
+    """The arguments of the C entry ``climb_attention_bwd`` for checked
+    (B, S, H, D) CUDA tensors, the (B, S) key bias, the outputs and the
+    float32 scratch of 3 * B * H * S elements."""
+    b, s, h, d = q.shape
+    ml = scratch.data_ptr()
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml, ml + 8 * b * h * s,
+            b, s, h, d, build.strides3(q), build.strides3(k), build.strides3(v),
+            build.strides3(do), build.strides3(dq), build.strides3(dk), build.strides3(dv),
+            key_bias.stride(0), 1.0 / math.sqrt(d), build.DTYPES[q.dtype],
+            build.stream_handle(q.device))
+
+
 def attention_bwd(q, k, v, bias, do):
     """(dq, dk, dv) of masked attention; ``csrc/attention_bwd.cu`` for CUDA
     tensors (two launches, counted as one), ``attention_bwd_plain`` for CPU
@@ -192,23 +208,14 @@ def attention_bwd(q, k, v, bias, do):
     if do.stride(-1) != 1 or not _cp_async_ok(do):
         do = do.contiguous()  # autograd's gradient in the layout the kernels take
     key_bias = _check_kernel_args("attention_bwd", q, k, v, bias, do)
-    b, s, h, d = q.shape
-    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    # scratch of the two launches: each row's (max, 1 / sum), and delta
-    ml = torch.empty((b, h, s, 2), dtype=torch.float32, device=q.device)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    # scratch of the two launches in one buffer: each row's (max, 1 / sum)
+    # as (B, H, S, 2), then delta as (B, H, S)
+    b, s, h, _ = q.shape
+    scratch = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
     lib = build.load_library()
-    build.check(
-        lib.climb_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ml.data_ptr(), delta.data_ptr(),
-            b, s, h, d, build.strides3(q), build.strides3(k), build.strides3(v),
-            build.strides3(do), build.strides3(dq), build.strides3(dk), build.strides3(dv),
-            key_bias.stride(0), 1.0 / math.sqrt(d), build.DTYPES[q.dtype],
-            build.stream_handle(q.device),
-        ),
-        "attention_bwd",
-    )
+    build.check(lib.climb_attention_bwd(*bwd_c_args(q, k, v, key_bias, do, dq, dk, dv, scratch)),
+                "attention_bwd")
     LAUNCHES["attention_bwd"] += 1
     return dq, dk, dv
 

@@ -159,8 +159,9 @@ def test_chip_smoke_counts_hmma_per_function():
     ({"hmma": 64, "registers": None, "spill_bytes": None}, "not in the ptxas report"),
 ])
 def test_chip_smoke_build_phase_faults(row, fault):
-    faults = chip_smoke.tensor_core_faults([{"kernel": "attention_bwd_dkdv_bf16_kernel", **row}])
-    assert faults == ([] if fault is None else [f"attention_bwd_dkdv_bf16_kernel: {fault}"])
+    # the attention forward: the mma.sync kernel (the backward is on wgmma)
+    faults = chip_smoke.tensor_core_faults([{"kernel": "attention_fwd_bf16_kernel", **row}])
+    assert faults == ([] if fault is None else [f"attention_fwd_bf16_kernel: {fault}"])
 
 
 # ---- chip_ab.py ----------------------------------------------------------------------

@@ -53,15 +53,25 @@ def test_build_phase_faults_of_a_gemm_kernel(row, fault):
     assert faults == ([] if fault is None else [f"out_bf16_wgmma_kernel: {fault}"])
 
 
+# the bf16 kernels on wgmma: the three GEMMs and the two launches of the
+# attention backward; the attention forward stays on mma.sync
+WGMMA_KERNELS = {"linear_bf16_wgmma_kernel", "qkv_bf16_wgmma_kernel", "out_bf16_wgmma_kernel",
+                 "attention_bwd_dq_bf16_kernel", "attention_bwd_dkdv_bf16_kernel"}
+
+
 def test_every_checked_kernel_is_in_the_sources_and_the_gemms_use_no_wmma():
     sources = {p.name: p.read_text() for p in CSRC.iterdir()}
     everything = "\n".join(sources.values())
     for kernel, instruction in chip_smoke.TENSOR_CORE_KERNELS.items():
         assert re.search(rf"\b{kernel}\(", everything), kernel
-        assert instruction == ("HGMMA" if "wgmma" in kernel else "HMMA")
-    assert sum("wgmma" in k for k in chip_smoke.TENSOR_CORE_KERNELS) == 3
+        assert instruction == ("HGMMA" if kernel in WGMMA_KERNELS else "HMMA")
+    assert set(chip_smoke.TENSOR_CORE_KERNELS) >= WGMMA_KERNELS
+    assert sum(i == "HGMMA" for i in chip_smoke.TENSOR_CORE_KERNELS.values()) == 5
     for name in ("gemm.cuh", "mlp.cu", "block.cu"):
         assert "wmma" not in sources[name].replace("wgmma", ""), name
+    # the backward calls no mma.sync helper of tc.cuh
+    assert not re.search(r"\b(mma_abt?|mma_bf16|load_a|ldmatrix_x4\w*)\(",
+                         sources["attention_bwd.cu"])
     assert "hopper.cuh" in build.HEADERS
 
 

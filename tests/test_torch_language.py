@@ -215,23 +215,43 @@ def test_long_sequence_forward_matches_blocked_kernel(blocked, monkeypatch):
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
 
 
-def test_long_sequence_backward_matches_blockwise_xla(blocked, monkeypatch):
+# (atol, rtol) against _bwd_blockwise_xla: in f32 the gradient tolerance of
+# tests/test_pallas_kernels.py's blocked case; in bf16 the blockwise path keeps
+# P and dS in f32 and takes delta = rowsum(dO o O), where the port keeps
+# _bwd_kernel's roundings (P and dS to bf16, delta = rowsum(dP o P)) at every
+# S: 1-2 bf16 ulps of the largest values (|dv| <= 0.134 here, ulp 2^-10 at
+# 0.125; 4.9e-4 seen), and one ulp (2^-7 relative) of any output
+BLOCKWISE_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (1e-3, 2.0 ** -7)}
+
+
+def _long_backward_against_blockwise(monkeypatch, dtype):
     q, k, v, g, mask = _long_qkv()
     calls = []
     real = pa._bwd_blockwise_xla
     monkeypatch.setattr(pa, "_bwd_blockwise_xla",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
     jbias = jax_mask_to_bias(jnp.asarray(mask))
-    _, vjp = jax.vjp(lambda q, k, v: pa.flash_attention(q, k, v, jbias),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    ref = vjp(jnp.asarray(g))
+    jq, jk, jv, jg = (jnp.asarray(x).astype(dtype) for x in (q, k, v, g))
+    _, vjp = jax.vjp(lambda q, k, v: pa.flash_attention(q, k, v, jbias), jq, jk, jv)
+    ref = vjp(jg)
     assert calls
-    t = torch.from_numpy
-    got = attention.attention_bwd(t(q), t(k), t(v), attention.mask_to_bias(t(mask)), t(g))
+    tq, tk, tv, tg = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v, g))
+    got = attention.attention_bwd(tq, tk, tv, attention.mask_to_bias(torch.from_numpy(mask)), tg)
+    atol, rtol = BLOCKWISE_TOL[dtype]
     for name, a, r in zip("qkv", got, ref):
-        # the gradient tolerance of tests/test_pallas_kernels.py's blocked case
-        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=3e-4, rtol=3e-4,
-                                   err_msg="d" + name)
+        assert a.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(r.astype(jnp.float32)),
+                                   atol=atol, rtol=rtol, err_msg="d" + name)
+
+
+def test_long_sequence_backward_matches_blockwise_xla(blocked, monkeypatch):
+    _long_backward_against_blockwise(monkeypatch, "float32")
+
+
+def test_long_sequence_backward_matches_blockwise_xla_bf16(blocked, monkeypatch):
+    """The bf16 case: the contract the bf16 CUDA backward is held to at
+    S > 1024, where JAX takes the blockwise path."""
+    _long_backward_against_blockwise(monkeypatch, "bfloat16")
 
 
 def test_fully_masked_row_is_uniform():

@@ -47,17 +47,35 @@ def _attn_inputs(seed=0, b=2, s=70, h=4, d=32):
     return q, k, v, do, mask
 
 
-@pytest.mark.parametrize("against", ["flash_attention", "mha_xla"])
-def test_attention_bwd_plain_matches_jax_vjp(against):
+# bf16 against _bwd_kernel: the same roundings (P and dS to bf16, f32 sums,
+# outputs to bf16) in f32 sums of another order, and 1/l where the kernel
+# divides by l, so a value next to a rounding boundary may round the other
+# way: one bf16 ulp (2^-7 relative) of an output, or a flipped P or dS whose
+# 2^-8 change the products carry (|dv| <= 0.3 here: 4.9e-4 seen)
+BF16_ATOL, BF16_RTOL = 1e-3, 2.0 ** -7
+
+
+@pytest.mark.parametrize("against, dtype", [("flash_attention", "float32"),
+                                            ("mha_xla", "float32"),
+                                            ("flash_attention", "bfloat16")],
+                         ids=["flash_attention", "mha_xla", "flash_attention-bfloat16"])
+def test_attention_bwd_plain_matches_jax_vjp(against, dtype):
+    """attention_bwd_plain against jax.vjp; in bf16 against flash_attention,
+    whose _bwd_kernel runs in interpret mode: the function the bf16 CUDA
+    backward is held to on the card."""
     q, k, v, do, mask = _attn_inputs()
     jfn = flash_attention if against == "flash_attention" else mha_xla
     jbias = jax_mask_to_bias(jnp.asarray(mask))
-    _, vjp = jax.vjp(lambda a, b_, c: jfn(a, b_, c, jbias), *map(jnp.asarray, (q, k, v)))
-    ref = vjp(jnp.asarray(do))
-    got = attention.attention_bwd_plain(_t(q), _t(k), _t(v), attention.mask_to_bias(_t(mask)),
-                                        _t(do))
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(dtype) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b_, c: jfn(a, b_, c, jbias), jq, jk, jv)
+    ref = vjp(jdo)
+    tq, tk, tv, tdo = (_t(x).to(getattr(torch, dtype)) for x in (q, k, v, do))
+    got = attention.attention_bwd_plain(tq, tk, tv, attention.mask_to_bias(_t(mask)), tdo)
+    atol, rtol = (ATOL, RTOL) if dtype == "float32" else (BF16_ATOL, BF16_RTOL)
     for g, r in zip(got, ref):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=RTOL)
+        assert g.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(r.astype(jnp.float32)),
+                                   atol=atol, rtol=rtol)
 
 
 def test_flash_attention_function_backward_on_cpu():
