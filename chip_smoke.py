@@ -8,13 +8,12 @@ Run from the repository root, with one card visible:
 Phases, each printing one JSON line as soon as it ends:
   1. device:  the card (nvidia-smi name and power limit), torch and CUDA.
   2. build:   nvcc builds climb_tpu_torch/csrc into one library (sm_90a);
-              for each bf16 tensor-core kernel its count of tensor-core
-              instructions (HMMA for the mma.sync attention forward, HGMMA
-              for the wgmma attention backward and GEMMs, from cuobjdump
-              -sass), its registers and its spill bytes (ptxas -v, kept
-              beside a reused library). Fails if one lacks its instruction,
-              if a wgmma kernel still has HMMA, if one spills, or if one has
-              no ptxas report.
+              for each bf16 tensor-core kernel (the attention forward, the
+              two launches of the attention backward and the GEMMs, all on
+              wgmma) its counts of HGMMA and HMMA (mma.sync) instructions
+              (cuobjdump -sass), its registers and its spill bytes (ptxas -v,
+              kept beside a reused library). Fails if one lacks HGMMA, if one
+              still has HMMA, if one spills, or if one has no ptxas report.
   3. kernels: each kernel against its plain PyTorch version, in float32 and
               bfloat16, with its tolerance and times (kernel, plain version,
               one PyTorch library call): the forward kernels and the fused
@@ -32,7 +31,15 @@ Phases, each printing one JSON line as soon as it ends:
               redesign at its shape. The attention backward is also held
               at S = 9 (one example with every key masked), 97 and 161, and
               each bf16 check calls it twice and requires bit-equal dq, dk
-              and dv (no atomics). Then tensor parallelism's local shapes
+              and dv (no atomics); the attention forward likewise at
+              FWD_EDGE_CASES (S = 9 with one example all masked, 97, 161,
+              281, 1057, and q, k, v as strided views of one fused QKV
+              projection), the bf16 kernel held to mha_plain and to the
+              tile-exact plain version and called twice, as at the main and
+              the tensor-parallel shapes. The bf16 forward rows also time
+              SDPA held to each of its cuDNN, memory-efficient and math
+              backends and name the kernel its default runs. Then tensor
+              parallelism's local shapes
               at n = 2 and 4 model ranks: the attention forward and backward
               at (32, 281, 12/n, 64), the FFN at F 3072/n on 8,992 and 17,984
               rows, and the fused sublayer at 6 of 12 heads as the first rank
@@ -65,9 +72,9 @@ Phases, each printing one JSON line as soon as it ends:
               ring and Ulysses attention at (16, 1057, 12, 64) against the
               single-device attention. (c) two ranks sharing the card
               through gloo: three bf16 and three f32 train steps of one
-              snli-ve batch of 32 under DP 2 and TP 2 (and TP 2 with
-              fused_block in bf16) against one rank's, each rank's launches
-              exact at its local shapes. (d) with more cards, (c) over NCCL;
+              snli-ve batch of 32 at SCALEOUT_PAIR_LAYERS layers under DP 2
+              and TP 2 (and TP 2 with fused_block in bf16) against one
+              rank's, each rank's launches exact at its local shapes. (d) with more cards, (c) over NCCL;
               with one, a line saying why not. The ranks are this script
               run as ``--child JOB RANK WORLD DIR``.
      train_fused: singletask_ft snli-ve with ``--attn_impl fused_block``.
@@ -141,7 +148,9 @@ Phases, each printing one JSON line as soon as it ends:
               step against the eager step by events and on the host, also
               through torch's module as loaded. dispatch_cost: host us a call
               of each forward kernel's dispatcher op against its wrapper
-              called directly, and per eager step.
+              called directly, and per eager step; the bf16 attention
+              forward's and backward's wrappers against their C entries
+              alone.
               serve_http: create_server on loopback, 16 client threads x 8
               requests of 1-4 rows of the first 64; every row's logits within
               SERVE_LOGITS_TOL of --from_export's and its prediction equal
@@ -169,7 +178,7 @@ Phases, each printing one JSON line as soon as it ends:
               split beside the unbucketed run's, the share of padding
               positions removed, dev scores beside the unbucketed ones.
               knobs_accum_sweep: --grad_accum_steps sweep's candidates timed
-              at nine shapes (SWEEP_SHAPES: S = 281 from 32 to 512 sequences,
+              at SWEEP_LAYERS layers at nine shapes (SWEEP_SHAPES: S = 281 from 32 to 512 sequences,
               nlvr2's fold among them, and S = 1057 from 16 to 64), each
               shape's pick and peak memory, the token budget the picks imply,
               and auto's choice with the port's AUTO_ACCUM_TOKEN_BUDGET, which
@@ -399,25 +408,28 @@ GRAD_REL_TOL = (1e-3, 1e-5, "per parameter, ||g_kernel - g_plain|| <= 1e-3 ||g_p
                 "noise there")
 SHIFT_INVARIANT = ".k.bias"
 
-# each kernel row's time before the kernel's last redesign (for the attention
-# forward its move to mma.sync tiles, for the bf16 attention backward its move
-# from mma.sync to wgmma fed by TMA, for the GEMMs of mlp_fwd and
-# fused_block_fwd their move to wgmma), at the same shape and dtype (PERF.md's
-# kernel table; NVIDIA H100 80GB HBM3, 700 W); None where that time was not
-# written down
+# each kernel row's time before the kernel's last redesign, at the same shape
+# and dtype (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700 W): for the
+# bf16 attention forward, and the fused sublayer whose attention step it is,
+# the mma.sync and cp.async design of PRs 4-5 (PR 15 moved it to wgmma fed by
+# TMA); for the bf16 attention backward its mma.sync design (PR 14 moved it
+# to wgmma); for the GEMM of mlp_fwd the WMMA tile (PR 5); for the f32 rows
+# the times before PR 4; None where that time was not written down
 PREVIOUS_MS = {
-    ("attention_fwd", "bfloat16"): 0.8724, ("attention_fwd_blocked", "bfloat16"): 2.3261,
+    ("attention_fwd", "bfloat16"): 0.1152, ("attention_fwd_blocked", "bfloat16"): 0.2865,
+    ("attention_fwd", "bfloat16", "tensor parallel n=2"): 0.0444,
+    ("attention_fwd", "bfloat16", "tensor parallel n=4"): 0.0372,
     ("attention_bwd", "bfloat16"): 0.2398, ("attention_bwd_long", "bfloat16"): 1.2065,
     ("mlp_fwd", "bfloat16"): 0.9575, ("normalize_u8", "bfloat16"): 0.0551,
-    ("fused_block_fwd", "bfloat16"): 0.7157, ("fused_block_fwd", "float32"): 4.4188,
+    ("fused_block_fwd", "bfloat16"): 0.3485, ("fused_block_fwd", "float32"): 4.4188,
     ("attention_fwd_blocked", "float32"): 2.4124, ("attention_bwd_long", "float32"): 10.8660,
 }
 # the bf16 tensor-core kernels (a piece of each mangled name) and the SASS
-# instruction each must show: mma.sync (HMMA) in the attention forward, wgmma
-# (HGMMA, and no HMMA) in the two launches of the attention backward and in
-# the GEMMs; none may spill
+# instruction each must show: wgmma (HGMMA, and no HMMA) in the attention
+# forward, the two launches of the attention backward and the GEMMs; none
+# may spill
 TENSOR_CORE_KERNELS = {
-    "attention_fwd_bf16_kernel": "HMMA", "attention_bwd_dq_bf16_kernel": "HGMMA",
+    "attention_fwd_bf16_kernel": "HGMMA", "attention_bwd_dq_bf16_kernel": "HGMMA",
     "attention_bwd_dkdv_bf16_kernel": "HGMMA", "linear_bf16_wgmma_kernel": "HGMMA",
     "qkv_bf16_wgmma_kernel": "HGMMA", "out_bf16_wgmma_kernel": "HGMMA",
 }
@@ -558,8 +570,11 @@ def check_kernels(torch, results):
             err, tol = compare(torch, name, dn, out, ref)
             row = {"phase": "kernel", "name": name, "dtype": dn, "shape": case["shape"],
                    "max_abs_err": err, "tolerance": tol}
-            if name == "attention_fwd" and dtype == torch.bfloat16:
-                row.update(blocked_plain_check(torch, out, q, k, v, bias))
+            if name == "attention_fwd":
+                row["library"] = "SDPA (float mask)"
+                if dtype == torch.bfloat16:
+                    row.update(bf16_fwd_checks(torch, out, q, k, v, bias, "serving"))
+                    row.update(sdpa_forward_by_backend(torch, qt, kt, vt, sdpa_mask))
             del out, ref
             row.update({
                 "kernel_ms": time_ms(torch, case["kernel"]),
@@ -615,14 +630,49 @@ def check_mlp_ragged(torch, x, w1, b1, w2, b2, dn):
         emit(row)
 
 
-def blocked_plain_check(torch, out, q, k, v, bias):
+def bf16_fwd_checks(torch, out, q, k, v, bias, what):
     """The bf16 forward kernel's output against attention_fwd_blocked_plain
-    (its own arithmetic) under the tighter tolerance."""
+    (its own arithmetic) under the tighter tolerance, and a second call on the
+    same inputs, which must be bit-equal."""
     from climb_tpu_torch.ops import attention
 
     ref = attention.attention_fwd_blocked_plain(q, k, v, bias)
     err, tol = compare(torch, "attention_fwd_blocked_plain", "bfloat16", out, ref)
-    return {"max_abs_err_to_blocked_plain": err, "blocked_plain_tolerance": tol}
+    same = check_deterministic(torch, (attention.attention_fwd(q, k, v, bias),), (out,),
+                               f"attention_fwd {what} bfloat16")
+    return {"max_abs_err_to_blocked_plain": err, "blocked_plain_tolerance": tol,
+            "second_call_bit_equal": same}
+
+
+def sdpa_forward_by_backend(torch, qt, kt, vt, mask):
+    """SDPA's forward (as library_ms times it) held to each of its cuDNN,
+    memory-efficient and math backends: ms, or None where the backend refuses
+    these inputs; and the device kernel that takes most of one call with the
+    default pick (which backend library_ms timed)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    by_backend = {}
+    for name in ("CUDNN_ATTENTION", "EFFICIENT_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        try:
+            with sdpa_kernel(backend):
+                by_backend[name] = time_ms(torch, sdpa, iters=10)
+        except (RuntimeError, TypeError):  # no such backend, or it refuses the inputs
+            by_backend[name] = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return {"library_backend": max(us, key=us.get)[:96] if us else None,
+            "library_ms_by_backend": by_backend}
 
 
 def attention_inputs(torch, g, batch, dev):
@@ -776,6 +826,59 @@ def check_attention_bwd_edges(torch):
           "tolerance": "phase kernel's attention_bwd", "checks": rows})
 
 
+# the attention forward at short and ragged S: (B, S, H, the example whose keys
+# are all masked, q/k/v as views of one fused (B, S, 3 * 768) projection): one
+# 64-row tile with an all-masked example (a uniform softmax), a bucket-sized S
+# whose last tile holds one row (97 = 64 + 33), one just past two tiles (161),
+# the serving S (281 = 4 * 64 + 25) and the language S (1057 = 16 * 64 + 33)
+# with an all-masked example, and the --fuse_qkv views at S = 281
+FWD_EDGE_CASES = ((4, 9, HEADS, 1, False), (TRAIN_BATCH, 97, HEADS, None, False),
+                  (TRAIN_BATCH, 161, HEADS, None, False), (8, SEQ, HEADS, 2, False),
+                  (2, LONG_SEQ, HEADS, 1, False), (8, SEQ, HEADS, None, True))
+
+
+def check_attention_fwd_edges(torch):
+    """attention_fwd against mha_plain at FWD_EDGE_CASES, f32 and bf16, at phase
+    kernel's tolerances; the bf16 kernel also against
+    attention_fwd_blocked_plain and called twice (bf16_fwd_checks)."""
+    from climb_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for b, s, h, masked, fused in FWD_EDGE_CASES:
+        width = h * HEAD_DIM
+        qkv32 = torch.randn((b, s, 3 * width), generator=g, device=dev)
+        text_len = torch.randint(1, s + 1, (b, 1), generator=g, device=dev)
+        mask = (torch.arange(s, device=dev)[None] < text_len).float()
+        if masked is not None:
+            mask[masked] = 0.0
+        bias = attention.mask_to_bias(mask)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            qkv = qkv32.to(dtype)
+            q, k, v = (qkv[..., i * width:(i + 1) * width].view(b, s, h, HEAD_DIM)
+                       for i in range(3))
+            if not fused:
+                q, k, v = (t.contiguous() for t in (q, k, v))
+            with torch.no_grad():
+                out = attention.attention_fwd(q, k, v, bias)
+                torch.cuda.synchronize()
+                err = compare(torch, "attention_fwd", dn, out,
+                              attention.mha_plain(q, k, v, bias))[0]
+                row = {"shape": [b, s, h, HEAD_DIM], "masked_example": masked,
+                       "fused_qkv_views": fused, "strides": list(q.stride()), "dtype": dn,
+                       "max_abs_err": err}
+                if dtype == torch.bfloat16:
+                    row.update(bf16_fwd_checks(torch, out, q, k, v, bias, f"S={s}"))
+            rows.append(row)
+            del q, k, v, qkv, out
+    torch.cuda.synchronize()
+    emit({"phase": "kernel", "name": "attention_fwd", "at": "edges",
+          "tolerance": "phase kernel's attention_fwd and attention_fwd_blocked_plain",
+          "checks": rows})
+
+
 def check_fused_block(torch, results):
     """The fused attention sublayer against its plain version at the serving
     shape: all six outputs (out, h, q, k, v, ctx). The library yardstick is
@@ -889,7 +992,7 @@ def check_attention_long(torch, results):
                    "masked_row_max_abs_err_to_mean_v": uniform,
                    "previous_ms": PREVIOUS_MS.get(("attention_fwd_blocked", dn))}
             if dtype == torch.bfloat16:
-                fwd.update(blocked_plain_check(torch, out, q, k, v, bias))
+                fwd.update(bf16_fwd_checks(torch, out, q, k, v, bias, "long"))
             del out, ref
             fwd.update({
                    "kernel_ms": time_ms(torch, lambda: attention.attention_fwd(q, k, v, bias),
@@ -920,6 +1023,9 @@ def check_attention_long(torch, results):
         with torch.no_grad():
             fwd["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=sdpa_mask), iters=10)
+            fwd["library"] = "SDPA (float mask)"
+            if dtype == torch.bfloat16:
+                fwd.update(sdpa_forward_by_backend(torch, qt, kt, vt, sdpa_mask))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
         bwd["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             sdpa_out, (qt, kt, vt), dot, retain_graph=True), iters=10)
@@ -2511,12 +2617,12 @@ def dispatch_cost(torch, calls=DISPATCH_CALLS, rounds=5):
     return out
 
 
-def bwd_host_cost(torch, calls=DISPATCH_CALLS, rounds=5):
-    """Host microseconds a call of the attention backward (autograd calls its
-    wrapper; it is no dispatcher op), bf16 at a shape small enough that the
-    card never holds the host back: the wrapper, and its C entry alone (the
-    four tensor maps encoded, two launches), alternated in rounds of
-    ``calls``, the least of each."""
+def attention_host_cost(torch, calls=DISPATCH_CALLS, rounds=5):
+    """Host microseconds a call of the bf16 attention forward and backward
+    (autograd calls the backward's wrapper; it is no dispatcher op) at a
+    shape small enough that the card never holds the host back: each
+    wrapper, and its C entry alone with the wrapper's own arguments built
+    once, alternated in rounds of ``calls``, the least of each."""
     from climb_tpu_torch.kernels import build
     from climb_tpu_torch.ops import attention
 
@@ -2524,9 +2630,17 @@ def bwd_host_cost(torch, calls=DISPATCH_CALLS, rounds=5):
     bias = torch.zeros(1, 1, 1, 64, device="cuda")
     outs = [torch.empty_like(q) for _ in range(3)]
     scratch = torch.empty(3 * 64, device="cuda")  # held: args keep only its address
-    # the wrapper's own arguments for its C entry, built once
-    args = attention.bwd_c_args(q, q, q, bias.reshape(1, 64), q, *outs, scratch)
     lib = build.load_library()
+    cases = {
+        "attention_fwd": (lambda: attention._attention_fwd_cuda(q, q, q, bias),
+                          lib.climb_attention_fwd,
+                          attention.fwd_c_args(q, q, q, bias.reshape(1, 64), outs[0]),
+                          "the C entry encodes three tensor maps and makes one launch"),
+        "attention_bwd": (lambda: attention.attention_bwd(q, q, q, bias, q),
+                          lib.climb_attention_bwd,
+                          attention.bwd_c_args(q, q, q, bias.reshape(1, 64), q, *outs, scratch),
+                          "the C entry encodes four tensor maps and makes two launches"),
+    }
 
     def host_us(fn, *a):
         torch.cuda.synchronize()
@@ -2537,12 +2651,15 @@ def bwd_host_cost(torch, calls=DISPATCH_CALLS, rounds=5):
         torch.cuda.synchronize()
         return us
 
-    wrapper, entry = [], []
-    for _ in range(rounds):
-        wrapper.append(host_us(attention.attention_bwd, q, q, q, bias, q))
-        entry.append(host_us(lib.climb_attention_bwd, *args))
-    return {"wrapper_us": min(wrapper), "c_entry_us": min(entry),
-            "what": "the C entry encodes four tensor maps and makes two launches"}
+    out = {}
+    for name, (wrapper, entry, args, what) in cases.items():
+        times = {"wrapper": [], "entry": []}
+        for _ in range(rounds):
+            times["wrapper"].append(host_us(wrapper))
+            times["entry"].append(host_us(entry, *args))
+        out[name] = {"wrapper_us": min(times["wrapper"]), "c_entry_us": min(times["entry"]),
+                     "what": what}
+    return out
 
 
 def run_serve(torch, root, ckpt, work):
@@ -2808,7 +2925,7 @@ def run_serve(torch, root, ckpt, work):
                 "fused_block": LAYERS * (added["fused_block_fwd"] + added["mlp_fwd"])
                 + added["normalize_u8"]}
     emit({"phase": "dispatch_cost", "card": card, "calls_per_round": DISPATCH_CALLS,
-          "per_call": cost, "attention_bwd": bwd_host_cost(torch),
+          "per_call": cost, **attention_host_cost(torch),
           "per_eager_step_ms": {k: v / 1e3 for k, v in per_step.items()},
           "share_of_eager_step": {k: v / 1e3 / exports[k]["step_ms"]["eager"]["events_ms"]
                                   for k, v in per_step.items()}})
@@ -3412,6 +3529,9 @@ SWEEP_SHAPES = tuple(
     + [("snli-ve", b, TEXT, CANVAS[:2]) for b in (KNOB_BATCH, 128, 256, 512)]
     + [("snli-ve", b, LONG_TEXT, (128, 128)) for b in (LONG_BATCH, 2 * LONG_BATCH,
                                                         4 * LONG_BATCH)])
+# the sweep's depth: the published width at a third of the layers, so that the
+# script fits its time limit
+SWEEP_LAYERS = 4
 # the accum candidates' times are best-of-2 CUDA-event steps; between two runs
 # of this phase on one H100 80GB HBM3 at 700 W they moved up to 3% (accum 1 at
 # batch 32, S = 281: 76.26 and 74.00 ms), so auto's choice may cost up to 5%
@@ -3785,10 +3905,10 @@ def run_bucketed(torch, root, out_dir, unbucketed):
 
 def run_accum_sweep(torch):
     """Phase knobs, --grad_accum_steps sweep: every power-of-2 candidate timed
-    by accum_tune at each of SWEEP_SHAPES, bf16, per-op kernels; each shape's
-    pick, its peak memory, the token budget the picks imply, and auto's
-    choice with the port's AUTO_ACCUM_TOKEN_BUDGET, which must be the pick or
-    within SWEEP_NOISE of its time at every shape."""
+    by accum_tune at each of SWEEP_SHAPES, bf16, per-op kernels, SWEEP_LAYERS
+    layers; each shape's pick, its peak memory, the token budget the picks
+    imply, and auto's choice with the port's AUTO_ACCUM_TOKEN_BUDGET, which
+    must be the pick or within SWEEP_NOISE of its time at every shape."""
     import dataclasses
 
     from climb_tpu_torch.configs.task_configs import task_configs
@@ -3808,11 +3928,12 @@ def run_accum_sweep(torch):
     kind = accum_tune.device_kind(dev)
     budget = train_step_mod.AUTO_ACCUM_TOKEN_BUDGET
     out = {"phase": "knobs_accum_sweep", "card": kind, "port_budget": budget,
-           "noise": SWEEP_NOISE, "shapes": []}
+           "noise": SWEEP_NOISE, "layers": SWEEP_LAYERS, "shapes": []}
     with tempfile.TemporaryDirectory() as cache_dir:
         for task, batch_size, text, canvas in SWEEP_SHAPES:
-            cfg = dataclasses.replace(ViltConfig(), max_text_len=text, image_height=canvas[0],
-                                      image_width=canvas[1], dtype="bfloat16",
+            cfg = dataclasses.replace(ViltConfig(), num_layers=SWEEP_LAYERS, max_text_len=text,
+                                      image_height=canvas[0], image_width=canvas[1],
+                                      dtype="bfloat16",
                                       attn_impl="pallas", mlp_impl="pallas",
                                       modality_type_vocab_size=3 if task == "nlvr2" else 2)
             model = ViltContinualLearner(cfg, head_specs_from_task_configs([task], task_configs))
@@ -3972,6 +4093,9 @@ def run_knobs(torch, root, work, unbucketed):
 # tensor parallelism's local shapes: n model ranks hold H/n heads and F/n FFN columns
 TP_WIDTHS = (2, 4)
 SCALEOUT_STEPS = 3  # train steps of one snli-ve batch per layout in phase scaleout (c)
+# the depth of those steps' models: the published width at a third of the
+# layers, so that the script fits its time limit
+SCALEOUT_PAIR_LAYERS = 4
 # (name, data ranks, model ranks, --attn_impl, --fsdp, dtypes) of the two ranks
 # sharing the card
 SCALEOUT_LAYOUTS = (("dp2", 2, 1, "pallas", False, ("bfloat16", "float32")),
@@ -4057,9 +4181,12 @@ def check_tp_kernels(torch, results):
                 torch.cuda.synchronize()
                 err, tol = compare(torch, "attention_fwd", dn, out,
                                    attention.mha_plain(q, k, v, bias))
+                extra = (bf16_fwd_checks(torch, out, q, k, v, bias, at)
+                         if dtype == torch.bfloat16 else {})
                 del out
                 row = {"phase": "kernel", "name": "attention_fwd", "dtype": dn, "at": at,
                        "shape": f"q/k/v {shape} {dn}", "max_abs_err": err, "tolerance": tol,
+                       **extra, "previous_ms": PREVIOUS_MS.get(("attention_fwd", dn, at)),
                        "kernel_ms": time_ms(torch, lambda: attention.attention_fwd(
                            q, k, v, bias), iters=10),
                        "plain_ms": time_ms(torch, lambda: attention.mha_plain(q, k, v, bias),
@@ -4426,11 +4553,20 @@ def child_world1(torch, rank, world, d, spec):
 
 
 def _layout_model(torch, layout, dtype, mesh):
-    """The full-width learner of phase train_paths (snli-ve, seed 0) on
-    ``mesh``, and the trainer and one batch of 32 on the card."""
+    """The full-width learner of phase train_paths (snli-ve, seed 0) at
+    SCALEOUT_PAIR_LAYERS layers on ``mesh``, and the trainer and one batch of
+    32 on the card."""
+    import dataclasses
+
     from climb_tpu_torch.cli import train_upstream_continual_learning as driver
     from climb_tpu_torch.configs.task_configs import task_configs
-    from climb_tpu_torch.train.model_factory import create_cl_model
+    from climb_tpu_torch.train import model_factory
+
+    config_from_args = model_factory.vilt_config_from_args
+
+    def shallow(args, needs_three_modalities):
+        return dataclasses.replace(config_from_args(args, needs_three_modalities),
+                                   num_layers=SCALEOUT_PAIR_LAYERS)
 
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as out_dir:
@@ -4441,7 +4577,8 @@ def _layout_model(torch, layout, dtype, mesh):
         argv += ["--n_model", str(layout[2])] + (["--fsdp"] if layout[4] else [])
         args = driver.build_parser().parse_args(argv)
         args.ordered_cl_tasks = ["snli-ve"]
-        model = create_cl_model(args, task_configs, dev, mesh=mesh)
+        with mock.patch.object(model_factory, "vilt_config_from_args", shallow):
+            model = model_factory.create_cl_model(args, task_configs, dev, mesh=mesh)
         trainer, batch = train_batch_on_card(torch, args, dev)
     return model, trainer, batch
 
@@ -4644,7 +4781,8 @@ def run_scaleout(torch, train_launches, work):
     memory = check_pair(res, "gloo, two ranks on one card")
     emit({"phase": "scaleout_pair", "backend": res[0]["backend"], "seconds": secs,
           "what": f"{SCALEOUT_STEPS} train steps of one snli-ve batch of {TRAIN_BATCH} per "
-                  "layout, against the first rank's single-rank steps", "memory": memory,
+                  f"layout at {SCALEOUT_PAIR_LAYERS} layers, against the first rank's "
+                  "single-rank steps", "memory": memory,
           "ranks": res})
     more = {"phase": "scaleout_more_cards", "device_count": n_cards}
     if n_cards > 1:
@@ -4682,7 +4820,7 @@ def check_pair(res, what):
         for name, row in r["layouts"].items():
             fused = "fused" in name
             n = SCALEOUT_STEPS
-            expected = expected_launches(fused, n, n, n)
+            expected = expected_launches(fused, n, n, n, layers=SCALEOUT_PAIR_LAYERS)
             if row["launches"] != expected:
                 raise AssertionError(f"{what} rank {rank} {name}: launches {row['launches']} "
                                      f"!= {expected}")
@@ -5113,12 +5251,11 @@ def tensor_core_report(build, ptxas_report):
 
 def tensor_core_faults(rows):
     """What the build phase fails on: a bf16 kernel without the tensor-core
-    instruction it must show (HMMA where no ``instruction`` is named), a wgmma
-    GEMM that still runs mma.sync (HMMA), spill bytes, or a kernel missing
-    from the ptxas report."""
+    instruction it must show, a wgmma kernel that still runs mma.sync (HMMA),
+    spill bytes, or a kernel missing from the ptxas report."""
     faults = []
     for r in rows:
-        instruction = r.get("instruction", "HMMA")
+        instruction = r["instruction"]
         if not r[instruction.lower()]:
             faults.append(f"{r['kernel']}: no {instruction} instruction")
         if instruction == "HGMMA" and r["hmma"]:
@@ -5169,6 +5306,7 @@ def main() -> int:
         check_tp_kernels(torch, results)
     check_attention_bwd(torch, results)
     check_attention_bwd_edges(torch)
+    check_attention_fwd_edges(torch)
     check_attention_long(torch, results)
     launches = {}
     launches["predict"], predict_out = run_predict(torch)

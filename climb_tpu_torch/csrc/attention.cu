@@ -1,12 +1,17 @@
 // Masked multi-head attention forward, one (batch, head, 64-query tile) per block.
 //
 // Replaces climb_tpu/ops/pallas_attention.py::_fwd_kernel (:53, wrappers
-// _prep, _fa_fwd) and ::_fwd_kernel_blocked (:104, _fa_fwd_blocked): the
-// masked softmax(q.k^T * scale + key_bias).v. The bf16 kernel computes
-// _fwd_kernel_blocked's online softmax over 64-key blocks: f32 scores from
-// the bf16 inputs, the row max and row sum in f32, the unnormalised P rounded
-// to bf16 for P.V, an f32 accumulator divided by max(l, 1e-30) at the end.
-// The f32 kernel keeps P in f32 throughout.
+// _prep, _fa_fwd) and ::_fwd_kernel_blocked (:104, _fa_fwd_blocked), and the
+// attention step of pallas_block.py::_kernel (:55) through block.cu's third
+// launch: the masked softmax(q.k^T * scale + key_bias).v. The bf16 kernel
+// computes _fwd_kernel_blocked's online softmax over 64-key blocks: f32
+// scores from the bf16 inputs, the row max and row sum in f32 updated once
+// per 64-key tile, the unnormalised P rounded to bf16 for P.V, an f32
+// accumulator divided by max(l, 1e-30) at the end and then rounded to bf16.
+// Scores are carried in log2 units (scale * log2 e folded into one FMA with
+// the key bias, exp as one ex2 of the SFU), as attention_bwd.cu does; that
+// moves each f32 score by an ulp or so, far below P's bf16 rounding. The
+// f32 kernel keeps P in f32 throughout.
 //
 // Bound on the H100 at the main paths' shapes, bf16:
 // - serving (B=64, S=281, H=12, D=64): 15.5 GFLOP (16 us of tensor-core
@@ -17,29 +22,52 @@
 // What the design does about it:
 // - It never writes the (B, H, S, S) scores or probabilities to device
 //   memory, reads q/k/v in their (B, S, H, D) layout through strides (no
-//   transpose or padding copy), and masks the ragged end of S (281 = 4 * 64 +
-//   25) itself: keys past S are excluded from the softmax entirely, which is
-//   what the plain version (climb_tpu/ops/attention.py::_mha_core) computes;
-//   masked keys inside S carry the caller's -1e9 bias as in the TPU kernel.
-// - bf16: four warps, each owning 16 query rows, run every product on the
-//   tensor cores (mma.sync m16n8k16, f32 accumulators). Q's fragments are
-//   loaded once with ldmatrix; K and V tiles of 64 keys stay bf16 in shared
-//   memory with a padded row stride (no ldmatrix bank conflicts) and are
-//   double-buffered by 16-byte cp.async, so the next tile's copy overlaps
-//   this tile's products. The score tile stays in registers: the row max and
-//   sum reduce within a quad of lanes, and P's C fragments are re-packed to
-//   bf16 as the A operand of P.V (V through ldmatrix.trans). exp is __expf
-//   (the SFU's ex2; its error is far below P's bf16 rounding).
+//   transpose or padding copy; block.cu's (B, S, E) buffers and the
+//   --fuse_qkv views of a (B, S, 3E) tensor included), and masks the ragged
+//   end of S (281 = 4 * 64 + 25) itself: keys past S are excluded from the
+//   softmax entirely, which is what the plain version
+//   (climb_tpu/ops/attention.py::_mha_core) computes; masked keys inside S
+//   carry the caller's -1e9 bias as in the TPU kernel.
+// - bf16: both products run on wgmma m64n64k16 with f32 accumulators
+//   (hopper.cuh): S = Q.K^T with Q and K as K-major 128-byte-swizzled tiles
+//   in shared memory, O += P.V with P taken from registers (the score
+//   accumulator re-packed as bf16 pairs) and V's tile read MN-major with the
+//   transpose bit, so each K/V tile is loaded once, as TMA wrote it.
+// - Tiles arrive by TMA: 4-D tensor maps over {D, H, S, B} with the views'
+//   strides (encoded on every call; rows past S read as zeros within each
+//   example). A block is one consumer warpgroup of 64 query rows and one
+//   producer warpgroup, one warp of which loads the Q tile once and streams
+//   K and V through a 3-stage ring of full and empty mbarriers, writing
+//   beside each stage its 64 key-bias values (in log2 units, -inf past S, so
+//   the consumer needs no mask test); setmaxnreg hands the producer's
+//   registers to the consumer (136 a thread).
+// - Overlap: the consumer issues the next tile's Q.K^T right behind this
+//   tile's P.V, so the tensor cores have both queued while it waits, and
+//   three blocks share each SM, so one block's softmax runs while another's
+//   products do (ping-pong across blocks), and one block's Q load and
+//   first K/V tiles overlap the others' work: at S = 281 a block sees only
+//   five key tiles, and 64-row blocks leave 12% of the rows idle where
+//   128-row blocks leave 27%. Two or three consumer warpgroups a block were
+//   no faster on the card, and two at two blocks an SM spill; issuing tile
+//   i + 1's Q.K^T before tile i's softmax or P.V (FlashAttention-3's
+//   intra-warpgroup overlap) made ptxas serialize the wgmma pipeline
+//   (C7513, C7514: registers a pending wgmma reads or writes are touched in
+//   between), and was slower.
+// - The output is staged through the Q tile (free once the last Q.K^T has
+//   completed) in the swizzled layout (conflict-free 4-byte writes) and
+//   written in 16-byte stores, eight threads a 128-byte row; no row past S
+//   is written, and nothing is summed across blocks, so a second call gives
+//   bit-equal output.
 // - f32 keeps f32 FMAs on the CUDA cores (the tensor cores' f32 is TF32,
 //   about three decimal digits), as gemm.cuh keeps its f32 GEMM.
 #include <math.h>
 
-#include "tc.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kD = 64;        // head_dim the kernel takes (ViLT-B/32: 768 / 12)
-constexpr int kBQ = 64;       // query rows per block
+constexpr int kBQ = 64;       // query rows per tile (an f32 block, a bf16 warpgroup)
 constexpr int kBK = 64;       // keys per K/V tile
 
 using climb::Strides;
@@ -188,144 +216,202 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- bf16: tensor cores -------------------------------------------------------
+// ---- bf16: wgmma fed by TMA -------------------------------------------------
 
 using bf16 = __nv_bfloat16;
+using namespace climb;  // hopper.cuh's mbarrier, TMA, wgmma and softmax helpers
 
-constexpr int kTcThreads = 128;      // four warps of 16 query rows
-constexpr int kLd = kD + 8;          // bf16 row stride of the tiles: 144 bytes
-constexpr int kTcTile = kBQ * kLd;   // elements of one 64-row tile
-// Q, two K and two V tiles, two blocks of 64 key-bias values
-constexpr size_t kTcSmemBytes = 5 * kTcTile * sizeof(bf16) + 2 * kBK * sizeof(float);
+constexpr unsigned kTileBytes = kBQ * kD * 2;  // one 64 x 64 bf16 tile
 
-__global__ void __launch_bounds__(kTcThreads)
-    attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const float* __restrict__ bias,
-                              bf16* __restrict__ out, int S, Strides qs, Strides ks, Strides vs,
+// A block is one consumer warpgroup (warps 0-3, 64 query rows) and one
+// producer warpgroup (warps 4-7), of which one warp issues the copies; three
+// blocks share an SM, so three consumers' softmax and products interleave.
+// setmaxnreg moves the producer's registers to the consumer: 80 a thread at
+// launch (65536 / (3 * 256)), 24 for the producer, 136 for the consumer.
+// Dynamic shared memory, from a 1024-byte boundary (the swizzle's period):
+// the Q tile (reused for the output), the ring of kStages stages of a K and a
+// V tile, each stage's 64 key-bias values, then the barriers.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdBlocksPerSm = 3;
+constexpr int kStages = 3;
+constexpr int kProducerRegs = 24, kConsumerRegs = 136;
+static_assert(kProducerRegs + kConsumerRegs <=
+                  2 * (65536 / (kFwdThreads * kFwdBlocksPerSm) / 8 * 8),
+              "the handoff stays within the registers the block gets at launch");
+constexpr unsigned kRingOffset = kTileBytes;
+constexpr unsigned kBiasOffset = kRingOffset + kStages * 2 * kTileBytes;
+constexpr unsigned kBarOffset = kBiasOffset + kStages * kBK * sizeof(float);
+constexpr size_t kFwdSmemBytes = 1024 + kBarOffset + RingBarriers<kStages>::kBytes;
+static_assert(kFwdBlocksPerSm * (kFwdSmemBytes + 1024) <= 228 * 1024,
+              "three blocks an SM, with the 1 KB each that the system keeps");
+
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
+    attention_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const float* __restrict__ bias, bf16* __restrict__ out, int S,
                               Strides os, long long bias_sb, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTcTile;      // two buffers
-  bf16* Vs = Ks + 2 * kTcTile;  // two buffers
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * kTcTile);  // two buffers of 64
+  unsigned base;
+  unsigned char* smem = aligned_smem(base);
+  const unsigned ring = base + kRingOffset;
+  float* key_bias = reinterpret_cast<float*>(smem + kBiasOffset);
+  const RingBarriers<kStages> bar(base + kBarOffset);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_k = (S + kBK - 1) / kBK;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const long long b = blockIdx.z, h = blockIdx.y;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const float* biasb = bias + b * bias_sb;
+  if (tid == 0) bar.init(1);
+  __syncthreads();
 
-  auto stage = [&](int buf, int k0) {
-    climb::cp_async_tile64<kTcThreads, kLd>(Ks + buf * kTcTile, kb, ks.s, k0, S, tid);
-    climb::cp_async_tile64<kTcThreads, kLd>(Vs + buf * kTcTile, vb, vs.s, k0, S, tid);
-    if (tid < kBK) {
-      const bool ok = k0 + tid < S;
-      climb::cp_async4(Bs + buf * kBK + tid, ok ? biasb + k0 + tid : biasb, ok);
+  if (warp >= 4) {  // the producer warpgroup: one warp issues the copies
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp > 4) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar.ready, kTileBytes);
+      tma_load_4d(base, &qmap, bar.ready, 0, h, q0, b);
     }
+    // K and V tiles with the tile's key bias in log2 units, -inf past S (so a
+    // key past S gets s = -inf and p = 0 with no test in the consumer)
+    const float* biasb = bias + b * bias_sb;
+    for (int i = 0; i < n_k; ++i) {
+      const int s = i % kStages, k0 = i * kBK;
+      mbar_wait(bar.empty + 8 * s, ((i / kStages) & 1) ^ 1);  // round 0 passes at once
+      for (int c = lane; c < kBK; c += 32)
+        key_bias[s * kBK + c] = k0 + c < S ? biasb[k0 + c] * kLog2e : -INFINITY;
+      if (lane == 0) {
+        const unsigned t = ring + s * 2 * kTileBytes;
+        mbar_arrive_expect_tx(bar.full + 8 * s, 2 * kTileBytes);
+        tma_load_4d(t, &kmap, bar.full + 8 * s, 0, h, k0, b);
+        tma_load_4d(t + kTileBytes, &vmap, bar.full + 8 * s, 0, h, k0, b);
+      } else {
+        mbar_arrive(bar.full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int t = lane & 3;
+  const unsigned qt = base;
+  const float scale_log2 = scale * kLog2e;
+  mbar_wait(bar.ready, 0);
+
+  // S = Q.K^T of key tile i into s
+  float s[32];
+  auto issue_scores = [&](int i) {
+    const int st = i % kStages;
+    const unsigned kt = ring + st * 2 * kTileBytes;
+    mbar_wait(bar.full + 8 * st, (i / kStages) & 1);
+    wgmma_fence();
+    wgmma_m64n64k16_ss_first(s, sw128_desc(qt), sw128_desc(kt));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk)
+      wgmma_m64n64k16_ss(s, sw128_desc(qt + 32 * kk), sw128_desc(kt + 32 * kk));
+    wgmma_commit();
   };
-  climb::cp_async_tile64<kTcThreads, kLd>(Qs, qb, qs.s, q0, S, tid);
-  stage(0, 0);
-  climb::cp_async_commit();
 
-  unsigned qf[4][4];  // A fragments of the warp's 16 query rows, 4 chunks of 16 dims
-  float o[8][4];      // 16 rows x 64 dims, f32
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows lane/4 and 8 on
+  float o[32];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  const int n_tiles = (S + kBK - 1) / kBK;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1, k0 = it * kBK;
-    if (it + 1 < n_tiles) stage(buf ^ 1, k0 + kBK);
-    climb::cp_async_commit();
-    climb::cp_async_wait<1>();  // this tile (and Q) have landed
-    __syncthreads();
-    if (it == 0) climb::load_a(qf, Qs + warp * 16 * kLd, kLd, lane);
-    const bf16* Kt = Ks + buf * kTcTile;
-    const bf16* Vt = Vs + buf * kTcTile;
-    const float* Bt = Bs + buf * kBK;
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    climb::mma_abt(s, qf, Kt, kLd, lane);
-
-    // scale, key bias, keys past S out; the row max over the tile
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  fence_operand(o);  // zeroed here, not next to its first wgmma
+  issue_scores(0);
+  for (int i = 0; i < n_k; ++i) {
+    const int st = i % kStages;
+    wgmma_wait<0>();  // tile i's S, and tile i - 1's P.V
+    fence_operand(s);
+    fence_operand(o);
+    if (i > 0) bar.release((i - 1) % kStages, lane);  // P.V has read V
+    // s * scale + bias in log2 units; the row max over the tile
+    const float* bt = key_bias + st * kBK;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * t + e;
-        const bool ok = k0 + c < S;
-        const float bc = Bt[c];
-        s[j][e] = ok ? s[j][e] * scale + bc : -INFINITY;
-        s[j][2 + e] = ok ? s[j][2 + e] * scale + bc : -INFINITY;
-        mx[0] = fmaxf(mx[0], s[j][e]);
-        mx[1] = fmaxf(mx[1], s[j][2 + e]);
+        const float bc = bt[8 * j + 2 * t + e];
+        s[4 * j + e] = fmaf(s[4 * j + e], scale_log2, bc);
+        s[4 * j + 2 + e] = fmaf(s[4 * j + 2 + e], scale_log2, bc);
+        mx[0] = fmaxf(mx[0], s[4 * j + e]);
+        mx[1] = fmaxf(mx[1], s[4 * j + 2 + e]);
       }
-    float alpha[2], m_new[2], rs[2] = {0.f, 0.f};
+    float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      // every tile holds at least one key < S, so m_new is finite
-      m_new[r] = fmaxf(m[r], climb::quad_max(mx[r]));
-      alpha[r] = __expf(m[r] - m_new[r]);
-      m[r] = m_new[r];
+      // every tile holds at least one key < S, so the new max is finite
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2_approx(m[r] - m_new);
+      m[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = exp2_approx(s[e] - m[r]);
+      rs[r] += s[e];
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m_new[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + climb::quad_sum(rs[r]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-
-    // O += bf16(P) . V
+    for (int e = 0; e < 32; ++e) o[e] *= alpha[(e >> 1) & 1];
+    // O += bf16(P).V with V as the MN-major B operand
     unsigned pf[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) climb::a_from_c(pf[kk], s, kk);
-    climb::mma_ab(o, pf, Vt, kLd, lane);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    for (int kk = 0; kk < 4; ++kk) a_from_acc(pf[kk], s, kk);
+    const unsigned vt = ring + st * 2 * kTileBytes + kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs(o, pf[kk], sw128_mn_desc(vt + 2048 * kk));
+    wgmma_commit();
+    // the next tile's S queues behind this P.V; the softmax of the other
+    // blocks on this SM runs meanwhile
+    if (i + 1 < n_k) issue_scores(i + 1);
   }
+  wgmma_wait<0>();
+  fence_operand(o);
+  bar.release((n_k - 1) % kStages, lane);
 
-  const int g = lane >> 2;
-  bf16* ob = out + b * os.b + h * os.h;
+  // o / max(l, 1e-30) in bf16 into the Q tile, swizzled as TMA wrote Q (the
+  // 16-byte chunk c of row r at chunk c ^ (r % 8)), then out in 16-byte
+  // stores of rows below S, eight threads a 128-byte row
+  bar_sync_named(1, 128);  // every warp's last Q.K^T has completed: Q is free
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int s = q0 + warp * 16 + g + 8 * r;
-    if (s >= S) continue;
+    const int row = 16 * warp + (lane >> 2) + 8 * r;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(ob + s * os.s + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(o[j][2 * r] / den, o[j][2 * r + 1] / den);
+      *reinterpret_cast<__nv_bfloat162*>(smem + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+  }
+  bar_sync_named(1, 128);
+  bf16* ob = out + b * os.b + h * os.h;
+  for (int c = tid; c < kBQ * 8; c += 128) {
+    const int row = c >> 3, chunk = c & 7;
+    if (q0 + row < S)
+      *reinterpret_cast<uint4*>(ob + (q0 + row) * os.s + 8 * chunk) =
+          *reinterpret_cast<const uint4*>(smem + row * 128 + ((chunk ^ (row & 7)) << 4));
   }
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* out, int B,
                 int S, int H, const long long* qs, const long long* ks, const long long* vs,
                 const long long* os, long long bias_sb, float scale, cudaStream_t stream) {
-  // the wrapper checks these and says which tensor fails
-  if (!climb::aligned16(q, qs) || !climb::aligned16(k, ks) || !climb::aligned16(v, vs) ||
-      !climb::aligned16(out, os))
+  // the wrapper checks these and says which tensor fails; TMA needs the same
+  if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs) || !aligned16(out, os))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kTcSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // the operands' addresses and strides change from call to call: encode here
+  CUtensorMap qm, km, vm;
+  int err = encode_bshd_bf16(&qm, q, B, S, H, qs);
+  if (!err) err = encode_bshd_bf16(&km, k, B, S, H, ks);
+  if (!err) err = encode_bshd_bf16(&vm, v, B, S, H, vs);
+  if (err) return err;
+  const cudaError_t cerr = cudaFuncSetAttribute(attention_fwd_bf16_kernel,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                static_cast<int>(kFwdSmemBytes));
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  attention_fwd_bf16_kernel<<<grid, kTcThreads, kTcSmemBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, static_cast<bf16*>(out), S, strides3(qs), strides3(ks), strides3(vs),
-      strides3(os), bias_sb, scale);
+  attention_fwd_bf16_kernel<<<grid, kFwdThreads, kFwdSmemBytes, stream>>>(
+      qm, km, vm, bias, static_cast<bf16*>(out), S, strides3(os), bias_sb, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -348,7 +434,8 @@ int launch_f32(const void* q, const void* k, const void* v, const float* bias, v
 
 // q/k/v/out: (B, S, H, D) with D == 64 contiguous; *_strides = element
 // strides of the B, S and H axes. bias: (B, S) f32 rows bias_sb apart. bf16
-// tensors start on 16-byte boundaries with strides in multiples of 8.
+// tensors start on 16-byte boundaries with strides in multiples of 8 (what
+// their TMA tensor maps and the 16-byte output stores need).
 extern "C" int climb_attention_fwd(const void* q, const void* k, const void* v,
                                    const float* bias, void* out, int B, int S, int H, int D,
                                    const long long* q_strides, const long long* k_strides,

@@ -71,7 +71,6 @@
 #include <math.h>
 
 #include "hopper.cuh"
-#include "tc.cuh"
 
 namespace {
 
@@ -378,12 +377,11 @@ __global__ void __launch_bounds__(kThreads)
 // ---- bf16: wgmma fed by TMA -------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-using namespace climb;  // hopper.cuh's mbarrier, TMA and wgmma helpers
+using namespace climb;  // hopper.cuh's mbarrier, TMA, wgmma and softmax helpers
 
 constexpr int kStages = 4;                   // depth of the ring of streamed tiles
 constexpr unsigned kTileBytes = kT * kD * 2; // one 64 x 64 bf16 tile
 constexpr unsigned kRingBytes = kStages * 2 * kTileBytes;
-constexpr unsigned kBarBytes = (2 * kStages + 1) * 8;
 
 // A block of WGS consumer warpgroups, 64 rows each, and one producer
 // warpgroup, of which one warp issues the copies; setmaxnreg moves the
@@ -404,55 +402,13 @@ struct Block {
   static constexpr unsigned kResidentBytes = 2 * WGS * kTileBytes;
   static constexpr unsigned kSideOffset = kResidentBytes + kRingBytes;
   static constexpr unsigned kBarOffset = kSideOffset + SideBytes;
-  static constexpr size_t kSmemBytes = 1024 + kBarOffset + kBarBytes;
+  static constexpr size_t kSmemBytes = 1024 + kBarOffset + RingBarriers<kStages>::kBytes;
 };
 using DqBlock = Block<3, kStages * kT * sizeof(float)>;
 using DkdvBlock = Block<2, kStages * kT * (sizeof(float2) + sizeof(float))>;
 
-// Scores are kept in log2 units (s * scale * log2 e + bias * log2 e), so
-// that exp(s - m) is one ex2 of the SFU: what __expf computes after scaling
-// its argument by log2 e.
-constexpr float kLog2e = 1.4426950408889634f;
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the dynamic shared memory from its first 1024-byte boundary: a generic
-// pointer, and the shared-space address in `addr`
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned& addr) {
-  extern __shared__ unsigned char bwd_smem[];
-  const unsigned raw = smem_u32(bwd_smem);
-  addr = (raw + 1023u) & ~1023u;
-  return bwd_smem + (addr - raw);
-}
-
-// the block's barriers, from shared-space address `at`
-struct Barriers {
-  unsigned full, empty, ready;
-  __device__ explicit Barriers(unsigned at) {
-    full = at;
-    empty = full + 8 * kStages;
-    ready = empty + 8 * kStages;
-  }
-  // full: the producer warp's 32 lanes (lane 0's carries the TMA bytes);
-  // empty: one arrival per consumer warp that works
-  __device__ void init(int working_wgs) const {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, 32);
-      mbar_init(empty + 8 * s, 4 * working_wgs);
-    }
-    mbar_init(ready, 1);
-    mbar_init_fence();
-  }
-  // a consumer warp is done with stage s (its wgmma groups have completed and
-  // its lanes have read the stage's values)
-  __device__ void release(int s, int lane) const {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * s);
-  }
-};
+// the ring's barriers: full and empty per stage, and one for the resident tiles
+using Barriers = RingBarriers<kStages>;
 
 // the accumulators of a 64 x 64 product, rounded to bf16 rows of a
 // (B, S, H, D) slice; rows at or past S are not stored

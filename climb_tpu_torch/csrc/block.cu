@@ -33,7 +33,9 @@
 //   encoded here on every call), the bias, residual and cast applied to the
 //   f32 accumulators and the tile written in 16-byte stores; f32 inputs (the
 //   parity path) use the CUDA-core GEMM;
-// - the attention (launch 3) runs on mma.sync tiles (attention.cu); scores
+// - the attention (launch 3) is attention.cu's kernel: in bf16 wgmma
+//   m64n64k16 for Q.K^T and P.V, Q, K and V tiles fed by TMA from these
+//   (B, S, E) buffers read as (B, S, H, 64) through their strides; scores
 //   and probabilities never reach device memory (online softmax per 64-key
 //   tile); the only intermediate that does is ctx, 27.6 MB written and read
 //   once at the serving shape in bf16, which the backward reads again

@@ -32,7 +32,8 @@ struct Strides {
 };
 inline Strides strides3(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
-// what 16-byte cp.async of bf16 rows needs: a 16-byte aligned base and B, S, H
+// what the TMA tensor maps of bf16 (B, S, H, D) tensors and the forward's 16-byte
+// output stores need: a 16-byte aligned base and B, S, H
 // strides in multiples of 8 elements
 inline bool aligned16(const void* p, const long long* s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % 8 == 0 && s[1] % 8 == 0 &&

@@ -33,7 +33,6 @@
 #pragma once
 
 #include "hopper.cuh"
-#include "tc.cuh"
 
 namespace climb {
 

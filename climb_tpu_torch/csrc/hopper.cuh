@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the bf16 GEMM in gemm.cuh and the bf16
-// attention backward in attention_bwd.cu: mbarriers, TMA tile loads described
-// by a CUtensorMap, warpgroup MMA (wgmma) with its shared-memory descriptors
-// and fences, and the register handoff between warpgroups (setmaxnreg), as
-// PTX. Host side: encoding tensor maps for a K-major bf16 operand and for a
-// strided (B, S, H, 64) bf16 tensor.
+// attention forward (attention.cu) and backward (attention_bwd.cu):
+// mbarriers and the full/empty ring of streamed tiles, TMA tile loads
+// described by a CUtensorMap, warpgroup MMA (wgmma) with its shared-memory
+// descriptors and fences, the register handoff between warpgroups
+// (setmaxnreg) and named barriers, as PTX; the quad reductions and the ex2
+// of the online softmax. Host side: encoding tensor maps for a K-major bf16
+// operand and for a strided (B, S, H, 64) bf16 tensor.
 //
 // Layout contract (PTX ISA, "Asynchronous Warpgroup Level Matrix Shared
 // Memory Layout"): a TMA box of 64 bf16 (128 bytes) by R rows, loaded with
@@ -11,7 +13,8 @@
 // 128-byte-swizzled layout that a wgmma descriptor with layout type 1 reads:
 // rows 128 bytes apart, 8-row groups 1024 bytes apart (the descriptor's
 // stride byte offset). The k-th 16-deep slice of the box starts 32 * k bytes
-// into the tile; the hardware applies the swizzle to that address.
+// into the tile; the hardware applies the swizzle to that address: the
+// 16-byte chunk c of row r sits at chunk c ^ (r % 8) of that row.
 //
 // The same tile read as an MN-major operand (wgmma's transposed B): a 64 x 64
 // bf16 tile whose rows are the reduction axis K and whose 128-byte rows run
@@ -23,13 +26,14 @@
 //
 // The accumulator of wgmma m64nNk16 with f32 D, for thread t of the
 // warpgroup with w = t / 32, l = t % 32: d[4j + 2h + e] holds
-// D[16w + l/4 + 8h][8j + 2(l%4) + e] for h, e in {0, 1}. An A operand taken
-// from registers (m64k16, bf16) has each warp's 16 rows in mma.sync
-// m16n8k16's A layout (tc.cuh): a0 = A[16w + l/4][2(l%4) + {0, 1}], a1 the
-// same 8 rows down, a2 and a3 the same 8 columns on. So the accumulator's
-// columns 16kk .. 16kk + 15 rounded to bf16 pairs are the A operand of k-slice
-// kk of the next product: a = {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]},
-// {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]} (a_from_acc).
+// D[16w + l/4 + 8h][8j + 2(l%4) + e] for h, e in {0, 1}; a row's values sit
+// in the four lanes of one quad (quad_max, quad_sum). An A operand taken
+// from registers (m64k16, bf16) has four 32-bit registers of two bf16 each:
+// a0 = A[16w + l/4][2(l%4) + {0, 1}], a1 the same 8 rows down, a2 and a3 the
+// same 8 columns on. So the accumulator's columns 16kk .. 16kk + 15 rounded
+// to bf16 pairs are the A operand of k-slice kk of the next product: a =
+// {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
+// {d[8kk+6], d[8kk+7]} (a_from_acc).
 #pragma once
 
 #include <cuda.h>
@@ -37,6 +41,39 @@
 #include "common.cuh"
 
 namespace climb {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the dynamic shared memory from its first 1024-byte boundary (the 128-byte
+// swizzle's period): a generic pointer, and the shared-space address in `addr`
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned& addr) {
+  extern __shared__ unsigned char hopper_smem[];
+  const unsigned raw = smem_u32(hopper_smem);
+  addr = (raw + 1023u) & ~1023u;
+  return hopper_smem + (addr - raw);
+}
+
+// max and sum over the four lanes of a quad (one row of an accumulator)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Scores kept in log2 units (s * scale * log2 e + bias * log2 e), so that
+// exp(s - m) is one ex2 of the SFU: what __expf computes after scaling its
+// argument by log2 e.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ---- mbarriers --------------------------------------------------------------
 
@@ -69,6 +106,40 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// The barriers of a ring of STAGES streamed stages from shared-space address
+// `at`: full and empty per stage, and one for the tiles a block loads once.
+// full: the producer warp's 32 lanes arrive (lane 0's arrival carries the
+// stage's TMA bytes); empty: one arrival per consumer warp that works.
+template <int STAGES>
+struct RingBarriers {
+  unsigned full, empty, ready;
+  __device__ explicit RingBarriers(unsigned at) {
+    full = at;
+    empty = full + 8 * STAGES;
+    ready = empty + 8 * STAGES;
+  }
+  static constexpr unsigned kBytes = (2 * STAGES + 1) * 8;
+  __device__ void init(int working_wgs) const {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 4 * working_wgs);
+    }
+    mbar_init(ready, 1);
+    mbar_init_fence();
+  }
+  // a consumer warp is done with stage s (its wgmma groups have completed and
+  // its lanes have read the stage's values)
+  __device__ void release(int s, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+};
+
+// barrier `id` (1-15; 0 is __syncthreads's) over the `count` threads that use it
+__device__ __forceinline__ void bar_sync_named(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- TMA ----------------------------------------------------------------------

@@ -9,8 +9,8 @@ package's: q, k, v and the output are (B, S, H, D); the mask bias is
 ``torch.export`` traces it. ``FlashAttention`` is the autograd form: its
 forward launches ``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu`` for
 CUDA tensors; for CPU tensors both run the plain versions. In bf16 both
-kernels run on the tensor cores (the forward on ``mma.sync``, the backward on
-``wgmma`` fed by TMA), in f32 on the CUDA cores.
+kernels run on the tensor cores (``wgmma`` fed by TMA), in f32 on the CUDA
+cores.
 """
 
 import math
@@ -102,16 +102,17 @@ def attention_fwd_blocked_plain(q, k, v, bias, block_k=64):
 
 
 def _cp_async_ok(t):
-    size = t.element_size()
-    return t.data_ptr() % 16 == 0 and all(st * size % 16 == 0 for st in t.stride()[:3])
+    st = t.stride()  # each st * size % 16 == 0 iff their OR's is (size is a power of 2)
+    return ((st[0] | st[1] | st[2]) * t.element_size() | t.data_ptr()) % 16 == 0
 
 
 def check_cp_async_layout(what, **tensors):
-    """The bf16 kernels stage (B, S, H, D) tiles by 16-byte ``cp.async`` (the
-    forward) or by TMA (the backward, whose tensor maps take the same rule):
-    each tensor must start on a 16-byte boundary, and its B, S and H strides
-    must be multiples of 16 bytes. Reads only ``data_ptr()``, ``stride()`` and
-    the element size; raises ValueError naming the first tensor that fails."""
+    """The bf16 kernels, forward and backward, load (B, S, H, D) tiles by TMA
+    through 4-D tensor maps, and the forward writes its output in 16-byte
+    stores: each tensor must start on a 16-byte boundary, and its B, S and H
+    strides must be multiples of 16 bytes. Reads only ``data_ptr()``,
+    ``stride()`` and the element size; raises ValueError naming the first
+    tensor that fails."""
     for name, t in tensors.items():
         if not _cp_async_ok(t):
             size = t.element_size()
@@ -123,45 +124,54 @@ def check_cp_async_layout(what, **tensors):
 
 def _check_kernel_args(what, q, k, v, bias, *more):
     """Device, dtype, shape and layout checks shared by the two wrappers;
-    returns the (B, S) key bias with a contiguous S axis."""
+    returns the (B, S) key bias with a contiguous S axis. One pass over the
+    tensors: the forward runs on every layer of every step, and its host
+    time paces the small shapes."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
-    b, s, h, d = q.shape
-    if any(t.shape != q.shape for t in (k, v) + more):
-        shapes = [tuple(t.shape) for t in (q, k, v) + more]
-        raise ValueError(f"{what}: q/k/v shapes differ: {shapes}")
+    qkv = (q, k, v) + more
+    shape, dtype, device = q.shape, q.dtype, q.device
+    b, s, h, d = shape
+    for t in qkv:
+        if t.shape != shape:
+            raise ValueError(f"{what}: q/k/v shapes differ: {[tuple(x.shape) for x in qkv]}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: q/k/v must share a dtype in {list(build.DTYPES)}")
+        if t.device != device:
+            raise ValueError(f"{what}: q, k, v and bias must be on one device")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: the head_dim axis must be contiguous")
     if d != KERNEL_HEAD_DIM:
         raise ValueError(f"{what}: the kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
-    if q.dtype not in build.DTYPES or any(t.dtype != q.dtype for t in (k, v) + more):
+    if dtype not in build.DTYPES:
         raise TypeError(f"{what}: q/k/v must share a dtype in {list(build.DTYPES)}")
-    if any(t.device != q.device for t in (k, v, bias) + more):
+    if bias.device != device:
         raise ValueError(f"{what}: q, k, v and bias must be on one device")
-    if any(t.stride(-1) != 1 for t in (q, k, v) + more):
-        raise ValueError(f"{what}: the head_dim axis must be contiguous")
     if bias.dtype != torch.float32 or bias.shape != (b, 1, 1, s):
         raise ValueError(f"{what}: bias must be float32 (B, 1, 1, S), got "
                          f"{bias.dtype} {tuple(bias.shape)}")
-    if q.dtype == torch.bfloat16:
-        check_cp_async_layout(what, **dict(zip(("q", "k", "v", "do"), (q, k, v) + more)))
+    if dtype == torch.bfloat16 and not all(_cp_async_ok(t) for t in qkv):
+        check_cp_async_layout(what, **dict(zip(("q", "k", "v", "do"), qkv)))
     key_bias = bias.reshape(b, s)
     return key_bias if key_bias.stride(1) == 1 else key_bias.contiguous()
+
+
+def fwd_c_args(q, k, v, key_bias, out):
+    """The arguments of the C entry ``climb_attention_fwd`` for checked
+    (B, S, H, D) CUDA tensors, the (B, S) key bias and the output."""
+    b, s, h, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
+            b, s, h, d, build.strides3(q), build.strides3(k), build.strides3(v),
+            build.strides3(out), key_bias.stride(0), 1.0 / math.sqrt(d), build.DTYPES[q.dtype],
+            build.stream_handle(q.device))
 
 
 def _attention_fwd_cuda(q, k, v, bias):
     """``csrc/attention.cu`` on CUDA tensors: checks, launch, count."""
     key_bias = _check_kernel_args("attention_fwd", q, k, v, bias)
-    b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lib = build.load_library()
-    build.check(
-        lib.climb_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-            b, s, h, d, build.strides3(q), build.strides3(k), build.strides3(v),
-            build.strides3(out), key_bias.stride(0), 1.0 / math.sqrt(d), build.DTYPES[q.dtype],
-            build.stream_handle(q.device),
-        ),
-        "attention_fwd",
-    )
+    build.check(lib.climb_attention_fwd(*fwd_c_args(q, k, v, key_bias, out)), "attention_fwd")
     LAUNCHES["attention_fwd"] += 1
     return out
 

@@ -6,7 +6,8 @@ The bf16 forward kernel (``climb_tpu_torch/csrc/attention.cu``) computes
 ``chip_smoke.py`` holds the kernel to it on the card. Here it is held to the
 JAX package's ``flash_attention`` forced onto ``_fa_fwd_blocked`` with
 64-key blocks (interpret mode), in f32 and bf16 on numpy-seeded inputs with
-ragged masks. Also the wrappers' 16-byte ``cp.async`` layout rule and
+ragged masks, at ragged S and on strided views of one fused QKV projection.
+Also the wrappers' 16-byte layout rule (the kernels' TMA tensor maps), and
 ``chip_smoke.py``'s readers of the ptxas report and of cuobjdump's SASS and
 what its build phase fails on, and ``chip_ab.py``'s reading of the step times.
 """
@@ -34,15 +35,24 @@ TOLERANCES = {
 }
 
 
-def _inputs():
-    """(2, 150, 2, 64): 150 keys are two full 64-key tiles and a ragged one."""
+def _inputs(s=150):
+    """(2, S, 2, 64): at S = 150 two full 64-key tiles and a ragged one."""
     rng = np.random.RandomState(4)
-    q, k, v = (rng.randn(2, 150, 2, 64).astype(np.float32) for _ in range(3))
-    mask = np.ones((2, 150), np.float32)
-    mask[0, 97:] = 0.0  # text padding inside the second and third tiles
-    mask[1] = rng.rand(150) > 0.3
+    q, k, v = (rng.randn(2, s, 2, 64).astype(np.float32) for _ in range(3))
+    mask = np.ones((2, s), np.float32)
+    mask[0, 97 * s // 150:] = 0.0  # text padding (at S = 150 inside the second and third tiles)
+    mask[1] = rng.rand(s) > 0.3
     mask[1, 0] = 1.0
     return q, k, v, mask
+
+
+def _fused_views(q, k, v, dtype):
+    """q, k, v as strided (B, S, H, D) views of one (B, S, 3 H D) tensor, as
+    --fuse_qkv's projection gives them."""
+    b, s, h, d = q.shape
+    qkv = torch.from_numpy(np.concatenate([x.reshape(b, s, h * d) for x in (q, k, v)], -1))
+    qkv = qkv.to(dtype)
+    return tuple(qkv[..., i * h * d:(i + 1) * h * d].view(b, s, h, d) for i in range(3))
 
 
 @pytest.fixture
@@ -57,13 +67,26 @@ def blocked64(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_blocked_plain_matches_jax_blocked_kernel(blocked64, dtype):
-    q, k, v, mask = _inputs()
+# (dtype, S, q/k/v as fused views): the ragged S = 150 case keeps its old ids;
+# S = 9 (one short tile) and 97 (a tile of one row past 64), and the fused views
+BLOCKED_CASES = (
+    [pytest.param(dtype, 150, False, id=dtype) for dtype in ("float32", "bfloat16")]
+    + [pytest.param(dtype, s, fused, id=f"{dtype}-{label}")
+       for dtype in ("float32", "bfloat16")
+       for s, fused, label in ((9, False, "S9"), (97, False, "S97"), (150, True, "fused_qkv"))])
+
+
+@pytest.mark.parametrize("dtype, s, fused", BLOCKED_CASES)
+def test_blocked_plain_matches_jax_blocked_kernel(blocked64, dtype, s, fused):
+    q, k, v, mask = _inputs(s)
     jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
     ref = pa.flash_attention(jq, jk, jv, jax_mask_to_bias(jnp.asarray(mask)))
     assert blocked64  # the blocked kernel ran
-    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v))
+    if fused:
+        tq, tk, tv = _fused_views(q, k, v, getattr(torch, dtype))
+        assert tq.stride() == (s * 3 * 128, 3 * 128, 64, 1)
+    else:
+        tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v))
     got = attention.attention_fwd_blocked_plain(tq, tk, tv,
                                                 attention.mask_to_bias(torch.from_numpy(mask)))
     assert got.dtype == tq.dtype and got.shape == tq.shape
@@ -92,7 +115,7 @@ def test_blocked_plain_fully_masked_row_is_uniform():
                                atol=1e-6)
 
 
-# ---- the 16-byte cp.async layout rule ---------------------------------------------
+# ---- the 16-byte layout rule of the kernels' TMA tensor maps --------------------
 
 
 def test_cp_async_layout_accepts_the_main_paths_layouts():
@@ -153,14 +176,17 @@ def test_chip_smoke_counts_hmma_per_function():
 
 
 @pytest.mark.parametrize("row, fault", [
-    ({"hmma": 64, "registers": 128, "spill_bytes": 0}, None),
-    ({"hmma": 0, "registers": 128, "spill_bytes": 0}, "no HMMA instruction"),
-    ({"hmma": 64, "registers": 168, "spill_bytes": 28}, "28 spill bytes"),
-    ({"hmma": 64, "registers": None, "spill_bytes": None}, "not in the ptxas report"),
+    ({"hgmma": 16, "hmma": 0, "registers": 80, "spill_bytes": 0}, None),
+    ({"hgmma": 0, "hmma": 0, "registers": 80, "spill_bytes": 0}, "no HGMMA instruction"),
+    ({"hgmma": 16, "hmma": 0, "registers": 80, "spill_bytes": 28}, "28 spill bytes"),
+    ({"hgmma": 16, "hmma": 0, "registers": None, "spill_bytes": None},
+     "not in the ptxas report"),
 ])
 def test_chip_smoke_build_phase_faults(row, fault):
-    # the attention forward: the mma.sync kernel (the backward is on wgmma)
-    faults = chip_smoke.tensor_core_faults([{"kernel": "attention_fwd_bf16_kernel", **row}])
+    # the attention forward, on wgmma since it left mma.sync
+    assert chip_smoke.TENSOR_CORE_KERNELS["attention_fwd_bf16_kernel"] == "HGMMA"
+    faults = chip_smoke.tensor_core_faults(
+        [{"kernel": "attention_fwd_bf16_kernel", "instruction": "HGMMA", **row}])
     assert faults == ([] if fault is None else [f"attention_fwd_bf16_kernel: {fault}"])
 
 
@@ -175,9 +201,18 @@ def test_chip_ab_reads_step_numbers():
                        "train_examples_per_sec": 133.0}}
     language = {"phase": "language", "step_ms_events_median": 139.0,
                 "step_ms_host_median": 139.5, "train_examples_per_sec": 114.7}
+    predict = {"phase": "predict", "step_ms_events_median": 13.1,
+               "step_ms_host_median": 120.0, "examples_per_sec": 448.2}
     assert chip_ab.step_numbers(train) == {"train snli-ve": (80.0, 130.0, 246.0),
                                            "train nlvr2": (81.0, 120.0, 133.0)}
     assert chip_ab.step_numbers(language) == {"language": (139.0, 139.5, 114.7)}
+    assert chip_ab.step_numbers(predict) == {"predict": (13.1, 120.0, 448.2)}
+
+
+def test_chip_ab_reads_the_attention_forward_times():
+    row = {"phase": "attention_fwd", "shape": "tp2", "q": [32, 281, 6, 64], "ms_per_call": 0.05}
+    assert chip_ab.step_numbers(row) == {"attention_fwd tp2": (0.05, None, None)}
+    assert "for label, b, s, h in (('serving', 64, 281, 12)," in chip_ab.CHILD
 
 
 def test_chip_ab_refuses_a_tree_without_chip_smoke(tmp_path):

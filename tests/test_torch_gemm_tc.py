@@ -53,10 +53,11 @@ def test_build_phase_faults_of_a_gemm_kernel(row, fault):
     assert faults == ([] if fault is None else [f"out_bf16_wgmma_kernel: {fault}"])
 
 
-# the bf16 kernels on wgmma: the three GEMMs and the two launches of the
-# attention backward; the attention forward stays on mma.sync
+# the bf16 kernels, all on wgmma: the three GEMMs, the attention forward and
+# the two launches of the attention backward
 WGMMA_KERNELS = {"linear_bf16_wgmma_kernel", "qkv_bf16_wgmma_kernel", "out_bf16_wgmma_kernel",
-                 "attention_bwd_dq_bf16_kernel", "attention_bwd_dkdv_bf16_kernel"}
+                 "attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
+                 "attention_bwd_dkdv_bf16_kernel"}
 
 
 def test_every_checked_kernel_is_in_the_sources_and_the_gemms_use_no_wmma():
@@ -64,14 +65,18 @@ def test_every_checked_kernel_is_in_the_sources_and_the_gemms_use_no_wmma():
     everything = "\n".join(sources.values())
     for kernel, instruction in chip_smoke.TENSOR_CORE_KERNELS.items():
         assert re.search(rf"\b{kernel}\(", everything), kernel
-        assert instruction == ("HGMMA" if kernel in WGMMA_KERNELS else "HMMA")
-    assert set(chip_smoke.TENSOR_CORE_KERNELS) >= WGMMA_KERNELS
-    assert sum(i == "HGMMA" for i in chip_smoke.TENSOR_CORE_KERNELS.values()) == 5
+        assert instruction == "HGMMA"
+    assert set(chip_smoke.TENSOR_CORE_KERNELS) == WGMMA_KERNELS
     for name in ("gemm.cuh", "mlp.cu", "block.cu"):
         assert "wmma" not in sources[name].replace("wgmma", ""), name
-    # the backward calls no mma.sync helper of tc.cuh
-    assert not re.search(r"\b(mma_abt?|mma_bf16|load_a|ldmatrix_x4\w*)\(",
-                         sources["attention_bwd.cu"])
+    # no source holds an mma.sync product, an ldmatrix or a cp.async any more
+    # (tc.cuh's helpers went with the forward's last caller)
+    for name, src in sources.items():
+        assert not re.search(r"\b(mma_abt?|mma_bf16|load_a|ldmatrix_x4\w*|cp_async\w*)\(",
+                             src), name
+        assert not re.search(r"\b(mma\.sync\.aligned|ldmatrix\.sync|cp\.async\.c[ga])\b",
+                             src), name
+    assert set(build.HEADERS) == {n for n in sources if n.endswith(".cuh")}
     assert "hopper.cuh" in build.HEADERS
 
 
