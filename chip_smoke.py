@@ -74,7 +74,13 @@ Phases, each printing one JSON line as soon as it ends:
               through gloo: three bf16 and three f32 train steps of one
               snli-ve batch of 32 at SCALEOUT_PAIR_LAYERS layers under DP 2
               and TP 2 (and TP 2 with fused_block in bf16) against one
-              rank's, each rank's launches exact at its local shapes. (d) with more cards, (c) over NCCL;
+              rank's, each rank's launches exact at its local shapes; then
+              predict's bf16 eval step under TP 2 with --dense_impl int8
+              and int8_static (calibrated on the batch), --mlp_impl per op
+              and pallas, against one rank's logits with the same scales
+              (bit-equal per op, SCALEOUT_INT8_TOL with the FFN kernel), the
+              calibrated scales equal on both ranks, one forward's launches
+              exact at the local shapes. (d) with more cards, (c) over NCCL;
               with one, a line saying why not. The ranks are this script
               run as ``--child JOB RANK WORLD DIR``.
      train_fused: singletask_ft snli-ve with ``--attn_impl fused_block``.
@@ -4102,6 +4108,19 @@ SCALEOUT_LAYOUTS = (("dp2", 2, 1, "pallas", False, ("bfloat16", "float32")),
                     ("tp2", 1, 2, "pallas", False, ("bfloat16", "float32")),
                     ("tp2_fused", 1, 2, "fused_block", False, ("bfloat16", "float32")),
                     ("fsdp2", 2, 1, "pallas", True, ("float32",)))
+# (--dense_impl, --mlp_impl) of the two ranks' int8 eval steps under TP 2, bf16,
+# against the first rank's one-rank eval step of the same weights, batch and scales
+SCALEOUT_INT8_CASES = (("int8", "xla"), ("int8", "pallas"), ("int8_static", "xla"),
+                       ("int8_static", "pallas"))
+SCALEOUT_INT8_TOL = {
+    "xla": (0.0, 0.0, "bit-equal: q/k/v and fc1 quantize whole rows as one rank does; "
+                      "attn_out and fc2 take their scales' max over 'model' and rescale the "
+                      "exact int32 sum of the ranks' products (ops/quant.py)"),
+    "pallas": (5e-2, 5e-2, "the FFN kernel keeps the FFN in bf16, as in JAX: each rank's "
+                           "partial output is rounded to bf16 before the f32 sum (as the "
+                           "float TP rows), and the next layers' int8 quantization carries "
+                           "the shift"),
+}
 SCALEOUT_TIMEOUT = 240  # seconds a group of child ranks may take before it is killed
 TRAIN_EXP = "vilt-sequential_ft-task0_snli-ve-task1_nlvr2"
 # two ranks against one rank over three train steps of one batch
@@ -4552,10 +4571,10 @@ def child_world1(torch, rank, world, d, spec):
     return out
 
 
-def _layout_model(torch, layout, dtype, mesh):
+def _layout_model(torch, layout, dtype, mesh, extra=()):
     """The full-width learner of phase train_paths (snli-ve, seed 0) at
-    SCALEOUT_PAIR_LAYERS layers on ``mesh``, and the trainer and one batch of
-    32 on the card."""
+    SCALEOUT_PAIR_LAYERS layers on ``mesh`` (with the driver flags ``extra``),
+    and the trainer and one batch of 32 on the card."""
     import dataclasses
 
     from climb_tpu_torch.cli import train_upstream_continual_learning as driver
@@ -4574,7 +4593,7 @@ def _layout_model(torch, layout, dtype, mesh):
         argv[argv.index("--ordered_cl_tasks") + 1] = "snli-ve"
         argv[argv.index("bfloat16")] = dtype
         argv[argv.index("--attn_impl") + 1] = layout[3]
-        argv += ["--n_model", str(layout[2])] + (["--fsdp"] if layout[4] else [])
+        argv += ["--n_model", str(layout[2])] + (["--fsdp"] if layout[4] else []) + list(extra)
         args = driver.build_parser().parse_args(argv)
         args.ordered_cl_tasks = ["snli-ve"]
         with mock.patch.object(model_factory, "vilt_config_from_args", shallow):
@@ -4703,7 +4722,65 @@ def child_pair(torch, rank, world, d, spec):
             del model, trainer, batch, whole
             torch.cuda.empty_cache()
             dist.barrier()
+    out["int8_eval"] = _int8_eval_rows(torch, rank, patches, seen)
     return out
+
+
+def _int8_eval_rows(torch, rank, patches, seen):
+    """predict's eval step (int8_static calibrated first, as predict does) of
+    one bf16 batch under TP 2 for each of SCALEOUT_INT8_CASES: each rank's
+    launches and the shapes they saw, whether the ranks' calibrated scales are
+    equal; on the first rank, the one-rank eval step of the same weights and
+    batch with the same scales, and the logits against it."""
+    from climb_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from climb_tpu_torch.ops import quant
+    from climb_tpu_torch.parallel.mesh import make_mesh
+    from climb_tpu_torch.train.eval_step import calibrate_quant_scales, make_eval_step
+
+    dist = torch.distributed
+    bf16 = torch.bfloat16
+    rows = {}
+    for dense_impl, mlp_impl in SCALEOUT_INT8_CASES:
+        extra = ("--dense_impl", dense_impl, "--mlp_impl", mlp_impl)
+        model, _, batch = _layout_model(torch, ("tp2", 1, 2, "pallas", False), "bfloat16",
+                                        make_mesh(n_data=1, n_model=2), extra)
+        row, scales = {}, None
+        if dense_impl == "int8_static":
+            scales = calibrate_quant_scales(model, "snli-ve", [batch], bf16)
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, {n: float(v) for n, v in scales.items()})
+            row["scales"] = len(scales)
+            row["scales_equal_across_ranks"] = all(r == ranks[0] for r in ranks)
+        step = make_eval_step(model, "snli-ve", "ce", bf16)
+        seen.clear()
+        reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            logits = step(batch)[0]
+        torch.cuda.synchronize()
+        row.update(launches=dict(LAUNCHES), shapes={k: sorted(v) for k, v in seen.items()})
+        if rank == 0:
+            one, _, _ = _layout_model(torch, ("single", 1, 1, "pallas", False), "bfloat16",
+                                      None, extra)
+            if scales is not None:  # the one rank's own calibration, then TP's scales
+                own = calibrate_quant_scales(one, "snli-ve", [batch], bf16)
+                row["one_rank_scales_max_rel_diff"] = max(
+                    abs(float(own[n]) / float(scales[n]) - 1) for n in scales)
+                quant.load_quant_buffers(one, scales)
+            ref = make_eval_step(one, "snli-ve", "ce", bf16)(batch)[0]
+            atol, rtol, why = SCALEOUT_INT8_TOL[mlp_impl]
+            diff = (logits.float() - ref.float()).abs()
+            row.update(shape=list(logits.shape), finite=bool(torch.isfinite(logits).all()),
+                       bit_equal=torch.equal(logits, ref), max_abs_diff=float(diff.max()),
+                       within=bool((diff <= atol + rtol * ref.float().abs()).all()),
+                       tolerance=[atol, rtol, why])
+            del one
+        rows[f"{dense_impl}_{mlp_impl}"] = row
+        del model, batch, logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return rows
 
 
 def probe_gloo(work) -> dict:
@@ -4782,7 +4859,8 @@ def run_scaleout(torch, train_launches, work):
     emit({"phase": "scaleout_pair", "backend": res[0]["backend"], "seconds": secs,
           "what": f"{SCALEOUT_STEPS} train steps of one snli-ve batch of {TRAIN_BATCH} per "
                   f"layout at {SCALEOUT_PAIR_LAYERS} layers, against the first rank's "
-                  "single-rank steps", "memory": memory,
+                  "single-rank steps; the int8 eval steps under TP 2 against one rank's",
+          "int8_tolerance": SCALEOUT_INT8_TOL, "memory": memory,
           "ranks": res})
     more = {"phase": "scaleout_more_cards", "device_count": n_cards}
     if n_cards > 1:
@@ -4837,7 +4915,35 @@ def check_pair(res, what):
                 if row["shapes"].get(k) != v:
                     raise AssertionError(f"{what} rank {rank} {name}: {k} saw "
                                          f"{row['shapes'].get(k)}, expected {v}")
+        check_int8_rows(r["int8_eval"], rank, what)
     return memory
+
+
+def check_int8_rows(rows, rank, what):
+    """The int8 eval steps under TP 2: one forward's launches at the local
+    shapes (H/2 heads; F/2 columns through the FFN kernel under --mlp_impl
+    pallas, none per op), the calibrated scales equal on both ranks, and on
+    the first rank the logits finite and within SCALEOUT_INT8_TOL of one
+    rank's (bit-equal per op)."""
+    for dense_impl, mlp_impl in SCALEOUT_INT8_CASES:
+        name = f"{dense_impl}_{mlp_impl}"
+        row = rows[name]
+        expected = expected_launches(False, 1, 0, 1, layers=SCALEOUT_PAIR_LAYERS)
+        want = {"attention_fwd": [str((TRAIN_BATCH, SEQ, HEADS // 2, HEAD_DIM))]}
+        if mlp_impl == "pallas":
+            want["mlp_fwd"] = [str((TRAIN_BATCH * SEQ, FFN // 2))]
+        else:
+            expected["mlp_fwd"] = 0
+        if row["launches"] != expected or row["shapes"] != want:
+            raise AssertionError(f"{what} rank {rank} int8 TP {name}: launches "
+                                 f"{row['launches']} (expected {expected}), shapes "
+                                 f"{row['shapes']} (expected {want})")
+        if dense_impl == "int8_static" and not row["scales_equal_across_ranks"]:
+            raise AssertionError(f"{what} int8 TP {name}: calibrated scales differ across "
+                                 f"ranks")
+        if rank == 0 and not (row["finite"] and row["shape"] == [TRAIN_BATCH, 3]
+                              and row["within"] and (mlp_impl != "xla" or row["bit_equal"])):
+            raise AssertionError(f"{what} int8 TP {name}: against one rank {row}")
 
 
 PRETRAINED_SEED = 11  # the snapshots' random values

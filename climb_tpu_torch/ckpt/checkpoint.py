@@ -29,8 +29,13 @@ files, with ``read_flax_msgpack``, the port's own decoder of that format (no
 ``msgpack``, ``flax`` or ``ml_dtypes`` import: the card's machine has none of
 them), and map the tree, its stacked ``encoder`` included, through
 ``ckpt/convert.state_dict_from_jax``. The JAX package's elastic
-``train_state`` (its optax moments) is not read: ``load_train_state`` raises
-for one, and the run restarts the task.
+``train_state`` (``climb_tpu/ckpt/checkpoint.py:118``: a msgpack file of
+``{"state", "meta"}``, or a sharded directory of the same tree) is read by
+``load_train_state`` too: its parameters and optax's AdamW moments through
+``convert.train_state_from_jax`` onto the port's ``TrainState``, its
+metadata as the port's (the JAX PRNG key ``rng`` aside, which the trainer
+cannot carry over: see ``train/trainers.py``). The port writes only its own
+format.
 
 Scale-out (JAX ``checkpoint.py:41-110, 185``): ``sharded=True`` writes a
 task's ``model`` and ``encoder`` (and the elastic ``train_state``) as
@@ -61,6 +66,7 @@ from climb_tpu_torch.ckpt.convert import (
     partial_load,
     reference_from_state_dict,
     state_dict_from_jax,
+    train_state_from_jax,
 )
 from climb_tpu_torch.ckpt import sharded as sharded_ckpt
 from climb_tpu_torch.models.adapters import is_adapter_param
@@ -256,7 +262,8 @@ def read_flax_msgpack(path: str):
 def _load(path: str):
     """A ``torch.save`` file of the port, a sharded parameter directory (of
     either package) or a JAX msgpack parameter tree as a state dict by the
-    port's names."""
+    port's names; a JAX msgpack train state as its ``{"state", "meta"}``
+    tree (``load_train_state`` maps it)."""
     if os.path.isdir(path):
         if not sharded_ckpt.is_sharded_checkpoint(path):
             raise FileNotFoundError(f"{path} is a directory without a sharded-checkpoint "
@@ -266,9 +273,7 @@ def _load(path: str):
         return torch.load(path, map_location="cpu", weights_only=True)
     tree = read_flax_msgpack(path)
     if isinstance(tree, dict) and set(tree) == {"state", "meta"}:
-        raise NotImplementedError(
-            f"{path}: a flax msgpack train_state of climb_tpu (its optax moments) is not read "
-            "by climb_tpu_torch, only parameter trees")
+        return tree
     return state_dict_from_jax(tree)
 
 
@@ -389,31 +394,45 @@ def _save_train_state_sharded(state, meta: dict, path: str):
     sharded_ckpt.write_shards(entries, path, rank)
 
 
-def _load_train_state_sharded(path: str):
+def _as_tensor(v):
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+
+
+def _meta(tree: dict) -> dict:
+    """Metadata of a sharded or JAX train state: arrays as tensors, scalars as
+    Python values."""
+    return {k: (_as_tensor(v) if np.asarray(v).ndim else np.asarray(v).item())
+            for k, v in tree.items()}
+
+
+def _load_train_state_sharded(path: str, guarded: bool):
     flat, _ = sharded_ckpt.load_sharded(path)
     tree = sharded_ckpt.unflatten(flat)
-    as_tensor = lambda v: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
     st = tree["state"]
-    sd = {g: {n: as_tensor(v) for n, v in st[g].items()} for g in ("params", "mu", "nu")}
+    if "opt_state" in st:  # the JAX package's TrainState
+        return train_state_from_jax(st, guarded), _meta(tree.get("meta", {}))
+    sd = {g: {n: _as_tensor(v) for n, v in st[g].items()} for g in ("params", "mu", "nu")}
     sd.update({k: int(np.asarray(st[k])) for k in _STATE_SCALARS})
-    meta = {k: (as_tensor(v) if np.asarray(v).ndim else np.asarray(v).item())
-            for k, v in tree.get("meta", {}).items()}
-    return sd, meta
+    return sd, _meta(tree.get("meta", {}))
 
 
 def load_train_state(state, path: str) -> dict:
-    """Restore ``state`` in place from ``save_train_state``'s file or
-    sharded directory; returns meta (``epoch``, ``steps_into_epoch`` after a
-    preemption, ``global_step``, the best score and epoch, the generator and
-    Python ``random`` states)."""
+    """Restore ``state`` in place from ``save_train_state``'s file or sharded
+    directory, or from the JAX package's (its TrainState mapped by
+    ``convert.train_state_from_jax``, the chain read as ``state``'s optimizer
+    is configured); returns meta (``epoch``, ``steps_into_epoch`` after a
+    preemption, ``global_step``, the best score and epoch, the Python
+    ``random`` state, and the port's ``generator`` state or JAX's ``rng``
+    key)."""
+    guarded = state.tx.skip_nonfinite > 0
     if os.path.isdir(path):
-        sd, meta = _load_train_state_sharded(path)
-        state.load_state_dict(sd)
-        return meta
-    if not is_torch_checkpoint(path):
-        raise NotImplementedError(
-            f"{path}: a flax msgpack train_state of climb_tpu (its optax moments) is not read "
-            "by climb_tpu_torch; the task restarts from its parameters")
-    payload = _load(path)
-    state.load_state_dict(payload["state"])
-    return payload["meta"]
+        sd, meta = _load_train_state_sharded(path, guarded)
+    else:
+        payload = _load(path)
+        if set(payload) != {"state", "meta"}:
+            raise ValueError(f"{path}: not a train state (no 'state' and 'meta')")
+        sd, meta = payload["state"], payload["meta"]
+        if not is_torch_checkpoint(path):  # the JAX package's msgpack file
+            sd, meta = train_state_from_jax(sd, guarded), _meta(meta)
+    state.load_state_dict(sd)
+    return meta

@@ -26,6 +26,13 @@ under the stacked encoder) across; the reference layout has no adapters, so
 ``reference_from_state_dict`` leaves them out, as ``climb_tpu``'s
 ``torch_import.py`` does. The JAX package's flax msgpack files reach
 ``state_dict_from_jax`` through ``ckpt/checkpoint.read_flax_msgpack``.
+- ``train_state_from_jax(state, guarded)``: the optimizer half of the name
+  map. The JAX trainer's elastic ``train_state`` holds flax's state dict of
+  its ``TrainState`` (``step``, ``params``, ``opt_state``); the optax chain
+  of ``climb_tpu/train/optimizer.py:80-127`` gives its ``opt_state``, which
+  becomes the port's ``TrainState.state_dict`` (parameters, AdamW's
+  ``mu``/``nu`` by the same name map, the update count and the non-finite
+  guard's counters).
 - ``quant_from_jax(tree)`` / ``quant_to_jax(scales)``: the int8_static
   calibration scales, between JAX's ``quant`` collection (``<name>_amax``
   leaves, stacked with a leading layer axis under each scanned ``encoder``)
@@ -158,6 +165,68 @@ def state_dict_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
         else:
             _linear_from_jax(sd, f"{name}.fc", p["fc"])
     return sd
+
+
+def _leaves(tree) -> int:
+    return sum(_leaves(v) for v in tree.values()) if isinstance(tree, dict) else 1
+
+
+def _at(tree, path: str):
+    """``tree``'s node at the '/'-separated ``path``; ValueError naming the
+    first missing step."""
+    node, seen = tree, []
+    for key in path.split("/"):
+        seen.append(key)
+        if not isinstance(node, dict) or key not in node:
+            raise ValueError(f"JAX train_state: no {'/'.join(seen)} (the tree does not fit "
+                             "climb_tpu's optimizer chain for this run)")
+        node = node[key]
+    return node
+
+
+def _only(tree: dict, path: str, keys):
+    """Every entry of the dict at ``path`` other than ``keys`` is an empty
+    state (optax's ``EmptyState`` or a mask over one: no leaves)."""
+    for key, value in _at(tree, path).items():
+        if key not in keys and _leaves(value):
+            raise ValueError(f"JAX train_state: {path}/{key} holds {_leaves(value)} leaves "
+                             "where climb_tpu's optimizer chain has none for this run")
+
+
+def train_state_from_jax(state: dict, guarded: bool) -> dict:
+    """JAX's ``TrainState`` state dict (``serialization.to_state_dict``:
+    ``step``, ``params``, ``opt_state``) -> the port's
+    ``TrainState.state_dict``. The chain is ``make_optimizer``'s
+    (``climb_tpu/train/optimizer.py:80-127``) as a trainer builds it:
+    ``optax.adamw`` (``scale_by_adam``'s count/mu/nu, the weight decay's
+    ``MaskedState`` over an ``EmptyState``, the schedule's count), then the
+    trainability mask's ``EmptyState`` when the run freezes anything; no
+    ``clip_by_global_norm`` (no trainer passes ``max_grad_norm``), so a tree
+    with one does not fit. ``guarded`` (``--skip_nonfinite_updates``) wraps
+    it in ``ApplyIfFiniteState``. Empty states may be absent (a sharded
+    directory stores no empty node). ``step`` is the update count of
+    ``scale_by_adam``, which the port's AdamW takes for its schedule and bias
+    correction (JAX's ``TrainState.step`` also counts the steps the guard
+    skipped). Raises ValueError naming the path where the tree does not
+    fit."""
+    out = {"notfinite_count": 0, "total_notfinite": 0}
+    opt = "opt_state"
+    if guarded:
+        _only(state, opt, ("inner_state", "notfinite_count", "total_notfinite", "last_finite"))
+        for key in ("notfinite_count", "total_notfinite"):
+            out[key] = int(_np(_at(state, f"{opt}/{key}")))
+        opt += "/inner_state"
+    _only(state, opt, ("0",))  # [adamw, the trainability mask's EmptyState]
+    _only(state, opt + "/0", ("0", "2"))  # adamw: [scale_by_adam, masked decay, schedule]
+    count = int(_np(_at(state, f"{opt}/0/0/count")))
+    schedule = int(_np(_at(state, f"{opt}/0/2/count")))
+    if count != schedule:
+        raise ValueError(f"JAX train_state: {opt}/0/0/count {count} != the schedule's "
+                         f"{opt}/0/2/count {schedule}")
+    out.update(step=count, params=state_dict_from_jax(_at(state, "params")),
+               mu=state_dict_from_jax(_at(state, f"{opt}/0/0/mu")),
+               nu=state_dict_from_jax(_at(state, f"{opt}/0/0/nu")))
+    return out
 
 
 def jax_leaf(name: str, shape) -> tuple:

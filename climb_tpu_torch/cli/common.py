@@ -1,10 +1,10 @@
 """Shared CLI plumbing (counterpart of ``climb_tpu/cli/common.py``).
 
 The flags the serving and training paths read keep their JAX names and
-defaults. The scale-out flags, which the Phase II drivers accept as the JAX
-ones do, raise ``NotImplementedError`` there when set (``reject_unported``),
-so a run never silently ignores one. ``setup_mesh`` joins a ``torchrun``
-world and builds the drivers' mesh.
+defaults. The Phase II drivers accept the scale-out flags and run one
+process, as the JAX ones do, and log the flags that change nothing
+(``log_ignored_scale_out``). ``setup_mesh`` joins a ``torchrun`` world and
+builds the drivers' mesh.
 """
 
 import argparse
@@ -232,22 +232,22 @@ def add_device_args(parser: argparse.ArgumentParser):
                              "it warns and writes nothing.")
 
 
-# the scale-out flags, which the Phase II drivers do not run: the JAX package's
-# Phase II drivers build no mesh either (they accept and ignore them)
+# the scale-out flags, which the Phase II drivers accept and do not run: the JAX
+# package's Phase II drivers parse them (add_tpu_args) and build no mesh either
 _SCALE_OUT = (("n_model", 1), ("use_mesh", False), ("pp_stages", 0), ("fsdp", False),
               ("pp_microbatches", 0), ("pp_virtual", 1), ("sharded_checkpoints", False),
               ("async_checkpoint", False))
 
 
-def reject_unported(args):
-    """Raise NotImplementedError for a scale-out flag that is set: the Phase II
-    drivers run one process (the JAX drivers build no mesh)."""
-    for flag, default in _SCALE_OUT:
-        value = getattr(args, flag, default)
-        if value != default and not (flag == "pp_stages" and value in (0, 1)):
-            raise NotImplementedError(
-                f"--{flag} {value!r} is not ported to the Phase II drivers of climb_tpu_torch "
-                "(they run one process; the JAX drivers build no mesh)")
+def log_ignored_scale_out(args):
+    """Log, in one line, the scale-out flags that are set and change nothing:
+    the Phase II drivers run their one-process path, as the JAX drivers do."""
+    flags = [f"--{flag} {getattr(args, flag)!r}" for flag, default in _SCALE_OUT
+             if getattr(args, flag, default) != default]
+    if flags:
+        logging.getLogger(__name__).warning(
+            "Phase II drivers run one process and build no mesh (as the JAX drivers do); "
+            "these flags change nothing: %s", ", ".join(flags))
 
 
 def setup_mesh(args, device):

@@ -21,8 +21,13 @@ model code or a checkpoint (``serve/export.py``).
 
 Under ``torchrun`` with ``--use_mesh`` (JAX ``predict.py:148-157``) each
 data rank evaluates its share of every eval batch (``--n_model`` splits the
-blocks as in training) and the logits are gathered in order to the first
-rank, which writes the same JSON as a single-process run.
+blocks as in training; ``--dense_impl int8|int8_static`` too, with JAX's
+numerics, ``ops/quant.py``) and the logits are gathered in order to the
+first rank, which writes the same JSON as a single-process run.
+``--export_model`` and ``--input_jsonl`` build no mesh: an artifact holds
+one device's program, and the raw rows are served in one process. Neither
+is refused, as JAX refuses neither (its ``predict.py:148-157`` builds the
+mesh before ``_do_export`` and ``_predict_from_jsonl``).
 
 Usage:
   python -m climb_tpu_torch.cli.predict --encoder_name vilt \\

@@ -37,7 +37,7 @@ from climb_tpu_torch.cli.common import (
     add_common_args,
     add_device_args,
     apply_task_config_overrides,
-    reject_unported,
+    log_ignored_scale_out,
     setup_logging,
 )
 from climb_tpu_torch.configs.model_configs import model_configs
@@ -97,7 +97,7 @@ def build_parser():
 def main(argv=None):
     setup_logging()
     args = build_parser().parse_args(argv)
-    reject_unported(args)
+    log_ignored_scale_out(args)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     set_seed(args)

@@ -38,7 +38,7 @@ from climb_tpu_torch.cli.common import (
     add_common_args,
     add_device_args,
     apply_task_config_overrides,
-    reject_unported,
+    log_ignored_scale_out,
     setup_logging,
 )
 from climb_tpu_torch.configs.adapter_configs import ADAPTER_MAP
@@ -118,7 +118,7 @@ def main(argv=None):
         args.image_height, args.image_width = 64, 96
     for task_key in args.ordered_cl_tasks:
         assert task_key in SUPPORTED_VL_TASKS
-    reject_unported(args)
+    log_ignored_scale_out(args)
     device = resolve_device(args.device)
     configs = task_configs
     if args.synthetic and args.synthetic_vqa_labels:

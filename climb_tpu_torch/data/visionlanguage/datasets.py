@@ -180,12 +180,12 @@ class VQADataset(VLDatasetBase):
         with open(os.path.join(data_dir, "ans2label.pkl"), "rb") as f:
             self.ans2label = pickle.load(f)
         self.label2ans = {v: k for k, v in self.ans2label.items()}
-        # Target-vector width follows the TASK CONFIG (reference
-        # target_tensor(num_labels,...) sizes by task_configs['vqa']
-        # ['num_labels'], train_vqa.py:157 + vqa_utils.py:48-53) so the
-        # emitted targets always match the model head; with the full
-        # 3,129-answer ans2label the two coincide, with a smaller map
-        # (mini fixtures) len(ans2label) would NOT.
+        # Target-vector width follows the TASK CONFIG, so the emitted
+        # targets always match the model head. This is the port's (and the
+        # JAX package's) deviation: the reference sets num_labels =
+        # len(label2ans) (its vqa_dataset.py:69). With the full 3,129-answer
+        # ans2label the two coincide; with a smaller map (mini fixtures)
+        # they differ.
         self.num_labels = num_labels or len(self.ans2label)
 
         cache = os.path.join(data_dir, "cached_vqa_data", f"vqa_{split}.pkl")

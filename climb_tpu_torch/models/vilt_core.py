@@ -84,8 +84,12 @@ carries n roundings of the partials and one of their sum where the
 single-device block rounds once (float32 differs by summation order only).
 LoRA holds the columns of ``lora_b`` on a column-split target and the rows
 of ``lora_a`` on a row-split one, so its delta splits as its layer's output
-does. Bottleneck adapters act on the summed output and are not split. int8
-dense under tensor parallelism is refused by the model factory. Under FSDP
+does. Bottleneck adapters act on the summed output and are not split. The
+int8 dense layers follow GSPMD's numerics (``ops/quant.py``): q/k/v and fc1
+quantize their whole input rows as one rank does; attn_out and fc2 take
+their scales' max over 'model' and sum their int32 partial products before
+the rescale, so their output is whole on every rank, bit-equal to one
+rank's, and only a LoRA delta on them is summed by ``reduce_out``. Under FSDP
 (``--fsdp``) every large parameter is held as a slice over 'data' and each
 block's are gathered whole for its forward by hooks (``gathered``).
 
@@ -160,13 +164,14 @@ def int8_active(cfg, module: nn.Module) -> bool:
 
 
 def routed_dense(module: nn.Module, layer: nn.Linear, name: str, x: torch.Tensor,
-                 cfg, bias=None) -> torch.Tensor:
+                 cfg, bias=None, tp=None) -> torch.Tensor:
     """``dense``, or ``quant.module_int8_dense`` under ``int8_active`` (JAX's
-    ``ViltBlock._dense``); the scales are buffers of ``module``."""
+    ``ViltBlock._dense``); the scales are buffers of ``module``. ``tp`` is
+    the int8 product's row split (``quant.module_int8_dense``)."""
     if int8_active(cfg, module):
         return quant.module_int8_dense(module, x, layer.weight,
                                        layer.bias if bias is None else bias, name,
-                                       cfg.dense_impl, cfg.compute_dtype)
+                                       cfg.dense_impl, cfg.compute_dtype, tp=tp)
     return dense(layer, x, cfg.compute_dtype, bias)
 
 
@@ -312,13 +317,27 @@ class ViltBlock(nn.Module):
             v = lora("v", h, routed_dense(self, self.v, "v", h, cfg)).view(heads)
         ctx = attention.multi_head_attention(q, k, v, mask_bias, impl=cfg.attn_impl)
         ctx = ctx.reshape(b, s, e)
-        attn_out = tp.reduce_out(lora("attn_out", ctx, routed_dense(
-            self, self.attn_out, "attn_out", ctx, cfg, bias=tp.bias_once(self.attn_out.bias))))
+        attn_out = self._row_split(self.attn_out, "attn_out", ctx, lora)
         attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
         if spec is not None and spec.mh_adapter:
             attn_out = adapters.apply_task_adapter(self, attn_out, "attn", active_adapter,
                                                    dtype)
         return self._mlp_sublayer(x + attn_out, generator, active_adapter)
+
+    def _row_split(self, layer: nn.Linear, name: str, inp: torch.Tensor, lora) -> torch.Tensor:
+        """attn_out or fc2 (its input split over 'model' under TP) with its
+        LoRA delta, whole on every rank. The float product sums the ranks'
+        partial outputs (the bias on the first rank); the int8 product sums
+        its int32 partials itself, so only a LoRA delta is summed after it."""
+        cfg, tp = self.cfg, self.tp or SOLO
+        if tp.size == 1 or not int8_active(cfg, self):
+            return tp.reduce_out(lora(name, inp, routed_dense(
+                self, layer, name, inp, cfg, bias=tp.bias_once(layer.bias))))
+        y = routed_dense(self, layer, name, inp, cfg, tp=tp)
+        spec = self.adapter_spec
+        if spec is not None and spec.lora and name in spec.lora_targets:
+            y = y + tp.reduce_out(lora(name, inp, torch.zeros_like(y)))
+        return y
 
     def _mlp_sublayer_gathered(self, x, generator=None, active_adapter=None):
         """``_mlp_sublayer`` with the block's parameters whole: under FSDP its
@@ -340,14 +359,12 @@ class ViltBlock(nn.Module):
         if mlp_lora(spec) or (int8_active(cfg, self) and cfg.mlp_impl != "pallas"):
             h = lora("fc1", h, routed_dense(self, self.fc1, "fc1", h, cfg))
             h = F.gelu(h, approximate="none")  # HF 'gelu' is the exact erf GELU
-            h = lora("fc2", h, routed_dense(self, self.fc2, "fc2", h, cfg,
-                                            bias=tp.bias_once(self.fc2.bias)))
+            h = self._row_split(self.fc2, "fc2", h, lora)
         else:
-            h = mlp.mlp(
+            h = tp.reduce_out(mlp.mlp(
                 h, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype),
                 self.fc2.weight.to(dtype), tp.bias_once(self.fc2.bias).to(dtype),
-            )
-        h = tp.reduce_out(h)
+            ))
         h = dropout(h, cfg.hidden_dropout, self.training, generator)
         if spec is not None and spec.output_adapter:
             adapter_input = mlp_in if spec.is_parallel else h

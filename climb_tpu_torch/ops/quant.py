@@ -26,6 +26,18 @@ keeps them in the ``quant`` collection, stacked over its layer scan; the port
 keeps one scalar per block). Under ``calibration(model)`` each call records
 the running abs-max of its input and computes the float dense in the compute
 dtype.
+
+Tensor parallelism: the functions take an optional ``tp``
+(``parallel.tensor_parallel.TensorParallel``) for a row-split product, whose
+input's last dim and weight's input dim are split over the 'model' ranks
+(attn_out, fc2). Its scales are taken as a max over the ranks before
+quantizing (a row's activation abs-max, a channel's weight abs-max and a
+calibrated ``amax`` alike), and its int32 partial products are summed over
+the ranks before the rescale and the whole bias; so every rank holds the
+whole output, equal to one device's bit for bit, as GSPMD's int32 sum of a
+sharded contraction gives JAX's mesh its single device's numerics. A
+column-split product (q, k, v, fc1) sees whole input rows and whole weight
+channels and takes no ``tp``.
 """
 
 import contextlib
@@ -50,20 +62,27 @@ def calibration(model: torch.nn.Module):
             m.quant_calibration = False
 
 
-def quantize_per_channel(w: torch.Tensor):
+def _amax(x: torch.Tensor, dim, tp) -> torch.Tensor:
+    """|x|'s max over ``dim`` (() for all) in float32, and over the 'model'
+    ranks under ``tp``."""
+    m = x.abs().amax(dim=dim).to(torch.float32)
+    return m if tp is None else tp.max_over_model(m)
+
+
+def quantize_per_channel(w: torch.Tensor, tp=None):
     """(E, D) float weights -> (int8 weights, (E,) f32 scales), symmetric per
-    output channel."""
+    output channel (with ``tp``, D split over its ranks)."""
     wf = w.to(torch.float32)
-    s = torch.clamp(wf.abs().amax(dim=1) / 127.0, min=1e-12)
+    s = torch.clamp(_amax(wf, 1, tp) / 127.0, min=1e-12)
     wq = torch.clamp(torch.round(wf / s[:, None]), -127, 127).to(torch.int8)
     return wq, s
 
 
-def quantize_per_row(a: torch.Tensor):
+def quantize_per_row(a: torch.Tensor, tp=None):
     """(..., D) float activations -> (int8, (...,) f32 scales), symmetric and
-    dynamic per row (per token)."""
+    dynamic per row (per token; with ``tp``, D split over its ranks)."""
     af = a.to(torch.float32)
-    s = torch.clamp(af.abs().amax(dim=-1) / 127.0, min=1e-12)
+    s = torch.clamp(_amax(af, -1, tp) / 127.0, min=1e-12)
     aq = torch.clamp(torch.round(af / s[..., None]), -127, 127).to(torch.int8)
     return aq, s
 
@@ -92,9 +111,12 @@ def check_int_mm(m: int, k: int, n: int):
                          f"8; got M={m}, K={k}, N={n}")
 
 
-def _int8_product(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """(..., D) int8 activations x (E, D) int8 weights -> (..., E) int32."""
+def _int8_product(aq: torch.Tensor, wq: torch.Tensor, tp=None) -> torch.Tensor:
+    """(..., D) int8 activations x (E, D) int8 weights -> (..., E) int32,
+    summed over ``tp``'s ranks when D is split over them."""
     acc = int_mm(aq.reshape(-1, aq.shape[-1]), wq.t())
+    if tp is not None:
+        acc = tp.sum_int32(acc)
     return acc.reshape(aq.shape[:-1] + (wq.shape[0],))
 
 
@@ -105,60 +127,69 @@ def _rescale(acc, s_a, s_w, bias, out_dtype):
     return y.to(out_dtype)
 
 
-def int8_dense_prequant(aq, sa, w, bias, out_dtype):
+def int8_dense_prequant(aq, sa, w, bias, out_dtype, tp=None):
     """y = dequant(aq . quant(w)^T) + bias for an activation already quantized
     by ``quantize_per_row``: one quantization of a shared input (LN1's output
     feeding q, k and v) serves several products."""
-    wq, sw = quantize_per_channel(w)
-    return _rescale(_int8_product(aq, wq), sa[..., None], sw, bias, out_dtype)
+    wq, sw = quantize_per_channel(w, tp)
+    return _rescale(_int8_product(aq, wq, tp), sa[..., None], sw, bias, out_dtype)
 
 
-def int8_dense(a: torch.Tensor, w: torch.Tensor, bias, out_dtype=None):
+def int8_dense(a: torch.Tensor, w: torch.Tensor, bias, out_dtype=None, tp=None):
     """y = a . w^T + bias with an int8 product and dynamic per-row activation
     scales. a: (..., D) float; w: (E, D) float; bias: (E,) or None. Returns
     (..., E) in ``out_dtype`` (default a's dtype)."""
-    aq, sa = quantize_per_row(a)
-    return int8_dense_prequant(aq, sa, w, bias, out_dtype or a.dtype)
+    aq, sa = quantize_per_row(a, tp)
+    return int8_dense_prequant(aq, sa, w, bias, out_dtype or a.dtype, tp)
 
 
-def int8_dense_static(a: torch.Tensor, w: torch.Tensor, bias, amax, out_dtype=None):
+def int8_dense_static(a: torch.Tensor, w: torch.Tensor, bias, amax, out_dtype=None, tp=None):
     """y = a . w^T + bias with an int8 product and one calibrated per-tensor
-    activation scale (``amax``, the running abs-max of a calibration pass)."""
+    activation scale (``amax``, the running abs-max of a calibration pass,
+    already the max over ``tp``'s ranks)."""
     s = torch.clamp(amax.to(torch.float32), min=1e-12) / 127.0
     aq = torch.clamp(torch.round(a.to(torch.float32) / s), -127, 127).to(torch.int8)
-    wq, sw = quantize_per_channel(w)
-    return _rescale(_int8_product(aq, wq), s, sw, bias, out_dtype or a.dtype)
+    wq, sw = quantize_per_channel(w, tp)
+    return _rescale(_int8_product(aq, wq, tp), s, sw, bias, out_dtype or a.dtype)
 
 
 def module_int8_dense(module: torch.nn.Module, h: torch.Tensor, weight, bias, name: str,
-                      dense_impl: str, out_dtype) -> torch.Tensor:
-    """The quantized dense of an encoder call site, routed as JAX routes it:
+                      dense_impl: str, out_dtype, tp=None) -> torch.Tensor:
+    """The quantized dense of an encoder call site, routed as JAX routes it.
+    With ``tp`` (a row-split product: ``h``'s last dim and ``weight``'s input
+    dim split over its ranks; ``bias`` whole) every route returns the whole
+    output on every rank:
 
     - 'int8': dynamic per-row activation scales, no state.
     - 'int8_static' under ``calibration``: record the running abs-max of
-      ``h`` (the compute-dtype input, before any cast) in the buffer
-      ``<name>_amax`` of ``module``, and compute the float dense.
+      ``h`` (the compute-dtype input, before any cast; under ``tp`` its max
+      over the ranks) in the buffer ``<name>_amax`` of ``module``, and
+      compute the float dense (under ``tp`` the ranks' partial products
+      summed by ``reduce_out``, the bias added once).
     - 'int8_static' with that buffer present: the static per-tensor scale.
     - 'int8_static' without it (the evals inside a training run, where
       nothing has calibrated): dynamic int8, as JAX falls back.
     """
     if dense_impl == "int8":
-        return int8_dense(h, weight, bias, out_dtype=out_dtype)
+        return int8_dense(h, weight, bias, out_dtype=out_dtype, tp=tp)
     if dense_impl != "int8_static":
         raise ValueError(f"dense_impl {dense_impl!r}: choose one of {INT8_IMPLS}")
     key = f"{name}_amax"
     amax = module._buffers.get(key)
     if getattr(module, "quant_calibration", False):
-        seen = h.detach().abs().amax().to(torch.float32)
+        seen = _amax(h.detach(), (), tp)
         if amax is None:
             module.register_buffer(key, torch.zeros((), dtype=torch.float32, device=h.device),
                                    persistent=False)
             amax = module._buffers[key]
         amax.copy_(torch.maximum(amax, seen))
-        return F.linear(h, weight.to(out_dtype), bias.to(out_dtype)).to(out_dtype)
+        if tp is None:
+            return F.linear(h, weight.to(out_dtype), bias.to(out_dtype)).to(out_dtype)
+        return tp.reduce_out(F.linear(h, weight.to(out_dtype),
+                                      tp.bias_once(bias).to(out_dtype)).to(out_dtype))
     if amax is None:
-        return int8_dense(h, weight, bias, out_dtype=out_dtype)
-    return int8_dense_static(h, weight, bias, amax, out_dtype=out_dtype)
+        return int8_dense(h, weight, bias, out_dtype=out_dtype, tp=tp)
+    return int8_dense_static(h, weight, bias, amax, out_dtype=out_dtype, tp=tp)
 
 
 def quant_buffers(model: torch.nn.Module) -> dict:

@@ -10,7 +10,14 @@ block's two sublayers:
   the activation's gradient is the sum of every rank's contribution;
 - ``TensorParallel.reduce_out``: all-reduce (sum) forward, identity
   backward, after a row-split product: the partial outputs of the ranks'
-  heads or FFN columns add up to the layer's output.
+  heads or FFN columns add up to the layer's output;
+- ``TensorParallel.max_over_model`` and ``sum_int32``: the int8 dense
+  layers' collectives (forward only; int8 runs in eval mode). A row-split
+  int8 product (attn_out, fc2) takes its activation rows' and weight
+  channels' abs-max over 'model' before quantizing, and sums its int32
+  partial products exactly before the rescale, as GSPMD does for JAX's
+  ``dot(..., preferred_element_type=int32)`` over a sharded contraction; so
+  every rank quantizes as one device does and holds the whole output.
 
 Each rank holds only its slice of the split projections as their
 parameters (``parallel.sharding.shard_model``: rows of q/k/v/fc1 and their
@@ -95,6 +102,26 @@ class TensorParallel:
             return partial
         out = _ReduceFromModel.apply(partial.to(torch.float32), self.group)
         return out.to(dtype or partial.dtype)
+
+    def max_over_model(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over the ranks (int8's abs-max scales),
+        in place where ``t`` is contiguous: give it a tensor of its own."""
+        if self.size == 1:
+            return t
+        out = t.contiguous()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+    def sum_int32(self, acc: torch.Tensor) -> torch.Tensor:
+        """The exact sum of the ranks' int32 partial products (a row-split int8
+        product's accumulators), in place where ``acc`` is contiguous."""
+        if self.size == 1:
+            return acc
+        if acc.dtype != torch.int32:
+            raise TypeError(f"sum_int32 takes int32 accumulators, got {acc.dtype}")
+        out = acc.contiguous()
+        dist.all_reduce(out, group=self.group)
+        return out
 
     def bias_once(self, b: torch.Tensor) -> torch.Tensor:
         """``b`` on the first rank, zeros elsewhere (a row-split layer's bias)."""

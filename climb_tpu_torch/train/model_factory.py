@@ -23,7 +23,7 @@ its own ('data', 'pipe') mesh) the learner is placed by
 ``parallel.sharding.shard_model`` after the pretrained weights are grafted,
 with JAX's refusals (``model_factory.py:82-151``): the pipeline composes with
 data parallelism only, takes no int8 dense, and needs a 'pipe' axis of its
-size. The port also refuses int8 dense under ``--n_model > 1``.
+size. int8 dense runs under ``--n_model > 1`` as in JAX (``ops/quant.py``).
 """
 
 import dataclasses
@@ -176,9 +176,6 @@ def create_cl_model(args, task_configs, device: torch.device, adapter_handler=No
     if int(getattr(args, "pp_stages", 0) or 0) > 1 and (mesh is not None
                                                         or distributed.is_initialized()):
         mesh = pipeline_mesh(args, mesh)
-    if mesh is not None and getattr(args, "n_model", 1) > 1 and \
-            getattr(args, "dense_impl", "xla") != "xla":
-        raise NotImplementedError("--dense_impl int8 with --n_model > 1 is not ported")
     task_keys = list(args.ordered_cl_tasks)
     cfg = vilt_config_from_args(args, "nlvr2" in task_keys)
     learner = _resolve(LEARNERS, args.encoder_name)

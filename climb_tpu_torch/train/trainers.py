@@ -46,6 +46,13 @@ handler is installed for the train loop, polled at every step boundary, and a
 request saves the full state with ``steps_into_epoch`` and exits 143; the
 rerun skips the steps done (``set_skip``) and restores the dropout generator
 and Python's ``random``, so it ends on the uninterrupted run's parameters.
+The JAX package's elastic state (msgpack or sharded) resumes too: its
+parameters, AdamW moments, update count, guard counters, epoch, place in the
+epoch, best score and epoch, and Python's ``random`` state carry over
+(``ckpt.checkpoint.load_train_state``). Its dropout key, a JAX PRNG key, has
+no counterpart in a ``torch.Generator``: the generator is seeded from
+``--seed`` and the global step instead (``jax_resume_seed``), and the log
+says so.
 
 On a mesh (``args.mesh``, set by the driver; JAX ``trainers.py:184-187,
 244-249, 322-330, 440-568``) both loaders stripe the index stream by node
@@ -98,6 +105,13 @@ from climb_tpu_torch.utils import preemption
 from climb_tpu_torch.utils.wandb import wandb_logger
 
 logger = logging.getLogger(__name__)
+
+
+def jax_resume_seed(seed: int, global_step: int) -> int:
+    """The dropout generator's seed for a run resumed from the JAX package's
+    train state at ``global_step``: a function of the run's ``--seed`` and the
+    step alone, so two resumes of one state draw the same masks."""
+    return (int(seed) << 32) + int(global_step)
 
 
 def batch_divisor(task_cfg: dict) -> int:
@@ -340,7 +354,13 @@ class VLTaskTrainer:
                 global_step = int(meta["global_step"])
                 best_score = float(meta["best_score"])
                 self.best_epoch = int(meta["best_epoch"])
-                generator.set_state(meta["generator"])
+                if "generator" in meta:
+                    generator.set_state(meta["generator"])
+                else:  # the JAX package's state: its rng is a JAX PRNG key
+                    generator.manual_seed(jax_resume_seed(args.seed, global_step))
+                    logger.info("task=%s: JAX train state; its dropout key does not carry "
+                                "over, the dropout generator is seeded from --seed %d and "
+                                "global step %d", self.task_key, int(args.seed), global_step)
                 if "py_random" in meta:
                     py_random.setstate(pickle.loads(meta["py_random"].numpy().tobytes()))
                 if self.best_epoch > 0 and os.path.exists(best_path):

@@ -391,13 +391,15 @@ def test_language_driver_matches_jax(run, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,match", [
     (["--no_synthetic"], "imdb_train.jsonl"),
-    # these two raised "not ported" before the last slice; they now run (the ids keep
-    # the old expectation): a hub name not in the local cache keeps the seed's weights
-    # with a warning, and --scan_unroll changes nothing on the port's layer loop
+    # these four raised "not ported" in earlier slices; they now run (the ids keep the
+    # old expectation): a hub name not in the local cache keeps the seed's weights with
+    # a warning, --scan_unroll changes nothing on the port's layer loop, and the
+    # scale-out flags change nothing in a Phase II driver (one process, no mesh, as
+    # the JAX driver), which says so in one line
     (["--pretrained_model_name", "dandelin/vilt-b32-mlm"], "not ported"),
     (["--scan_unroll", "2"], "not ported"),
     (["--use_mesh"], "not ported"),
-    (["--n_model", "2"], "not ported"),  # --dense_impl int8 runs (test_torch_serve_quant.py)
+    (["--n_model", "2"], "not ported"),
 ])
 def test_unported_language_flags_raise(flags, match, tmp_path, monkeypatch, caplog):
     argv = _argv(tmp_path, "sst2") + ["--device", "cpu"]
@@ -412,11 +414,14 @@ def test_unported_language_flags_raise(flags, match, tmp_path, monkeypatch, capl
         argv[argv.index(flags[0]) + 1] = flags[1]
     else:
         argv += flags
-    if flags[0] in ("--pretrained_model_name", "--scan_unroll"):
+    if flags[0] != "--no_synthetic":
         monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
         with caplog.at_level("WARNING"):
             port.main(argv)
-        assert ("no local snapshot or file" in caplog.text) == (flags[0] != "--scan_unroll")
+        assert ("no local snapshot or file" in caplog.text) == (
+            flags[0] == "--pretrained_model_name")
+        assert ("these flags change nothing: " + " ".join(flags) in caplog.text) == (
+            flags[0] in ("--use_mesh", "--n_model"))
         assert list(tmp_path.rglob("*results.json"))
         return
     with pytest.raises(error, match=match):

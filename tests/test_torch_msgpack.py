@@ -9,7 +9,14 @@ included) are read bit for bit by the port's own decoder, which imports no
 ``msgpack``, ``flax`` or ``ml_dtypes``. A Phase II encoder loaded by the
 port from a JAX Phase I ``encoder`` file equals the JAX package's
 ``load_encoder_params``, gives the JAX encoder's outputs, and the port's
-language driver runs from it. The JAX elastic ``train_state`` is not read.
+language driver runs from it. The JAX elastic ``train_state``, in both
+layouts, at an epoch's end and mid-epoch, with and without the non-finite
+guard (``tests/torch_resume_common.py``), loads into the port's
+``TrainState`` with the parameters, AdamW moments, update count and guard
+counters of the JAX package's own ``load_train_state`` bit for bit (which
+reads the msgpack layout only); a tree
+whose optimizer chain does not fit the run raises ``ValueError`` naming the
+path.
 """
 
 import ast
@@ -29,12 +36,13 @@ from climb_tpu.configs.task_configs import task_configs as jax_task_configs
 from climb_tpu.models import ViltCore as JaxCore
 from climb_tpu.train.model_factory import create_cl_model as jax_create_cl_model
 from climb_tpu.train.model_factory import load_encoder_params as jax_load_encoder_params
-from climb_tpu_torch.ckpt import checkpoint
+from climb_tpu_torch.ckpt import checkpoint, convert
 from climb_tpu_torch.ckpt.convert import state_dict_from_jax
 from climb_tpu_torch.cli import train_language
 from climb_tpu_torch.models.vilt_core import ViltCore
 from climb_tpu_torch.train.model_factory import load_encoder_params, vilt_config_from_args
 from test_torch_data_common import shape_only_flax_init
+import torch_resume_common as resume
 
 torch.set_num_threads(1)
 
@@ -177,13 +185,129 @@ def test_language_driver_runs_from_a_jax_checkpoint(jax_run, tmp_path):
     assert len(results) == 1 and json.loads(results[0].read_text())
 
 
-def test_jax_train_state_is_not_read(tmp_path):
-    path = tmp_path / "train_state"
+GUARDS = {"guarded": ["--skip_nonfinite_updates", "2"], "unguarded": []}
+
+
+@pytest.fixture(scope="module")
+def jax_states(tmp_path_factory):
+    """{guard: {(kind, layout): path}}: the JAX driver's four train states of
+    a run with and without ``--skip_nonfinite_updates``."""
+    return {guard: resume.jax_train_states(tmp_path_factory.mktemp(guard), *extra)
+            for guard, extra in GUARDS.items()}
+
+
+def _port_state(guard, tmp_path):
+    """The port's TrainState for the run's command line (its own weights)."""
+    from climb_tpu_torch.cli import train_upstream_continual_learning as port_driver
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.train.optimizer import make_optimizer
+    from climb_tpu_torch.train.train_state import TrainState
+
+    args = port_driver.build_parser().parse_args(resume.argv(tmp_path, *GUARDS[guard]))
+    args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+    model = port_driver.create_cl_model(args, task_configs, torch.device("cpu"))
+    tx = make_optimizer([n for n, _ in model.named_parameters()], lr=2e-3, total_steps=9,
+                        skip_nonfinite=int(args.skip_nonfinite_updates))
+    return TrainState.create(model, tx)
+
+
+def _jax_state(guard, path, tmp_path):
+    """The state as the JAX package's own ``load_train_state`` restores it."""
+    from climb_tpu.ckpt.checkpoint import load_train_state as jax_load_train_state
+    from climb_tpu.cli.train_upstream_continual_learning import build_parser as jax_parser
+    from climb_tpu.train.optimizer import make_optimizer as jax_make_optimizer
+    from climb_tpu.train.train_state import TrainState as JaxTrainState
+
+    args = jax_parser().parse_args(resume.argv(tmp_path, *GUARDS[guard]))
+    args.ordered_cl_tasks = args.ordered_cl_tasks.split(",")
+    with pytest.MonkeyPatch.context() as mp:
+        shape_only_flax_init(mp)
+        model = jax_create_cl_model(args, jax_task_configs)
+    tx = jax_make_optimizer(model.params, lr=2e-3, total_steps=9,
+                            skip_nonfinite=int(args.skip_nonfinite_updates))
+    template = JaxTrainState.create(apply_fn=model.module.apply, params=model.params, tx=tx)
+    return jax_load_train_state(template, str(path))
+
+
+@pytest.mark.parametrize("layout", resume.LAYOUTS)
+@pytest.mark.parametrize("kind", resume.KINDS)
+@pytest.mark.parametrize("guard", list(GUARDS))
+def test_jax_train_state_loads_bit_equal(guard, kind, layout, jax_states, tmp_path):
+    """Each layout against the msgpack file written from the same state at
+    the same save, as the JAX package's ``load_train_state`` restores it:
+    that function cannot restore its own sharded train state (the directory
+    stores no node for the weight decay's empty ``MaskedState``, and flax's
+    ``from_state_dict`` then fails at ``opt_state/.../0``), so a JAX run
+    under ``--sharded_checkpoints`` restarts its task where the port
+    resumes."""
+    path = jax_states[guard][kind, layout]
+    state = _port_state(guard, tmp_path)
+    meta = checkpoint.load_train_state(state, str(path))
+    jstate, jmeta = _jax_state(guard, jax_states[guard][kind, "msgpack"], tmp_path)
+    if layout == "sharded":
+        with pytest.raises(ValueError, match="do not match"):
+            _jax_state(guard, path, tmp_path)
+    opt = jstate.opt_state.inner_state if guard == "guarded" else jstate.opt_state
+    adam = opt[0][0]
+    trees = {"params": jstate.params, "mu": adam.mu, "nu": adam.nu}
+    mu, nu = state.moments()
+    for group, got in (("params", state.params), ("mu", mu), ("nu", nu)):
+        for name, t in got.items():
+            keys, layer, transposed = convert.jax_leaf(name, tuple(t.shape))
+            leaf = trees[group]
+            for k in keys:
+                leaf = leaf[k]
+            leaf = np.asarray(leaf if layer is None else leaf[layer])
+            leaf = leaf.T if transposed else leaf
+            assert _bits(t.detach().float()) == _bits(leaf.astype(np.float32)), (group, name)
+    assert state.step == int(adam.count) == int(jstate.step) == (
+        resume.PREEMPT_AT if kind == "mid" else 3)
+    if guard == "guarded":
+        assert (state.notfinite_count, state.total_notfinite) == (
+            int(jstate.opt_state.notfinite_count), int(jstate.opt_state.total_notfinite))
+    for key in ("epoch", "global_step", "best_epoch", "steps_into_epoch"):
+        assert meta.get(key) == (int(jmeta[key]) if key in jmeta else None), key
+    assert meta["best_score"] == float(jmeta["best_score"])
+    assert bytes(meta["py_random"].numpy()) == bytes(np.asarray(jmeta["py_random"]))
+    assert (meta["epoch"], meta.get("steps_into_epoch")) == (
+        (1, 2) if kind == "mid" else (1, None))
+
+
+def _misfit(jax_states, tmp_path, case):
+    """A train state that does not fit the run it is loaded into: (path,
+    the port's guard)."""
+    if case == "guarded_state_unguarded_run":
+        return jax_states["guarded"]["mid", "msgpack"], "unguarded"
+    if case == "unguarded_state_guarded_run":
+        return jax_states["unguarded"]["mid", "sharded"], "guarded"
+    # a chain with optax.clip_by_global_norm first (make_optimizer's
+    # max_grad_norm), which no trainer builds
+    from climb_tpu.train.optimizer import make_optimizer as jax_make_optimizer
+    from climb_tpu.train.train_state import TrainState as JaxTrainState
+
+    restored = serialization.msgpack_restore(
+        jax_states["unguarded"]["end", "msgpack"].read_bytes())
+    params = restored["state"]["params"]
+    tx = jax_make_optimizer(params, lr=2e-3, total_steps=9, max_grad_norm=1.0)
+    clipped = JaxTrainState.create(apply_fn=None, params=params, tx=tx)
+    path = tmp_path / "clipped"
     path.write_bytes(serialization.msgpack_serialize(
-        {"state": {"step": np.asarray(2), "opt_state": {"mu": np.zeros(3, np.float32)}},
-         "meta": {"epoch": np.asarray(1)}}))
-    with pytest.raises(NotImplementedError, match="optax"):
-        checkpoint.load_train_state(None, str(path))
+        {"state": serialization.to_state_dict(clipped), "meta": restored["meta"]}))
+    return path, "unguarded"
+
+
+@pytest.mark.parametrize("case,where", [
+    ("guarded_state_unguarded_run", "opt_state/inner_state"),
+    ("unguarded_state_guarded_run", "opt_state/0"),
+    ("clip_by_global_norm", "opt_state/1"),
+])
+def test_jax_train_state_that_does_not_fit_raises(case, where, jax_states, tmp_path):
+    path, guard = _misfit(jax_states, tmp_path, case)
+    state = _port_state(guard, tmp_path)
+    before = {n: t.clone() for n, t in state.params.items()}
+    with pytest.raises(ValueError, match=f"JAX train_state: {where} "):
+        checkpoint.load_train_state(state, str(path))
+    assert all(torch.equal(before[n], t) for n, t in state.params.items())  # untouched
 
 
 @pytest.mark.parametrize("module", ["checkpoint.py", "convert.py"])

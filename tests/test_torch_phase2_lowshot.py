@@ -215,6 +215,21 @@ def test_missing_upstream_checkpoint_raises(tmp_path):
         port.main(_argv(tmp_path, "sequential", "--device", "cpu"))
 
 
+def test_lowshot_driver_runs_with_the_scale_out_flags(tmp_path, caplog):
+    """The JAX Phase II drivers parse the scale-out flags and build no mesh;
+    the port's run their one-process path too: the same low-shot records as
+    without the flags, and one line that names them."""
+    flags = ["--use_mesh", "--n_model", "2", "--fsdp", "--sharded_checkpoints",
+             "--async_checkpoint"]
+    port.main(_argv(tmp_path / "plain", "singletask", "--device", "cpu"))
+    with caplog.at_level("WARNING"):
+        port.main(_argv(tmp_path / "scaled", "singletask", "--device", "cpu", *flags))
+    assert _records(tmp_path / "scaled", "singletask") == _records(tmp_path / "plain",
+                                                                    "singletask")
+    assert ("these flags change nothing: --n_model 2, --use_mesh True, --fsdp True, "
+            "--sharded_checkpoints True, --async_checkpoint True") in caplog.text
+
+
 def test_lowshot_driver_without_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

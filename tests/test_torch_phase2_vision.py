@@ -234,6 +234,28 @@ def test_vision_driver_synthetic_multilabel(tmp_path):
     assert epoch == 1 and all(0.0 <= x <= 100.0 for x in (test, dev))
 
 
+SCALE_OUT_FLAGS = ["--use_mesh", "--n_model", "2", "--fsdp", "--pp_stages", "2",
+                   "--pp_microbatches", "4", "--sharded_checkpoints", "--async_checkpoint"]
+
+
+def test_vision_driver_runs_with_the_scale_out_flags(tmp_path, caplog):
+    """The JAX Phase II drivers parse the scale-out flags and build no mesh;
+    the port's run their one-process path too: the same results JSON as
+    without the flags, and one line that names them."""
+    argv = ["--task_name", "coco-cls", "--encoder_name", "vilt", "--checkpoint_name", "scratch",
+            "--pretrained_model_name", "scratch", "--synthetic", "--tiny",
+            "--synthetic_train_size", "16", "--synthetic_vision_labels", "5", "--num_shot", "0.5",
+            "--batch_size", "8", "--task_config_overrides", "coco-cls.num_epochs=1",
+            "--device", "cpu"]
+    plain = port.main(argv + ["--output_dir", str(tmp_path / "plain")])
+    with caplog.at_level("WARNING"):
+        scaled = port.main(argv + ["--output_dir", str(tmp_path / "scaled"), *SCALE_OUT_FLAGS])
+    assert Path(scaled).read_text() == Path(plain).read_text()
+    assert ("these flags change nothing: --n_model 2, --use_mesh True, --pp_stages 2, "
+            "--fsdp True, --pp_microbatches 4, --sharded_checkpoints True, "
+            "--async_checkpoint True") in caplog.text
+
+
 def test_vision_driver_without_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

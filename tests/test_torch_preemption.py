@@ -9,20 +9,34 @@ experience-replay run, which draws from Python's ``random``); a request that
 lands after the last poll ends the driver with 143 at the task boundary.
 Requests are made from code (``request_preemption``, or the installed
 handler called directly): no real signal is sent inside a test worker.
+The JAX driver's train state, preempted mid-epoch or saved at an epoch's
+end (``tests/torch_resume_common.py``), resumes in the port's driver along
+the JAX driver's own resumed trajectory.
 """
 
 import json
 import signal
 
+import numpy as np
 import pytest
 import torch
 
+import torch_resume_common as resume
+from climb_tpu.cli.train_upstream_continual_learning import main as jax_main
 from climb_tpu_torch.ckpt import checkpoint
 from climb_tpu_torch.cli import train_upstream_continual_learning as port
 from climb_tpu_torch.train import trainers
 from climb_tpu_torch.utils import preemption
+from test_torch_data_common import jit_flax_init, share_jax_eval_steps
 
 torch.set_num_threads(1)
+
+GUARD = ["--skip_nonfinite_updates", "2"]
+# four to six AdamW steps at lr 2e-3 from the same state on reordered float32
+# sums; the key bias's gradient is rounding noise in both packages (see
+# tests/test_torch_train_step.py), so it is held to the steps' sum
+RESUME_ATOL, RESUME_RTOL = 5e-5, 1e-4
+SHIFT_INVARIANT = ".k.bias"
 
 
 @pytest.fixture(autouse=True)
@@ -175,3 +189,71 @@ def test_no_sigterm_checkpoint_installs_no_handler(tmp_path, monkeypatch):
     port.main(_argv(tmp_path / "b", "snli-ve", "singletask_ft"))  # the default installs one
     assert seen and all(h is not before for h in seen)
     assert signal.getsignal(signal.SIGTERM) is before  # and uninstalls it
+
+
+@pytest.fixture(scope="module")
+def jax_preempted(tmp_path_factory):
+    """The preempted JAX run's directory and its four train states."""
+    src = tmp_path_factory.mktemp("jax_run")
+    return src, resume.jax_train_states(src, *GUARD)
+
+
+@pytest.mark.parametrize("kind,layout", [("mid", "msgpack"), ("end", "sharded")])
+def test_port_resumes_a_jax_train_state_on_its_trajectory(kind, layout, jax_preempted,
+                                                          tmp_path, caplog):
+    """The port's driver resumes the JAX run from its state (mid-epoch 2, or
+    the end of epoch 1; the sharded one under --sharded_checkpoints, as the
+    run that wrote it) and the JAX driver from the same state's msgpack file
+    (it cannot read its own sharded train state: tests/test_torch_msgpack.py).
+    Both resume (only the remaining steps run), each step's loss agrees within
+    tests/test_torch_train_driver.py's W&B tolerance, the dev scores and
+    results are equal, and the task's final parameters agree within
+    ``RESUME_ATOL``/``RESUME_RTOL``. Dropout is off in this run (hidden
+    dropout 0, no multiple-choice head): the JAX dropout key cannot carry
+    over, and the port's generator, seeded from --seed and the global step,
+    draws nothing."""
+    from climb_tpu.configs.wandb_config import wandb_config as jax_wandb_config
+    from climb_tpu.utils.wandb import wandb_logger as jax_wandb
+    from climb_tpu_torch.configs.wandb_config import wandb_config as port_wandb_config
+    from climb_tpu_torch.utils.wandb import wandb_logger as port_wandb
+
+    src, states = jax_preempted
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    resume.install(states[kind, "msgpack"], jax_dir, src)
+    resume.install(states[kind, layout], port_dir, src)
+    history, sharded = {}, ["--sharded_checkpoints"] if layout == "sharded" else []
+    with pytest.MonkeyPatch.context() as mp:
+        jit_flax_init(mp)
+        share_jax_eval_steps(mp)
+        for name, config, logger, run in (
+                ("jax", jax_wandb_config, jax_wandb,
+                 lambda: jax_main(resume.argv(jax_dir, *GUARD, "--do_wandb_logging"))),
+                ("port", port_wandb_config, port_wandb,
+                 lambda: port.main(resume.argv(port_dir, *GUARD, "--device", "cpu",
+                                               "--do_wandb_logging", *sharded)))):
+            mp.setitem(config, "log_freq", 1)
+            mp.setattr(logger, "is_initialized", False)
+            mp.setattr(logger, "_history", [])
+            with caplog.at_level("INFO"):
+                run()
+            history[name] = logger._history
+    assert "JAX train state; its dropout key does not carry over" in caplog.text
+    done = resume.PREEMPT_AT if kind == "mid" else 3
+    losses = {k: [h["snli-ve/loss"] for h in v if "snli-ve/loss" in h]
+              for k, v in history.items()}
+    assert len(losses["port"]) == len(losses["jax"]) == 9 - done
+    assert [list(h) for h in history["port"]] == [list(h) for h in history["jax"]]
+    for got, ref in zip(history["port"], history["jax"]):
+        for k, v in ref.items():
+            if k.endswith("/dev_score"):
+                assert got[k] == v
+            elif k.endswith("/loss"):
+                np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-6)
+    assert json.loads((port_dir / resume.EXPERIMENT / "results.json").read_text()) == \
+        json.loads((jax_dir / resume.EXPERIMENT / "results.json").read_text())
+    got, ref = _task_model(port_dir), _task_model(jax_dir)
+    assert got.keys() == ref.keys()
+    for n in ref:
+        atol = 2 * (9 - done) * 2e-3 if n.endswith(SHIFT_INVARIANT) else RESUME_ATOL
+        np.testing.assert_allclose(got[n].numpy(), ref[n].numpy(), atol=atol,
+                                   rtol=RESUME_RTOL, err_msg=n)

@@ -22,6 +22,7 @@ from climb_tpu_torch.data.mean_image import compute_mean_image
 from climb_tpu_torch.data.mean_image import main as mean_image_main
 from climb_tpu_torch.evaluation import make_table
 from climb_tpu_torch.train.profiling import StepProfiler
+from test_torch_data_common import jax_native_route  # noqa: F401  (fixture)
 
 
 def _write_results(path, rng, shots, seeds):
@@ -87,10 +88,12 @@ def test_mean_image_matches_jax(tmp_path):
     assert (tmp_path / "cli.png").read_bytes() == (tmp_path / "jax3.png").read_bytes()
 
 
-def test_host_cost_matches_jax(tmp_path):
+def test_host_cost_matches_jax(tmp_path, jax_native_route):  # noqa: F811
     """One measurement through both cost models (the same dict at the same
     bandwidth; the port's default bandwidth is the measured one, JAX's
-    model_this_host), and both measurements' keys."""
+    model_this_host), and both measurements' keys. The JAX package takes its
+    native route from a private build, whatever other test processes have
+    built in its own directory, as the port builds its own at first use."""
     measured = host_cost.measure_host_costs(iters=1, tmpdir=str(tmp_path), bw_nbytes=1 << 20)
     ref = jax_host_cost.measure_host_costs(iters=1, tmpdir=str(tmp_path), bw_nbytes=1 << 20)
     assert measured.keys() == ref.keys()

@@ -262,13 +262,19 @@ def test_scale_out_flags_run_in_one_process(flags, tmp_path):
 
 
 def test_msgpack_checkpoint_raises(tmp_path):
-    """The JAX package's msgpack task checkpoints are read
-    (tests/test_torch_msgpack.py); its elastic train_state, with optax's
-    moments, is not."""
+    """The JAX package's msgpack task checkpoints and elastic train states are
+    read (tests/test_torch_msgpack.py); a msgpack train state without
+    optax's state raises, naming what it lacks."""
     from flax import serialization
+
+    from climb_tpu_torch.train.optimizer import make_optimizer
+    from climb_tpu_torch.train.train_state import TrainState
 
     path = tmp_path / "train_state"
     path.write_bytes(serialization.msgpack_serialize(
         {"state": {"step": np.asarray(3)}, "meta": {"epoch": np.asarray(1)}}))
-    with pytest.raises(NotImplementedError, match="flax"):
-        checkpoint.load_train_state(None, str(path))
+    layer = torch.nn.Linear(2, 2)
+    state = TrainState(dict(layer.named_parameters()),
+                       make_optimizer(["weight", "bias"], lr=1e-3, total_steps=4))
+    with pytest.raises(ValueError, match="JAX train_state: no opt_state"):
+        checkpoint.load_train_state(state, str(path))

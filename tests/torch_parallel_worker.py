@@ -17,7 +17,11 @@ Jobs:
 - ``save_sharded``: a sharded task checkpoint and a sharded train state
   (bf16 first moments) written by every rank;
 - ``load_sharded``: a sharded checkpoint read back whole on every rank;
-- ``driver``: the Phase I driver's ``main`` with the payload's argv.
+- ``driver``: the Phase I driver's ``main`` with the payload's argv;
+- ``int8_eval``: the int8 eval forwards of a learner under TP over the whole
+  world and on one rank, with the port's calibration and with given scales;
+- ``predict``: the ``predict`` CLI with the payload's argv (rank 0 returns
+  its output JSON).
 """
 
 import os
@@ -250,6 +254,79 @@ def job_driver(payload):
 
     driver.main(payload["argv"])
     return {"ok": True}
+
+
+def job_int8_eval(payload):
+    """For each case (``dense_impl``, ``mlp_impl``, ``dtype``, and optionally
+    ``lora``, the projections given LoRA deltas of random weights, the task's
+    active): the learner of ``payload['config']`` with the payload's weights,
+    on a ('data', 'model')
+    mesh of one data rank (TP over the world) and alone on each rank (no
+    mesh). Each gives its eval logits on ``payload['batch']``; under
+    int8_static each first calibrates on ``payload['calibration']`` (its
+    scales, and the scales of every rank) and then also evaluates with each
+    of ``payload['scales']`` installed (the JAX package's, carried across)."""
+    import torch
+    import torch.distributed as dist
+
+    from climb_tpu_torch.configs.task_configs import task_configs
+    from climb_tpu_torch.models.model_config import (
+        AdapterSpec,
+        ViltConfig,
+        head_specs_from_task_configs,
+    )
+    from climb_tpu_torch.models.vilt import ViltContinualLearner
+    from climb_tpu_torch.ops import quant
+    from climb_tpu_torch.parallel.mesh import make_mesh
+    from climb_tpu_torch.parallel.sharding import shard_model
+    from climb_tpu_torch.train.eval_step import calibrate_quant_scales, make_eval_step
+
+    mesh = make_mesh(n_model=dist.get_world_size())
+    task, tensors = payload["task"], lambda b: {k: torch.as_tensor(v) for k, v in b.items()}
+    out = []
+    for case in payload["cases"]:
+        case = dict(case)
+        spec = case.pop("lora", None)  # LoRA targets: random deltas on those projections
+        cfg = ViltConfig(**payload["config"], **case)
+        kw = {} if spec is None else {"adapter_spec": AdapterSpec(
+            lora=True, lora_rank=4, lora_targets=tuple(spec)), "adapter_tasks": payload["tasks"]}
+        weights = payload["state_dict"]
+        if spec is not None:
+            weights = dict(weights)
+            g = torch.Generator().manual_seed(7)
+            probe = ViltContinualLearner(cfg, head_specs_from_task_configs(payload["tasks"],
+                                                                           task_configs), **kw)
+            weights.update({n: torch.randn(p.shape, generator=g) * 0.1
+                            for n, p in probe.named_parameters() if "lora" in n})
+        got = {}
+        for name, where in (("tp", mesh), ("one", None)):
+            model = ViltContinualLearner(cfg, head_specs_from_task_configs(payload["tasks"],
+                                                                          task_configs), **kw)
+            model = shard_model(model.eval(), where)
+            model.load_state_dict(weights)
+            model.active_adapter = task if spec is not None else None
+            step = make_eval_step(model, task, "ce", cfg.compute_dtype)
+            if cfg.dense_impl == "int8_static":
+                own = calibrate_quant_scales(model, task, map(tensors, payload["calibration"]),
+                                             cfg.compute_dtype)
+                own = {n: v.clone() for n, v in own.items()}
+                ranks = [None] * dist.get_world_size()
+                dist.all_gather_object(ranks, own)
+                got[name + "_scales"], got[name + "_rank_scales"] = own, ranks
+                got[name + "_given"] = []
+                for scales in payload["scales"][case["mlp_impl"], case["dtype"]]:
+                    quant.load_quant_buffers(model, scales)
+                    got[name + "_given"].append(step(tensors(payload["batch"]))[0].float())
+                quant.load_quant_buffers(model, own)
+            got[name] = step(tensors(payload["batch"]))[0].float()
+        out.append(got)
+    return out
+
+
+def job_predict(payload):
+    from climb_tpu_torch.cli import predict
+
+    return predict.main(payload["argv"])
 
 
 def _child(job, rank, world, workdir):
