@@ -1307,26 +1307,49 @@ def timed_eval_steps(torch, module, steps):
 
 @contextlib.contextmanager
 def recorded_feed(torch, module, feeds, train_only=True, host_batches=None):
-    """Pass a ``timings`` list (``feeds``) to ``module.device_prefetch``: per
-    batch handed to a step, the ms it waited on the loader and the ms it spent
-    pinning and enqueueing copies. With ``train_only`` only the shuffled
-    (train) loaders' batches count. The first CHECKSUM_BATCHES host batches
-    are copied into ``host_batches`` as the loader gives them."""
+    """Record in ``feeds``, per batch that ``module.device_prefetch`` hands to
+    a step, the ms it waited on the loader and the ms it spent pinning and
+    enqueueing copies and handing the batch over. With ``train_only`` only
+    the shuffled (train) loaders' batches count. The first CHECKSUM_BATCHES
+    host batches are copied into ``host_batches`` as the loader gives them."""
     import numpy as np
 
     real = module.device_prefetch
 
-    def keep(batch_iter):
-        for batch in batch_iter:
+    def keep(batch_iter, waits):
+        it = iter(batch_iter)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t)
             if host_batches is not None and len(host_batches) < CHECKSUM_BATCHES:
                 host_batches.append({k: (v.numpy() if isinstance(v, torch.Tensor)
                                          else np.asarray(v)).copy() for k, v in batch.items()})
             yield batch
 
-    def recording(batch_iter, device, size=2, timings=None):
+    def recording(batch_iter, device, size=2):
         if train_only and not getattr(batch_iter, "shuffle", False):
-            return real(batch_iter, device, size, timings)
-        return real(keep(batch_iter), device, size, feeds)
+            return real(batch_iter, device, size)
+
+        def fed():
+            waits = []
+            it = real(keep(batch_iter, waits), device, size)
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                total = time.perf_counter() - t
+                wait = sum(waits)
+                waits.clear()
+                feeds.append({"loader_wait_ms": 1e3 * wait, "copy_ms": 1e3 * (total - wait)})
+                yield batch
+
+        return fed()
 
     with mock.patch.object(module, "device_prefetch", recording):
         yield

@@ -39,13 +39,14 @@ import logging
 import multiprocessing
 import queue
 import threading
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from climb_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -448,7 +449,7 @@ def _as_tensor(v) -> torch.Tensor:
     return v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
 
 
-def device_prefetch(batch_iter, device, size: int = 2, timings: Optional[list] = None):
+def device_prefetch(batch_iter, device, size: int = 2):
     """Yield the batches of ``batch_iter`` on ``device``, ``size`` batches
     copied ahead of the consumer.
 
@@ -463,62 +464,48 @@ def device_prefetch(batch_iter, device, size: int = 2, timings: Optional[list] =
     (and PyTorch's host allocator keeps a freed block until its copy ends).
     On the CPU the numpy arrays become tensors without a copy, one at a time.
 
-    ``timings``, where given, gets one entry a batch handed over: the ms this
-    call waited on ``batch_iter`` and the ms it spent enqueueing copies and
-    handing over, since the previous hand-over."""
+    Under a profiler the wait on ``batch_iter`` is the span
+    ``climb.data_wait``, and enqueueing the copies and handing a batch over
+    is ``climb.h2d_copy`` (``utils/tracing.py``)."""
     device = torch.device(device)
+    it = iter(batch_iter)
+
+    def wait():
+        with span("climb.data_wait"):
+            return next(it, None)
+
     if device.type != "cuda":
-        it = iter(batch_iter)
-        while True:
-            t = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                return
-            t1 = time.perf_counter()
-            batch = {k: _as_tensor(v).to(device) for k, v in batch.items()}
-            if timings is not None:
-                timings.append({"loader_wait_ms": 1e3 * (t1 - t),
-                                "copy_ms": 1e3 * (time.perf_counter() - t1)})
+        while (batch := wait()) is not None:
+            with span("climb.h2d_copy"):
+                batch = {k: _as_tensor(v).to(device) for k, v in batch.items()}
             yield batch
+        return
     side = torch.cuda.Stream(device)
     ahead = deque()
-    wait_ms = copy_ms = 0.0
 
     def hand_over():
-        nonlocal wait_ms, copy_ms
-        t = time.perf_counter()
         dev, _, event = ahead.popleft()
         current = torch.cuda.current_stream(device)
         current.wait_event(event)
         for v in dev.values():
             v.record_stream(current)
-        copy_ms += 1e3 * (time.perf_counter() - t)
-        if timings is not None:
-            timings.append({"loader_wait_ms": wait_ms, "copy_ms": copy_ms})
-        wait_ms = copy_ms = 0.0
         return dev
 
-    it = iter(batch_iter)
-    while True:
-        t = time.perf_counter()
-        try:
-            batch = next(it)
-        except StopIteration:
-            break
-        t1 = time.perf_counter()
-        wait_ms += 1e3 * (t1 - t)
-        host = {k: _as_tensor(v) for k, v in batch.items()}
-        with torch.cuda.stream(side):
-            dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
-            event = torch.cuda.Event()
-            event.record(side)
-        ahead.append((dev, host, event))
-        copy_ms += 1e3 * (time.perf_counter() - t1)
-        if len(ahead) > size:
-            yield hand_over()
+    while (batch := wait()) is not None:
+        with span("climb.h2d_copy"):
+            host = {k: _as_tensor(v) for k, v in batch.items()}
+            with torch.cuda.stream(side):
+                dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+                event = torch.cuda.Event()
+                event.record(side)
+            ahead.append((dev, host, event))
+            ready = hand_over() if len(ahead) > size else None
+        if ready is not None:
+            yield ready
     while ahead:
-        yield hand_over()
+        with span("climb.h2d_copy"):
+            ready = hand_over()
+        yield ready
 
 
 def collate_from_indices(dataset, indices: Sequence[int], collate_fn: Callable,

@@ -28,6 +28,7 @@ from torch import nn
 from climb_tpu_torch.models.heads import ClassificationHead, MultiChoiceHead
 from climb_tpu_torch.models.model_config import AdapterSpec, HeadSpec, ViltConfig
 from climb_tpu_torch.models.vilt_core import ViltCore, init_weights_
+from climb_tpu_torch.utils.tracing import span
 
 
 def head_name(task_key: str) -> str:
@@ -97,7 +98,8 @@ class ViltContinualLearner(nn.Module):
             batch["input_ids"], batch["text_mask"], batch["pixel_values"], batch["patch_hw"],
             token_type_ids=batch.get("token_type_ids"), text_embeds=batch.get("text_embeds"),
         )
-        logits = self.head(task_key)(pooled)
+        with span("climb.head"):
+            logits = self.head(task_key)(pooled)
         return (logits, pooled) if return_features else logits
 
     # image pair + text (NLVR2): sample-major fold s0i0, s0i1, ... with
@@ -117,7 +119,8 @@ class ViltContinualLearner(nn.Module):
         )
         # (2B, D) -> (B, 2D): [img0-pooled, img1-pooled] per sample
         pair = pooled.reshape(b, 2 * pooled.shape[-1])
-        logits = self.head(task_key)(pair)
+        with span("climb.head"):
+            logits = self.head(task_key)(pair)
         return (logits, pair) if return_features else logits
 
     # multiple choice (VCR): the image repeats across the choices
@@ -132,7 +135,8 @@ class ViltContinualLearner(nn.Module):
             token_type_ids=None if tt is None else tt.reshape(b * nc, l),
             text_embeds=None if te is None else te.reshape((b * nc,) + tuple(te.shape[2:])),
         )
-        logits = self.head(task_key)(pooled, self.encoder.dropout_generator).reshape(b, nc)
+        with span("climb.head"):
+            logits = self.head(task_key)(pooled, self.encoder.dropout_generator).reshape(b, nc)
         if return_features:
             return logits, pooled.reshape(b, nc * pooled.shape[-1])
         return logits
@@ -181,6 +185,7 @@ class ViltClassifier(nn.Module):
             pv = pv.expand((total,) + tuple(pv.shape[1:]))
             phw = phw.expand(total, 2)
         _, pooled, _ = self.encoder(ids, mask, pv, phw, token_type_ids=tt, text_embeds=te)
-        if multi_choice:
-            return self.head(pooled, self.encoder.dropout_generator).reshape(-1, nc)
-        return self.head(pooled)
+        with span("climb.head"):
+            if multi_choice:
+                return self.head(pooled, self.encoder.dropout_generator).reshape(-1, nc)
+            return self.head(pooled)

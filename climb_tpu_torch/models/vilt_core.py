@@ -117,6 +117,7 @@ from climb_tpu_torch.ops import attention, block, mlp, quant
 from climb_tpu_torch.ops.patch_embed import patch_grid_mask, patchify
 from climb_tpu_torch.parallel.pipeline import pipeline_layers
 from climb_tpu_torch.parallel.tensor_parallel import SOLO
+from climb_tpu_torch.utils import tracing
 
 
 def _interp_weight_matrix(n_valid: torch.Tensor, src: int, out_total: int) -> torch.Tensor:
@@ -414,6 +415,17 @@ class ViltCore(nn.Module):
 
     def forward(self, input_ids, text_mask, pixel_values, patch_hw,
                 image_token_type_idx=None, token_type_ids=None, text_embeds=None):
+        with tracing.span("climb.embed"):
+            x, joint_mask, mask_bias = self._embed(input_ids, text_mask, pixel_values, patch_hw,
+                                                   image_token_type_idx, token_type_ids,
+                                                   text_embeds)
+        with tracing.span("climb.encoder"):
+            x, pooled = self._encode(x, mask_bias)
+        return x, pooled, joint_mask
+
+    def _embed(self, input_ids, text_mask, pixel_values, patch_hw, image_token_type_idx,
+               token_type_ids, text_embeds):
+        """(joint sequence in the compute dtype, joint mask, mask bias)."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
         f32 = torch.float32
@@ -458,6 +470,16 @@ class ViltCore(nn.Module):
         x = torch.cat([t, img], dim=1).to(dtype)
         joint_mask = torch.cat([text_mask.to(f32), img_mask], dim=1)
         mask_bias = attention.mask_to_bias(joint_mask, dtype=f32)
+        if tracing.recording():
+            tracing.count_on_device("tokens", joint_mask.sum())
+            tracing.count("token_slots", joint_mask.numel())
+        return x, joint_mask, mask_bias
+
+    def _encode(self, x, mask_bias):
+        """(sequence output, pooled output) of the layers, the final
+        LayerNorm and the pooler."""
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
         remat = block_remat(cfg) and torch.is_grad_enabled()
         if cfg.pp_stages > 1 and self.pipe is not None:
             # the mask bias travels with its microbatch
@@ -471,7 +493,7 @@ class ViltCore(nn.Module):
 
         x = layer_norm(self.final_layernorm, x, dtype)
         pooled = torch.tanh(dense(self.pooler, x[:, 0], dtype))
-        return x, pooled, joint_mask
+        return x, pooled
 
     def _run_block(self, layer, x, mask_bias, remat):
         gen = self.dropout_generator

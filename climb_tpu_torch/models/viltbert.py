@@ -28,6 +28,7 @@ from climb_tpu_torch.models.bert import BertCore, bert_config_for
 from climb_tpu_torch.models.model_config import AdapterSpec, ViltConfig
 from climb_tpu_torch.models.vilt import ViltClassifier, ViltContinualLearner
 from climb_tpu_torch.models.vilt_core import ViltCore
+from climb_tpu_torch.utils.tracing import span
 
 
 class ViltBertCore(nn.Module):
@@ -59,7 +60,7 @@ class ViltBertCore(nn.Module):
     def forward(self, input_ids, text_mask, pixel_values, patch_hw,
                 image_token_type_idx=None, token_type_ids=None, text_embeds=None):
         if text_embeds is None:
-            with torch.no_grad():
+            with span("climb.text_encoder"), torch.no_grad():
                 text_embeds = self.bert(input_ids, text_mask, token_type_ids)
         return self.vilt(input_ids, text_mask, pixel_values, patch_hw,
                          image_token_type_idx=image_token_type_idx,

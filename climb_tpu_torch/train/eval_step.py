@@ -12,6 +12,7 @@ import torch
 
 from climb_tpu_torch.ops import quant
 from climb_tpu_torch.ops.image_ops import normalize_images
+from climb_tpu_torch.utils.tracing import span
 
 # reference trainers' loss per task (climb_tpu/train/trainers.py)
 LOSS_TYPES = {
@@ -24,10 +25,11 @@ LOSS_TYPES = {
 
 def prepare_batch(batch: dict, compute_dtype=torch.float32) -> dict:
     """Normalize uint8 pixels on the device; pass floats through unchanged."""
-    out = dict(batch)
-    pv = out.get("pixel_values")
-    if pv is not None and pv.dtype == torch.uint8:
-        out["pixel_values"] = normalize_images(pv, dtype=compute_dtype)
+    with span("climb.prepare_batch"):
+        out = dict(batch)
+        pv = out.get("pixel_values")
+        if pv is not None and pv.dtype == torch.uint8:
+            out["pixel_values"] = normalize_images(pv, dtype=compute_dtype)
     return out
 
 
@@ -65,12 +67,16 @@ def eval_forward(model: torch.nn.Module, task_key: Optional[str], loss_type: str
     (the eval step puts it in eval mode): (logits, metric_sum, metric_count).
     ``params`` (names -> tensors, parameters and buffers) stand in for the
     model's own when given."""
-    batch = prepare_batch(batch, compute_dtype)
-    if params is None:
-        logits = model(*model_inputs(task_key, batch))
-    else:
-        logits = torch.func.functional_call(model, params, model_inputs(task_key, batch))
-    metric_sum, metric_count = batch_metric(logits, batch, loss_type)
+    with span("climb.eval_step"):
+        batch = prepare_batch(batch, compute_dtype)
+        with span("climb.forward"):
+            if params is None:
+                logits = model(*model_inputs(task_key, batch))
+            else:
+                logits = torch.func.functional_call(model, params,
+                                                    model_inputs(task_key, batch))
+        with span("climb.metric"):
+            metric_sum, metric_count = batch_metric(logits, batch, loss_type)
     return logits, metric_sum, metric_count
 
 

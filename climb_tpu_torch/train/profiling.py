@@ -5,7 +5,13 @@
   5 steps are done, stopped after the 10th, as JAX's trace is), recording CPU
   activity, and CUDA activity on the card; written as a Chrome-trace JSON,
   ``<dir>/<task>.pt.trace.json`` (chrome://tracing or Perfetto). A task of
-  fewer steps writes what the window recorded when its loop ends.
+  fewer steps writes what the window recorded when its loop ends. The trace
+  carries the port's ``climb.*`` spans (``utils/tracing.py``) as
+  ``user_annotation`` ranges: each step's phases (``climb.train_step``,
+  ``climb.forward``, ``climb.backward``, ``climb.optimizer``, ...), the wait
+  on the loader (``climb.data_wait``), the copies to the card
+  (``climb.h2d_copy``) and the logging that waits for the device
+  (``climb.log``).
 - ``--memory_profile``: what is live on the card after step 5, as a CUDA
   memory snapshot (``torch.cuda.memory._dump_snapshot``: PyTorch's pickle
   format, not JAX's pprof), recorded from the trainer's start so that the

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from climb_tpu_torch.train.eval_step import batch_metric, model_inputs, prepare_batch
 from climb_tpu_torch.train.train_state import TrainState
+from climb_tpu_torch.utils.tracing import span
 
 
 def _valid(batch: dict, n: int, device) -> torch.Tensor:
@@ -236,6 +237,10 @@ def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: 
 
     def train_step(state: TrainState, batch: dict, ewc_ref: Optional[EwcRef] = None,
                    fd_ref: Optional[FdRef] = None) -> dict:
+        with span("climb.train_step"):
+            return _step(state, batch, ewc_ref, fd_ref)
+
+    def _step(state, batch, ewc_ref, fd_ref):
         model.train()
         par = getattr(model, "parallel", None)
         batch = prepare_batch(batch, compute_dtype)
@@ -248,29 +253,34 @@ def make_train_step(model: torch.nn.Module, task_key: Optional[str], loss_type: 
         loss, fd, logits = 0.0, 0.0, []
         for i in range(accum):
             mb = {k: v[i * n // accum:(i + 1) * n // accum] for k, v in batch.items()}
-            if fd_ref is None:
-                out = model(*model_inputs(task_key, mb))
-            else:
-                out, feats = model(task_key, mb, return_features=True)
-                t_feats = teacher_features(model, task_key, mb, fd_ref.teacher)
-                fd_scaled = fd_ref.weight * fd_penalty_sum(
-                    feats, t_feats, _valid(mb, out.shape[0], out.device)) / denom
-            lsum, _ = compute_loss_sum(out, mb, loss_type)
-            data_loss = lsum / denom
-            micro_loss = data_loss
-            if fd_ref is not None:
-                micro_loss = micro_loss + fd_scaled
-                fd = fd + fd_scaled.detach()
-            if ewc_ref is not None and par is None:
-                micro_loss = micro_loss + ewc_penalty(state.params, ewc_ref) / accum
-            micro_loss.backward()
+            with span("climb.forward"):
+                if fd_ref is None:
+                    out = model(*model_inputs(task_key, mb))
+                else:
+                    out, feats = model(task_key, mb, return_features=True)
+                    t_feats = teacher_features(model, task_key, mb, fd_ref.teacher)
+            with span("climb.loss"):
+                lsum, _ = compute_loss_sum(out, mb, loss_type)
+                data_loss = lsum / denom
+                micro_loss = data_loss
+                if fd_ref is not None:
+                    fd_scaled = fd_ref.weight * fd_penalty_sum(
+                        feats, t_feats, _valid(mb, out.shape[0], out.device)) / denom
+                    micro_loss = micro_loss + fd_scaled
+                    fd = fd + fd_scaled.detach()
+                if ewc_ref is not None and par is None:
+                    micro_loss = micro_loss + ewc_penalty(state.params, ewc_ref) / accum
+            with span("climb.backward"):
+                micro_loss.backward()
             loss = loss + data_loss.detach()
             logits.append(out.detach())
-        if par is None:
-            state.apply_gradients(_grads(state.params))
-        else:
-            state.apply_gradients(_reduced_grads(state.params, par, ewc_ref))
-        metric_sum, metric_count = batch_metric(torch.cat(logits), batch, loss_type)
+        with span("climb.optimizer"):
+            if par is None:
+                state.apply_gradients(_grads(state.params))
+            else:
+                state.apply_gradients(_reduced_grads(state.params, par, ewc_ref))
+        with span("climb.metric"):
+            metric_sum, metric_count = batch_metric(torch.cat(logits), batch, loss_type)
         if par is not None:
             loss, metric_sum, metric_count = (par.batch_sum(t) for t in
                                               (loss, metric_sum, metric_count))

@@ -102,6 +102,7 @@ from climb_tpu_torch.train.profiling import StepProfiler
 from climb_tpu_torch.train.train_state import TrainState
 from climb_tpu_torch.train.train_step import auto_grad_accum_for_batch, make_train_step
 from climb_tpu_torch.utils import preemption
+from climb_tpu_torch.utils.tracing import span
 from climb_tpu_torch.utils.wandb import wandb_logger
 
 logger = logging.getLogger(__name__)
@@ -435,13 +436,15 @@ class VLTaskTrainer:
                     replay_memory.run_replay_step(model)
                 steps_this_epoch += 1
                 if global_step % self.log_freq == 0:
-                    log = {f"{self.task_key}/{k}": float(metrics[k])
-                           for k in ("loss", "ewc_loss", "distill_loss") if k in metrics}
-                    log[f"{self.task_key}/examples_per_sec"] = round(
-                        seen / max(time.time() - t0, 1e-9), 1)
-                    wandb_logger.log(log)
-                    logger.info("task=%s step %d: %s", self.task_key, global_step,
-                                " ".join(f"{k.split('/')[-1]}={v:.4f}" for k, v in log.items()))
+                    with span("climb.log"):  # float() waits for the device
+                        log = {f"{self.task_key}/{k}": float(metrics[k])
+                               for k in ("loss", "ewc_loss", "distill_loss") if k in metrics}
+                        log[f"{self.task_key}/examples_per_sec"] = round(
+                            seen / max(time.time() - t0, 1e-9), 1)
+                        wandb_logger.log(log)
+                        logger.info("task=%s step %d: %s", self.task_key, global_step,
+                                    " ".join(f"{k.split('/')[-1]}={v:.4f}"
+                                             for k, v in log.items()))
                 if preempt and any_rank(preemption.preemption_requested(), model):
                     if self.writer is not None:
                         self.writer.flush()

@@ -1,0 +1,8 @@
+"""Device milliseconds a step launched inside the port's span
+``climb.optimizer``, in `vilt-b32`'s traced train steps."""
+
+from climbbench.metrics import spans
+
+
+def read(r):
+    return spans.device_ms(r, "climb.optimizer")

@@ -1,0 +1,9 @@
+"""Device milliseconds a step launched inside the port's span
+``climb.text_encoder`` (the frozen BERT), in `viltbert`'s traced train
+steps."""
+
+from climbbench.metrics import spans
+
+
+def read(r):
+    return spans.device_ms(r, "climb.text_encoder")

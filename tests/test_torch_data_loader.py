@@ -2,7 +2,8 @@
 bit, epoch by epoch, shuffled and in order, with and without ``drop_last``,
 from thread and process workers, over a synthetic split and the mini CLiMB
 data root's real splits; ``set_skip``; bounded readahead; a worker's
-exception reaching the consumer; and ``device_prefetch``'s order on the CPU.
+exception reaching the consumer; and ``device_prefetch``'s order and spans on
+the CPU.
 All comparisons are exact.
 """
 
@@ -13,6 +14,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from climb_tpu.configs.task_configs import task_configs as jax_task_configs
 from climb_tpu.data.collation import stack_collate as jax_collate
@@ -25,6 +27,7 @@ from climb_tpu_torch.data.collation import stack_collate
 from climb_tpu_torch.data.loader import DataLoader, collate_from_indices, device_prefetch
 from climb_tpu_torch.data.synthetic import make_synthetic_vl_dataset
 from climb_tpu_torch.data.visionlanguage import build_vl_datasets
+from climb_tpu_torch.utils import tracing
 from test_driver_real_data import climb_dir  # noqa: F401  (the mini data root)
 from test_torch_data_common import copy_root, jax_native_route  # noqa: F401
 
@@ -149,15 +152,21 @@ def test_device_prefetch_keeps_order_on_the_cpu(splits):
     loader = DataLoader(port_ds, 8, stack_collate, shuffle=True, seed=5, num_workers=2)
     loader.set_epoch(1)
     host = list(loader)
-    timings = []
-    got = list(device_prefetch(loader, "cpu", size=2, timings=timings))
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = list(device_prefetch(loader, "cpu", size=2))
+    spans = tracing.snapshot()["spans"]
+    tracing.reset()
     assert len(got) == len(host)
     for g, h in zip(got, host):
         assert sorted(g) == sorted(h)
         for k in h:
             assert isinstance(g[k], torch.Tensor) and g[k].device.type == "cpu"
             assert np.array_equal(g[k].numpy(), h[k]), k
-    assert len(timings) == len(host)  # one reading a batch handed over
-    assert all(t["loader_wait_ms"] >= 0 and t["copy_ms"] >= 0 for t in timings)
+    # a wait on the loader for every batch and the end, a copy a batch handed over
+    names = [s["name"] for s in spans]
+    assert names.count("climb.data_wait") == len(host) + 1
+    assert names.count("climb.h2d_copy") == len(host)
+    assert all(s["parent"] is None and s["end_ns"] >= s["start_ns"] for s in spans)
     with pytest.raises(ValueError):
         DataLoader(port_ds, 8, stack_collate, worker_mode="fiber")
