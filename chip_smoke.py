@@ -26,7 +26,12 @@ Phases, each printing one JSON line as soon as it ends:
               the FFN at the ragged row counts of the train (8,992) and
               language (16,912) batches and of one example (281), and the bf16
               GEMM's column tail (N % 128 != 0): the FFN at D 64 / F 128 and
-              D 192 / F 768 and the fused sublayer at D 192, 3 heads. Each row
+              D 192 / F 768 and the fused sublayer at D 192, 3 heads. The FFN
+              backward's bf16 recompute (csrc/mlp_bwd.cu: g and dh1) against
+              its plain version at the serving batch's rows, the ragged row
+              counts, F 1536 and the tails D 64 / F 192 and D 192 / F 768,
+              called twice (bit-equal), and the whole backward op against
+              fused_mlp_bwd_plain at the first of them. Each row
               carries previous_ms, the kernel's time before its last
               redesign at its shape. The attention backward is also held
               at S = 9 (one example with every key masked), 97 and 161, and
@@ -377,6 +382,9 @@ TOLERANCES = {
                              "order"),
     ("mlp_fwd", "bfloat16"): (1e-2, 1e-2, "same bf16 operands and f32 sums in another "
                               "order: a 1-ulp flip in the bf16 rounding of h or o"),
+    ("mlp_bwd", "bfloat16"): (1e-2, 1e-2, "the FFN's bf16 tolerance: the same exact bf16 "
+                              "products in f32 sums of another order and the same f32 GELU "
+                              "and GELU', so a 1-ulp flip in the bf16 rounding of g or dh1"),
     ("normalize_u8", "float32"): (0.0, 0.0, "bit-exact by construction"),
     ("normalize_u8", "bfloat16"): (0.0, 0.0, "bit-exact by construction"),
     ("attention_bwd", "float32"): (3e-5, 1e-3, "the gradient tolerance of "
@@ -438,6 +446,7 @@ TENSOR_CORE_KERNELS = {
     "attention_fwd_bf16_kernel": "HGMMA", "attention_bwd_dq_bf16_kernel": "HGMMA",
     "attention_bwd_dkdv_bf16_kernel": "HGMMA", "linear_bf16_wgmma_kernel": "HGMMA",
     "qkv_bf16_wgmma_kernel": "HGMMA", "out_bf16_wgmma_kernel": "HGMMA",
+    "mlp_bwd_bf16_wgmma_kernel": "HGMMA",
 }
 # the FFN's ragged row counts held on the card beside the serving shape: the
 # train batch (32 x 281), the language batch (16 x 1057) and one example
@@ -1062,16 +1071,17 @@ def predict_argv(out_dir, dtype, attn_impl="pallas"):
     ]
 
 
-def expected_launches(fused, n_forward, n_backward, n_batches, layers=None):
+def expected_launches(fused, n_forward, n_backward, n_batches, layers=None, bf16=True):
     """Launch counts of ``n_forward`` encoder forwards, ``n_backward`` of them
     with a backward, over ``n_batches`` normalized batches, through ``layers``
     (default LAYERS) blocks: with fused_block the sublayer kernel takes the
-    place of the attention forward."""
+    place of the attention forward; the FFN backward launches its kernel in
+    bf16 only (``bf16``), float32 keeps the plain version's products."""
     layers = LAYERS if layers is None else layers
     return {"attention_fwd": 0 if fused else layers * n_forward,
             "fused_block_fwd": layers * n_forward if fused else 0,
             "attention_bwd": layers * n_backward, "mlp_fwd": layers * n_forward,
-            "normalize_u8": n_batches}
+            "mlp_bwd": layers * n_backward if bf16 else 0, "normalize_u8": n_batches}
 
 
 def run_predict(torch, attn_impl="pallas"):
@@ -1181,6 +1191,7 @@ def plain_path():
             mock.patch.object(block, "fused_attention_sublayer",
                               block.fused_attention_sublayer_plain),
             mock.patch.object(mlp, "fused_mlp", mlp.fused_mlp_plain),
+            mock.patch.object(mlp, "fused_mlp_bwd", mlp.fused_mlp_bwd_plain),
             mock.patch.object(eval_step_mod, "normalize_images",
                               image_ops.normalize_images_plain))
 
@@ -1622,7 +1633,8 @@ def compare_train_paths(torch, attn_impl="pallas", encoder="vilt"):
         reset_launch_counts()
         k_losses, k_grads, k_ms, k_step, k_state = run(3, ())
         n_run = 3 + 1 + 3  # the compared steps, then time_ms's warm-up and timed steps
-        if dict(LAUNCHES) != expected_launches(fused, n_run, n_run, n_run):
+        if dict(LAUNCHES) != expected_launches(fused, n_run, n_run, n_run,
+                                               bf16=dtype == "bfloat16"):
             raise AssertionError(f"kernel path launched {LAUNCHES}")
         reset_launch_counts()
         p_losses, p_grads, p_ms, _, _ = run(3, plain_path())
@@ -1703,6 +1715,103 @@ def check_gemm_tails(torch):
               "kernel_ms": time_ms(torch, lambda: block.fused_attention_sublayer(
                   *args, num_heads=heads), iters=10)})
         del out, ref
+    torch.cuda.synchronize()
+
+
+# the whole FFN backward (dx, dW1, db1, dW2, db2) against fused_mlp_bwd_plain,
+# each gradient's norm of the difference over its norm: both take the same
+# bf16 torch.matmul calls on g and dh1, which may differ by 1 ulp; cuBLAS may
+# reduce split-K partial sums in bf16 (PyTorch's default
+# allow_bf16_reduced_precision_reduction), so an element's error scales with
+# its sum's partials, up to ~1 at 17,984 rows where the element may be small:
+# held normwise, at one bf16 ulp
+MLP_BWD_GRAD_REL_TOL = (2.0 ** -7, "the same bf16 products of g and dh1 (1-ulp flips), "
+                        "split-K partials rounded to bf16 by cuBLAS: normwise, one bf16 ulp")
+# the FFN backward's recompute (csrc/mlp_bwd.cu), bf16 (rows, D, F): the
+# serving batch's rows (64 x 281, the benchmark's train cells), the ragged
+# row counts (train driver, language driver, one example), tensor
+# parallelism's F 1536 at n = 2, and the tails: D 64 / F 192 (one D slice,
+# the last column tile half outside F) and D 192 / F 768 (as many D slices
+# as the ring has stages)
+MLP_BWD_CASES = (((BATCH * SEQ, HIDDEN, FFN),) + tuple((r, HIDDEN, FFN) for r in RAGGED_ROWS)
+                 + ((TRAIN_BATCH * SEQ, HIDDEN, FFN // 2), (BATCH * SEQ, HIDDEN, FFN // 2),
+                    (TRAIN_BATCH * SEQ, 64, 192), (TRAIN_BATCH * SEQ, 192, 768)))
+
+
+def mlp_bwd_bound(rows, d, f):
+    """The recompute's bound in bf16: x and dy read, both weights and b1
+    read, g and dh1 written; the two products' 4 rows D F operations."""
+    return bound((2 * rows * d + 2 * d * f + f + 2 * rows * f) * 2, 4 * rows * d * f, PEAK_BF16)
+
+
+def mlp_bwd_library(torch):
+    """g and dh1 by PyTorch's library calls: two bf16 F.linear, the exact
+    GELU, and the eager f32 GELU' chain."""
+    import torch.nn.functional as F
+
+    from climb_tpu_torch.ops import mlp
+
+    def library(x, w1, b1, w2, dy):
+        h1, dg = F.linear(x, w1, b1), F.linear(dy, w2.t())
+        return F.gelu(h1), (dg.float() * mlp._gelu_grad(h1.float())).to(x.dtype)
+    return library
+
+
+def check_mlp_bwd(torch):
+    """The FFN backward's kernel (g and dh1) against mlp_bwd_recompute_plain
+    at MLP_BWD_CASES, a second call bit-equal, with the plain version's and
+    the library calls' times and the bound; at the first case also the whole
+    backward (the op: kernel, bf16 products, f32 sums) against
+    fused_mlp_bwd_plain, and both timed."""
+    from climb_tpu_torch.kernels import LAUNCHES
+    from climb_tpu_torch.ops import mlp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    library = mlp_bwd_library(torch)
+    bf16 = torch.bfloat16
+    for i, (rows, d, f) in enumerate(MLP_BWD_CASES):
+        x, dy = (torch.randn((rows, d), generator=gen, device=dev).to(bf16) for _ in range(2))
+        w1 = (torch.randn((f, d), generator=gen, device=dev) / math.sqrt(d)).to(bf16)
+        b1 = (torch.randn((f,), generator=gen, device=dev) * 0.02).to(bf16)
+        w2 = (torch.randn((d, f), generator=gen, device=dev) / math.sqrt(f)).to(bf16)
+        args = (x, w1, b1, w2, dy)
+        what = f"mlp_bwd {rows} rows, D {d}, F {f}"
+        kernel = lambda: mlp._mlp_bwd_recompute_cuda(*args)
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = mlp.mlp_bwd_recompute_plain(*args)
+        errs = [compare(torch, "mlp_bwd", "bfloat16", o, r) for o, r in zip(out, ref)]
+        row = {"phase": "kernel", "name": "mlp_bwd", "dtype": "bfloat16",
+               "at": f"{rows} rows, D {d}, F {f}",
+               "shape": f"x, dy ({rows},{d}) bf16, w1 ({f},{d}), w2 ({d},{f})",
+               "max_abs_err": {"g": errs[0][0], "dh1": errs[1][0]}, "tolerance": errs[0][1],
+               "second_call_bit_equal": check_deterministic(torch, kernel(), out, what)}
+        del out, ref
+        before = LAUNCHES["mlp_bwd"]
+        grads = mlp.fused_mlp_bwd(*args)
+        row["launches"] = LAUNCHES["mlp_bwd"] - before
+        if i == 0:
+            rel, names = {}, ("dx", "dw1", "db1", "dw2", "db2")
+            for name, o, r in zip(names, grads, mlp.fused_mlp_bwd_plain(*args)):
+                o, r = o.float(), r.float()
+                rel[name] = ((o - r).norm() / r.norm()).item()
+                if not (torch.isfinite(o).all() and rel[name] <= MLP_BWD_GRAD_REL_TOL[0]):
+                    raise AssertionError(f"{what}: {name} differs from fused_mlp_bwd_plain by "
+                                         f"{rel[name]:.3e} of its norm ({MLP_BWD_GRAD_REL_TOL})")
+            row.update({"grads_rel_err": rel, "grads_tolerance": MLP_BWD_GRAD_REL_TOL,
+                        "backward_ms": time_ms(torch, lambda: mlp.fused_mlp_bwd(*args)),
+                        "backward_plain_ms": time_ms(
+                            torch, lambda: mlp.fused_mlp_bwd_plain(*args), iters=5)})
+        del grads
+        row.update({"kernel_ms": time_ms(torch, kernel),
+                    "plain_ms": time_ms(torch, lambda: mlp.mlp_bwd_recompute_plain(*args),
+                                        iters=5),
+                    "library_ms": time_ms(torch, lambda: library(*args)),
+                    "library": "bf16 F.linear x2, gelu, eager f32 GELU' chain"})
+        row["bound_ms"], row["bound_by"] = mlp_bwd_bound(rows, d, f)
+        emit(row)
+        del x, dy, w1, b1, w2, args
     torch.cuda.synchronize()
 
 
@@ -1788,7 +1897,7 @@ def compare_cl_train_paths(torch):
         reset_launch_counts()
         k_losses, k_extra, k_grads = run(())
         n_fwd = 6 if variant == "distill" else 3  # the teacher's forward besides the student's
-        expected = expected_launches(False, n_fwd, 3, 3)
+        expected = expected_launches(False, n_fwd, 3, 3, bf16=False)
         if dict(LAUNCHES) != expected:
             raise AssertionError(f"{variant}: kernel path launched {LAUNCHES}, expected {expected}")
         reset_launch_counts()
@@ -1879,7 +1988,7 @@ def cl_expected(name, flags):
     launches = {"attention_fwd": 0 if fused else LAYERS * fwd,
                 "fused_block_fwd": LAYERS * fwd if fused else 0,
                 "attention_bwd": LAYERS * bwd, "mlp_fwd": LAYERS * fwd if ffn_kernel else 0,
-                "normalize_u8": batches}
+                "mlp_bwd": LAYERS * bwd if ffn_kernel else 0, "normalize_u8": batches}
     return launches, steps, replays, fisher
 
 
@@ -4921,7 +5030,8 @@ def check_pair(res, what):
         for name, row in r["layouts"].items():
             fused = "fused" in name
             n = SCALEOUT_STEPS
-            expected = expected_launches(fused, n, n, n, layers=SCALEOUT_PAIR_LAYERS)
+            expected = expected_launches(fused, n, n, n, layers=SCALEOUT_PAIR_LAYERS,
+                                         bf16=name.endswith("bfloat16"))
             if row["launches"] != expected:
                 raise AssertionError(f"{what} rank {rank} {name}: launches {row['launches']} "
                                      f"!= {expected}")
@@ -5432,6 +5542,7 @@ def main() -> int:
         check_kernels(torch, results)
         check_fused_block(torch, results)
         check_gemm_tails(torch)
+        check_mlp_bwd(torch)
         check_tp_kernels(torch, results)
     check_attention_bwd(torch, results)
     check_attention_bwd_edges(torch)

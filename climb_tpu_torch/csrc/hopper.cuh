@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the bf16 GEMM in gemm.cuh and the bf16
-// attention forward (attention.cu) and backward (attention_bwd.cu):
+// Hopper (sm_90a) building blocks of the bf16 GEMM in gemm.cuh, the FFN
+// backward's recompute (mlp_bwd.cu) and the bf16 attention forward
+// (attention.cu) and backward (attention_bwd.cu):
 // mbarriers and the full/empty ring of streamed tiles, TMA tile loads
 // described by a CUtensorMap, warpgroup MMA (wgmma) with its shared-memory
 // descriptors and fences, the register handoff between warpgroups
@@ -20,9 +21,10 @@
 // bf16 tile whose rows are the reduction axis K and whose 128-byte rows run
 // along N is the MN-major 128-byte-swizzled layout ((8, 8), (8, k)) :
 // ((1, 8), (64, SBO)) in elements: eight rows of K 128 bytes apart, 8-row
-// groups 1024 bytes apart (SBO), and N = 64 in one swizzle atom, so the
-// leading byte offset (the stride between 64-wide N blocks) is not used. The
-// k-th 16-deep slice starts 16 rows, 2048 bytes, into the tile.
+// groups 1024 bytes apart (SBO), and N = 64 in one swizzle atom. The leading
+// byte offset is the stride between 64-wide N blocks: unused at N = 64; at N =
+// 128 two such tiles 8192 bytes apart (wgmma_m64n128k16_mn). The k-th
+// 16-deep slice starts 16 rows, 2048 bytes, into the tile.
 //
 // The accumulator of wgmma m64nNk16 with f32 D, for thread t of the
 // warpgroup with w = t / 32, l = t % 32: d[4j + 2h + e] holds
@@ -181,7 +183,8 @@ __device__ __forceinline__ unsigned long long sw128_desc(unsigned addr) {
 }
 
 // descriptor of an MN-major, 128-byte-swizzled operand tile starting at
-// `addr` (the layout above): leading byte offset 8192 (unused at N = 64),
+// `addr` (the layout above): leading byte offset 8192 (the next 64-wide N
+// block, unused at N = 64),
 // stride byte offset 1024, layout type 1; read with the transpose bit set
 __device__ __forceinline__ unsigned long long sw128_mn_desc(unsigned addr) {
   return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) | ((8192ull >> 4) << 16) |
@@ -233,6 +236,36 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], unsigned long l
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16, K-major in shared memory) . B (16 x
+// 128, bf16, MN-major in shared memory: two 64-wide N blocks of the layout
+// above, 8192 bytes apart, read by sw128_mn_desc), by the whole warpgroup
+__device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], unsigned long long a,
+                                                    unsigned long long b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),

@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("attention.cu", "attention_bwd.cu", "block.cu", "mlp.cu", "normalize.cu")
+SOURCES = ("attention.cu", "attention_bwd.cu", "block.cu", "mlp.cu", "mlp_bwd.cu",
+           "normalize.cu")
 HEADERS = ("common.cuh", "gemm.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +49,7 @@ _SIGNATURES = {
         _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL3, _LL, ctypes.c_float, _I, _P,
     ),
     "climb_linear_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "climb_mlp_bwd_recompute": (_P,) * 7 + (_I,) * 3 + (_P,),
     "climb_fused_attention_sublayer": (_P,) * 18 + (_I,) * 5 + (ctypes.c_float, _I, _P),
 }
 

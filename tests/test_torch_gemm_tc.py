@@ -53,11 +53,12 @@ def test_build_phase_faults_of_a_gemm_kernel(row, fault):
     assert faults == ([] if fault is None else [f"out_bf16_wgmma_kernel: {fault}"])
 
 
-# the bf16 kernels, all on wgmma: the three GEMMs, the attention forward and
-# the two launches of the attention backward
+# the bf16 kernels, all on wgmma: the three GEMMs, the FFN backward's
+# recompute, the attention forward and the two launches of the attention
+# backward
 WGMMA_KERNELS = {"linear_bf16_wgmma_kernel", "qkv_bf16_wgmma_kernel", "out_bf16_wgmma_kernel",
-                 "attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
-                 "attention_bwd_dkdv_bf16_kernel"}
+                 "mlp_bwd_bf16_wgmma_kernel", "attention_fwd_bf16_kernel",
+                 "attention_bwd_dq_bf16_kernel", "attention_bwd_dkdv_bf16_kernel"}
 
 
 def test_every_checked_kernel_is_in_the_sources_and_the_gemms_use_no_wmma():
@@ -67,7 +68,7 @@ def test_every_checked_kernel_is_in_the_sources_and_the_gemms_use_no_wmma():
         assert re.search(rf"\b{kernel}\(", everything), kernel
         assert instruction == "HGMMA"
     assert set(chip_smoke.TENSOR_CORE_KERNELS) == WGMMA_KERNELS
-    for name in ("gemm.cuh", "mlp.cu", "block.cu"):
+    for name in ("gemm.cuh", "mlp.cu", "mlp_bwd.cu", "block.cu"):
         assert "wmma" not in sources[name].replace("wgmma", ""), name
     # no source holds an mma.sync product, an ldmatrix or a cp.async any more
     # (tc.cuh's helpers went with the forward's last caller)
